@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of the MEL system in ``repro`` (the JAX reference).
+
+The layer map follows the reference package: ``data/``, ``core/``,
+``models/``, ``kernels/``, ``fed/``. Host-side allocation math is NumPy,
+copied from the reference; model math is torch; the train+aggregate hot
+path runs hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
+
+Entry points take ``device=None``, which means ``"cuda"``; on a machine
+without a card they raise unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU"
+        )
+    return dev

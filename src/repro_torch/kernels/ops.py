@@ -1,0 +1,32 @@
+"""Dispatch of the port's hot spots by the tensors' device.
+
+A CPU tensor takes the plain torch version in ``ref``. A CUDA tensor
+launches the hand-written kernel, or the call raises: there is no switch
+and no fallback to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fed_agg import fed_agg_cuda
+from repro_torch.kernels.train_step import train_agg_step_cuda
+
+__all__ = ["fed_agg", "train_agg_step"]
+
+
+def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum over the leading learner axis of a stacked tensor."""
+    if stacked.device.type == "cpu":
+        return ref.fed_agg_ref(stacked, weights)
+    return fed_agg_cuda(stacked, weights)
+
+
+def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int) -> list[dict]:
+    """One train+aggregate cycle of the MLP (cycle form): ``tau_k`` masked
+    GD steps of ``mlp.loss`` per learner from ``disp``, then the weighted
+    aggregation. ``max_tau`` is the host's bound on ``max(tau)``."""
+    if x.device.type == "cpu":
+        return ref.train_agg_step_ref(disp, x, y, m, tau, weights, lr, max_tau=max_tau)
+    return train_agg_step_cuda(disp, x, y, m, tau, weights, lr, max_tau=max_tau)

@@ -1,0 +1,121 @@
+"""CUDA kernels for one train+aggregate cycle of K learners (cycle form).
+
+Replaces the Pallas TPU megakernel ``train_agg_step_pallas``
+(``repro/kernels/train_step.py:119``) in its cycle form: each learner runs
+``tau_k`` masked gradient steps of the MLP's masked mean NLL from its own
+parameters, then the trained learners are aggregated with weights ``w``.
+The source, with its bound and design, is ``csrc/train_step.cu``; one C
+call runs every step of the cycle on the current stream, and the
+aggregation launches the ``fed_agg`` kernel once per leaf. The plain torch
+version is ``repro_torch.kernels.ref.train_agg_step_ref``;
+``ops.train_agg_step`` picks between the two by the tensors' device.
+
+``launches`` counts the cycle entry point's calls in this process; set it
+to 0 to start a count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fed_agg import fed_agg_cuda
+
+__all__ = ["train_agg_step_cuda", "launches"]
+
+launches = 0
+_MAX_CLASSES = 64   # the loss-gradient kernel keeps no more logits a row
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("train_step")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.train_cycle_f32.restype = i32
+    lib.train_cycle_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_float, i32, ptr,
+    ]
+    lib.kernel_error_string.restype = ctypes.c_void_p
+    lib.kernel_error_string.argtypes = [i32]
+    return lib
+
+
+def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
+    """Validate what the kernel takes; returns the layer widths."""
+    dev = x.device
+    if not x.is_cuda:
+        raise ValueError("train_agg_step_cuda takes CUDA tensors")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (K, d_cap, features), got {tuple(x.shape)}")
+    k, d_cap, feat = x.shape
+    want = {
+        "x": (x, torch.float32, (k, d_cap, feat)),
+        "y": (y, torch.int32, (k, d_cap)),
+        "m": (m, torch.float32, (k, d_cap)),
+        "tau": (tau, torch.int32, (k,)),
+        "weights": (weights, torch.float32, (k,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    widths = [feat]
+    for i, layer in enumerate(disp):
+        w, b = layer["w"], layer["b"]
+        if (w.dim() != 3 or tuple(w.shape[:2]) != (k, widths[-1])
+                or tuple(b.shape) != (k, w.shape[2])):
+            raise ValueError(f"layer {i}: w {tuple(w.shape)}, b {tuple(b.shape)} do "
+                             f"not chain from width {widths[-1]} over {k} learners")
+        if w.dtype != torch.float32 or b.dtype != torch.float32:
+            raise ValueError(f"layer {i} must be float32")
+        if w.device != dev or b.device != dev:
+            raise ValueError(f"layer {i} must be on {dev}")
+        widths.append(int(w.shape[2]))
+    if not disp or widths[-1] > _MAX_CLASSES:
+        raise ValueError(f"the kernel takes 1 to {_MAX_CLASSES} classes, got widths {widths}")
+    return widths
+
+
+def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *,
+                        max_tau: int) -> list[dict]:
+    """One cycle on the card; returns the aggregated model.
+
+    disp : list of ``{"w": (K, fan_in, fan_out), "b": (K, fan_out)}``
+        float32 — each learner's start parameters (a broadcast view is fine)
+    x : (K, d_cap, F) float32; y : (K, d_cap) int32; m : (K, d_cap) float32
+    tau : (K,) int32; weights : (K,) float32; all contiguous, on one card
+    max_tau : the host's ``max(tau)`` bound on the steps (no device read)
+    """
+    global launches
+    widths = _check_inputs(disp, x, y, m, tau, weights)
+    k, d_cap, _ = x.shape
+    dev = x.device
+    # the kernel updates the learners' parameters in place, so each
+    # (possibly broadcast) leaf is first copied into its own (K, ...) buffer
+    work = [{name: leaf.clone(memory_format=torch.contiguous_format)
+             for name, leaf in layer.items()} for layer in disp]
+    ws = torch.empty(2 * k * d_cap * sum(widths[1:]), dtype=torch.float32, device=dev)
+    rows = torch.empty(k, dtype=torch.int32, device=dev)
+    inv_den = torch.empty(k, dtype=torch.float32, device=dev)
+    n = len(work)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.train_cycle_f32(
+            x.data_ptr(), y.data_ptr(), m.data_ptr(), tau.data_ptr(), k, d_cap, n,
+            (ctypes.c_int * (n + 1))(*widths),
+            (ctypes.c_void_p * n)(*[layer["w"].data_ptr() for layer in work]),
+            (ctypes.c_void_p * n)(*[layer["b"].data_ptr() for layer in work]),
+            ws.data_ptr(), rows.data_ptr(), inv_den.data_ptr(), float(lr),
+            int(max_tau), stream,
+        )
+    _build.check(lib, code, "train_agg_step kernel launch")
+    launches += 1
+    return [{name: fed_agg_cuda(leaf, weights) for name, leaf in layer.items()}
+            for layer in work]

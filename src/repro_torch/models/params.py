@@ -1,0 +1,63 @@
+"""Parameter specs and the port's deterministic init.
+
+``ParamSpec`` keeps the reference's fields (``repro/models/params.py``).
+``init_params`` draws each leaf from its own CPU ``torch.Generator``,
+seeded from the init seed and ``zlib.crc32`` of the leaf's path (the
+reference's ``keystr`` form, e.g. ``[0]['w']``), so a draw does not depend
+on the process or on the order of the leaves. It cannot reproduce
+``jax.random``'s threefry bits: to compare the two packages, carry the
+reference's weights across with ``repro_torch.convert.params_from_jax``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["ParamSpec", "init_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"           # normal | zeros
+    scale: float | None = None     # stddev override (default fan-in)
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def _materialize(spec: ParamSpec, path: str, seed: int) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype)
+    if spec.init == "normal":
+        h = zlib.crc32(path.encode()) % (2**31 - 1)
+        gen = torch.Generator().manual_seed(int(seed) * (2**31 - 1) + h)
+        fan_in = spec.shape[0] if len(spec.shape) == 1 else int(np.prod(spec.shape[:-1]))
+        scale = spec.scale if spec.scale is not None else 1.0 / max(np.sqrt(fan_in), 1.0)
+        return (torch.randn(spec.shape, generator=gen) * scale).to(spec.dtype)
+    raise ValueError(f"init {spec.init!r} is not ported yet")
+
+
+def init_params(specs, seed: int, *, device=None):
+    """Materialize a spec tree (lists and dicts of ``ParamSpec``) into
+    tensors on ``device``. The draws are made on the CPU, so every device
+    gets the same values."""
+    device = resolve_device(device)
+
+    def build(tree, path):
+        if isinstance(tree, ParamSpec):
+            return _materialize(tree, path, seed).to(device)
+        if isinstance(tree, dict):
+            return {key: build(sub, f"{path}[{key!r}]") for key, sub in tree.items()}
+        return [build(sub, f"{path}[{i}]") for i, sub in enumerate(tree)]
+
+    return build(specs, "")

@@ -1,0 +1,83 @@
+"""The JAX reference package, loaded for the port's parity tests.
+
+The reference imports ``enable_x64`` from ``jax.experimental``, which newer
+jax releases no longer ship (they have ``jax.enable_x64``). This loader is a
+test-side shim: where the name is missing it adds the alias only while the
+reference modules below are imported, then removes it again. Nothing in
+``src/repro`` changes, and no other jax name is aliased.
+
+The modules it loads are then taken out of ``sys.modules`` again, so that
+the reference's own tests import it as they would without this file (and
+fail where they fail on this jax). ``loaded()`` puts them back while a
+parity test runs, because some reference functions import others of its
+modules when called; a test module enters it once through a module-scoped
+fixture.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+import jax
+import jax.experimental
+
+_before = set(sys.modules)
+_added = not hasattr(jax.experimental, "enable_x64")
+if _added:
+    jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+try:
+    from repro import core
+    from repro.core import aggregation, staleness
+    from repro.data import pipeline
+    from repro.fed import orchestrator, simulation
+    from repro.kernels import ref as kernels_ref
+    from repro.models import mlp
+finally:
+    if _added:
+        del jax.experimental.enable_x64
+
+__all__ = ["aggregation", "core", "kernels_ref", "loaded", "mlp", "orchestrator",
+           "pipeline", "simulation", "staleness"]
+
+
+def _is_reference(name: str) -> bool:
+    return name.split(".")[0] == "repro"
+
+
+_modules = {name: sys.modules[name] for name in set(sys.modules) - _before
+            if _is_reference(name)}
+
+
+def _bind() -> None:
+    sys.modules.update(_modules)
+    for name, module in _modules.items():
+        parent, _, child = name.rpartition(".")
+        if parent and parent not in _modules and parent in sys.modules:
+            setattr(sys.modules[parent], child, module)
+
+
+def _unbind() -> None:
+    for name, module in _modules.items():
+        sys.modules.pop(name, None)
+        parent, _, child = name.rpartition(".")
+        if (parent and parent not in _modules
+                and getattr(sys.modules.get(parent), child, None) is module):
+            delattr(sys.modules[parent], child)
+
+
+@contextlib.contextmanager
+def loaded():
+    """The reference's modules in ``sys.modules`` for the duration; any of
+    its modules first imported inside are kept with them and taken out too."""
+    before = set(sys.modules)
+    _bind()
+    try:
+        yield
+    finally:
+        _modules.update({name: sys.modules[name] for name in set(sys.modules) - before
+                         if _is_reference(name)})
+        _unbind()
+
+
+_unbind()

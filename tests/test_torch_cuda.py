@@ -1,0 +1,146 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where no CUDA device is
+present. This file imports neither jax nor the reference package, so it
+runs on a machine with the card and no jax:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Shapes are small and ragged (not multiples of the kernels' tiles) and
+cover the degenerate cases: a learner with tau_k = 0, one learner, an
+all-masked shard, a mask with holes, every tau 0. Tolerance: a few GD
+steps in float32 whose sums run in another order than the plain
+version's, rtol 1e-5 and atol 1e-6 per element.
+
+At the paper's widths the check is one step. Over several steps there, a
+hidden pre-activation within float32 rounding of zero can take the other
+side of the ReLU in the kernel than in the plain version, and that unit's
+gradient then differs by its whole size, far beyond these tolerances,
+with no fault in either (``chip_smoke.py`` prints both float32 versions'
+distance from a float64 run after one step and after a full cycle, and
+holds the full paper-width cycle to 1e-4 of each leaf's scale).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fed_agg, ops, ref, train_step
+from repro_torch.models import mlp
+
+pytestmark = pytest.mark.cuda
+
+LR = 0.1
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _model(k: int, layers, seed: int, dev):
+    """K distinct learner models stacked on a leading axis."""
+    models = [mlp.init(seed + i, layers, device=dev) for i in range(k)]
+    return [{name: torch.stack([m[l][name] for m in models]) for name in models[0][l]}
+            for l in range(len(layers) - 1)]
+
+
+def _batch(k, n, layers, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((k, n, layers[0])), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.integers(0, layers[-1], (k, n)), dtype=torch.int32, device=dev)
+    m = torch.tensor(rng.random((k, n)) < 0.8, dtype=torch.float32, device=dev)
+    return x, y, m
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 257), (10, 784, 300), (4, 1, 5)])
+def test_fed_agg_kernel_matches_plain(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=dev)
+    w = torch.softmax(torch.randn(shape[0], generator=gen, device=dev), 0)
+    fed_agg.launches = 0
+    got = ops.fed_agg(x, w)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == 1
+    torch.testing.assert_close(got, ref.fed_agg_ref(x, w), rtol=1e-6, atol=1e-6)
+
+
+def test_fed_agg_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.randn(3, 8, device=dev)
+    w = torch.ones(3, device=dev) / 3
+    with pytest.raises(ValueError, match="float32"):
+        fed_agg.fed_agg_cuda(x.double(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        fed_agg.fed_agg_cuda(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="learner axis"):
+        fed_agg.fed_agg_cuda(x, w[:2])
+
+
+# layers, K, d_cap, tau, what to do to the mask
+CASES = {
+    "ragged": ([100, 70, 33, 10], 3, 70, [4, 2, 3], None),
+    "tau_k_zero": ([100, 70, 33, 10], 3, 70, [3, 0, 2], None),
+    "single_learner": ([64, 32, 16, 10], 1, 40, [3], None),
+    "all_masked_shard": ([64, 32, 16, 10], 3, 40, [2, 3, 2], "dead"),
+    "mask_with_holes": ([100, 70, 33, 10], 2, 130, [3, 2], "holes"),
+    "all_tau_zero": ([64, 32, 16, 10], 2, 40, [0, 0], None),
+    "paper_widths": (mlp.PAPER_LAYERS, 2, 150, [1, 0], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_train_agg_step_kernel_matches_plain(dev, case):
+    layers, k, d_cap, tau, mask_kind = CASES[case]
+    disp = _model(k, layers, seed=len(case), dev=dev)
+    x, y, m = _batch(k, d_cap, layers, seed=k + d_cap, dev=dev)
+    if mask_kind == "dead":
+        m[1] = 0.0
+    elif mask_kind == "holes":
+        m[:, d_cap // 2:] = 0.0
+        m[0, d_cap - 3] = 1.0
+    tau_t = torch.tensor(tau, dtype=torch.int32, device=dev)
+    w = torch.softmax(torch.arange(k, dtype=torch.float32, device=dev), 0)
+    max_tau = max(max(tau), 1)
+    fed_agg.launches = train_step.launches = 0
+    got = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
+    torch.cuda.synchronize()
+    assert train_step.launches == 1
+    assert fed_agg.launches == 2 * (len(layers) - 1)
+    want = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
+    for g_layer, w_layer in zip(got, want):
+        for name in w_layer:
+            torch.testing.assert_close(g_layer[name], w_layer[name], **TOL)
+
+
+def test_finished_learner_stays_bitwise_untouched(dev):
+    """Weights one-hot on a learner with tau_k = 0 return its parameters."""
+    layers = [100, 70, 33, 10]
+    disp = _model(3, layers, seed=5, dev=dev)
+    x, y, m = _batch(3, 70, layers, seed=6, dev=dev)
+    tau = torch.tensor([3, 0, 2], dtype=torch.int32, device=dev)
+    w = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    got = ops.train_agg_step(disp, x, y, m, tau, w, LR, max_tau=3)
+    for g_layer, d_layer in zip(got, disp):
+        for name in d_layer:
+            assert torch.equal(g_layer[name], d_layer[name][1])
+
+
+def test_train_agg_step_kernel_refuses_what_it_does_not_take(dev):
+    layers = [64, 32, 10]
+    disp = _model(2, layers, seed=7, dev=dev)
+    x, y, m = _batch(2, 16, layers, seed=8, dev=dev)
+    tau = torch.tensor([1, 1], dtype=torch.int32, device=dev)
+    w = torch.ones(2, device=dev) / 2
+    with pytest.raises(ValueError, match="y must be"):
+        train_step.train_agg_step_cuda(disp, x, y.long(), m, tau, w, LR, max_tau=1)
+    with pytest.raises(ValueError, match="chain"):
+        train_step.train_agg_step_cuda(disp[1:], x, y, m, tau, w, LR, max_tau=1)
+    with pytest.raises(ValueError, match="classes"):
+        wide = _model(2, [64, 100], seed=9, dev=dev)
+        train_step.train_agg_step_cuda(wide, x, y, m, tau, w, LR, max_tau=1)
