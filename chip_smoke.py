@@ -13,7 +13,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
      cycle at full width: the [784, 300, 124, 60, 10] MLP, K = 10 learners
      with the allocation ``solve_kkt_sai`` gives the paper's fleet;
   4. the main path, ``run_experiment(k=10, T=15, cycles=3)``, fused (through
-     the kernels, launch counts checked) and eager (plain torch), compared.
+     the kernels, launch counts checked) and eager (plain torch), compared,
+     and the fused run again, warm;
+  5. the reallocation path:
+     a. ``waterfill_residual`` kernel vs its plain version on a fleet-scale
+        batch (the paper's 8-learner fleet under ``CapacityDrift(seed=0)``
+        over 131,072 cycles, one problem a cycle), at tau* = 0, the solved
+        tau* and 2 tau*, in float64 and float32, with kernel, plain and
+        bound times;
+     b. ``solve_kkt_batched`` of that batch on the card against the CPU,
+        with the card's time split into bisection, integerize and SAI;
+     c. ``run_experiment(k=10, T=15, cycles=3, reallocate=True)`` under
+        ``CapacityDrift(seed=0)`` and ``QueueDrift(base=CapacityDrift(seed=0))``,
+        fused and eager, with its rows held to the CPU solver's.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -42,6 +54,12 @@ TRAIN_STEP_TOL = 1e-4   # per leaf: max |kernel - plain| / max |plain|
 ACC_TOL = 0.005         # |fused - eager| accuracy on 2000 test samples (10 samples)
 K, T_CYCLE, TOTAL, SEED, LR = 10, 15.0, 6000, 0, 0.1
 CYCLES = 3
+# phase 5: the fleet-scale batch, and the waterfill kernel's tolerance
+# (absolute, times max(1, |total|)): the kernel rounds every operation and
+# sums in the plain version's order, so it should agree to the last bits
+FLEET_K, FLEET_B = 8, 131_072
+WATERFILL_TOL = {"float64": 1e-12, "float32": 1e-5}
+TIE_SHARE = 1e-3        # fleets allowed to differ card vs CPU by a remainder tie
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -77,6 +95,16 @@ def device_time_by_kernel(fn) -> list[tuple[str, float, int]]:
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((ev.key, us / 1e3, ev.count))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def kernel_device_ms(fn, name: str, calls: int) -> float:
+    """Device time a launch of the kernel whose name contains ``name``,
+    from ``torch.profiler`` over ``calls`` calls of ``fn``; fails when the
+    profiler sees no such kernel."""
+    rows = device_time_by_kernel(lambda: [fn() for _ in range(calls)])
+    hits = [(ms, n) for key, ms, n in rows if name in key]
+    require(bool(hits), f"torch.profiler saw no {name} launches")
+    return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
 
 
 def leaf_errors(got, want) -> tuple[float, float]:
@@ -247,8 +275,19 @@ def main() -> int:
     require(acc_f[-1] > acc_f[0], f"accuracy did not rise: {acc_f}")
     print(f"run_experiment k={K} T={T_CYCLE} cycles={CYCLES}: fused accuracy {acc_f}, "
           f"eager {acc_e}; launches {launches}")
+    # the first fused run also loads torch's kernels for the staging; a
+    # second one gives the warm cycle
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_experiment(k=K, T=T_CYCLE, cycles=CYCLES, total_samples=TOTAL, seed=SEED,
+                   train=train, test=test, fused=True)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0) / CYCLES
     print(f"run_experiment ms per cycle (staging and eval included): fused "
-          f"{runs['fused']['ms_per_cycle']:.1f}, eager {runs['eager']['ms_per_cycle']:.1f}")
+          f"{runs['fused']['ms_per_cycle']:.1f} (first run), {warm_ms:.1f} (warm), eager "
+          f"{runs['eager']['ms_per_cycle']:.1f}")
+
+    wf = realloc_phase(dev, train, test, fed_agg_per_cycle=2 * len(mats))
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -263,12 +302,223 @@ def main() -> int:
          "launches": launches["fed_agg"], "max_abs_err": fa_err,
          "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms,
          "bound_by": "bytes", "library_ms": fa_lib_ms},
+        wf,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def realloc_phase(dev, train, test, *, fed_agg_per_cycle: int) -> dict:
+    """Phase 5; returns the waterfill kernel's entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import CapacityDrift, QueueDrift, solver_batched as sb
+    from repro_torch.fed.orchestrator import (
+        coefficient_rows,
+        solve_policy_row,
+        solve_rows_state_coupled,
+    )
+    from repro_torch.fed.simulation import build_problem, run_experiment
+    from repro_torch.kernels import fed_agg, ref, train_step, waterfill
+
+    # -- 5a. the kernel against its plain version at fleet scale --------------
+    prob = build_problem(FLEET_K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    c2, c1, c0 = CapacityDrift(seed=SEED).coefficient_path(prob.time_model, FLEET_B)
+    b, k = c2.shape
+    bp = sb.BatchedProblems(
+        c2, c1, c0, np.full(b, prob.T), np.full(b, prob.total_samples, np.int64),
+        np.full((b, k), float(prob.d_lower)), np.full((b, k), float(prob.d_upper)),
+        np.ones((b, k), bool))
+    print(f"fleet batch: B = {b} drifted problems of K = {k} ({b * k} learners), "
+          f"d in [{prob.d_lower}, {prob.d_upper}], total {prob.total_samples}")
+    waterfill.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = sb.solve_kkt_batched(bp, device=dev)
+    solve_wall_ms = 1e3 * (time.perf_counter() - t0)
+    solve_launches = waterfill.launches
+    require(bool(card.feasible.all()), "the drifted fleet batch has infeasible rows")
+
+    wf_err = {}
+    for dtype in (torch.float64, torch.float32):
+        t = sb._to_device(bp, dtype == torch.float64, dev)
+        args = [t["c2"], t["c1"], t["c0"], t["T"], t["d_lo"], t["d_hi"],
+                t["total_i"].to(dtype)]
+        tau_star = torch.as_tensor(card.tau_star, dtype=dtype, device=dev)
+        bound = WATERFILL_TOL[str(dtype)[6:]] * torch.clamp_min(args[-1].abs(), 1.0)
+        err = 0.0
+        for name, tau in (("0", torch.zeros_like(tau_star)), ("tau*", tau_star),
+                          ("2 tau*", 2.0 * tau_star)):
+            got = waterfill.waterfill_residual_cuda(tau, *args)
+            want = ref.waterfill_residual_ref(tau, *args)
+            diff = (got - want).abs()
+            require(bool(torch.isfinite(got).all()), f"waterfill kernel gave non-finite "
+                    f"residuals at tau = {name}, {dtype}")
+            require(bool((diff <= bound).all()), f"waterfill kernel differs from its "
+                    f"plain version by {diff.max().item():g} at tau = {name}, {dtype}")
+            err = max(err, diff.max().item())
+        wf_err[dtype] = err
+        if dtype == torch.float64:
+            wf_args = [tau_star, *args]
+    f32_args = [a.float() for a in wf_args]
+    # back-to-back calls are paced by the host (the wrapper's checks and the
+    # ctypes call), so the kernel's own time is its device time a launch
+    # from torch.profiler; CUDA events over the loop give the paced time
+    wf_ms, wf32_ms = (kernel_device_ms(lambda a=a: waterfill.waterfill_residual_cuda(*a),
+                                       "waterfill_residual_kernel", 50)
+                      for a in (wf_args, f32_args))
+    wf_paced_ms = cuda_ms(lambda: waterfill.waterfill_residual_cuda(*wf_args), 200)
+    wf_plain_ms = cuda_ms(lambda: ref.waterfill_residual_ref(*wf_args), 50)
+    wf_bytes = 8 * (5 * b * k + 3 * b + b)
+    wf_bound_ms = 1e3 * wf_bytes / PEAK_BYTES_PER_S
+    print(f"waterfill_residual: max_abs_err float64 {wf_err[torch.float64]:.3g}, float32 "
+          f"{wf_err[torch.float32]:.3g} (at tau* = 0, tau*, 2 tau*); kernel device time "
+          f"{wf_ms:.4f} ms a launch (float32 {wf32_ms:.4f}; host-paced loop {wf_paced_ms:.4f}), "
+          f"plain {wf_plain_ms:.4f} ms, bound {wf_bound_ms:.4f} ms ({wf_bytes / 1e6:.1f} MB, "
+          f"bytes; float32 half)")
+
+    # -- 5b. the batched solve, card against CPU, and the card's split --------
+    t = sb._to_device(bp, True, dev)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    events[0].record()
+    feas, tau_star, _, d_r, relax_rounds = sb._relaxed_batched(
+        t["c2"], t["c1"], t["c0"], t["T"], t["total_i"].double(), t["d_lo"], t["d_hi"],
+        tol=1e-10, max_iter=200)
+    events[1].record()
+    d_r, total_safe, lo_i, hi_i = sb._integer_inputs(d_r, feas, t["total_i"], t["d_lo"],
+                                                     t["d_hi"])
+    d_int, _, int_rounds = sb._integerize(d_r, total_safe, lo_i, hi_i)
+    events[2].record()
+    tau_c, d_c, sai_rounds = sb._sai(d_int, t["c2"], t["c1"], t["c0"], t["T"], lo_i,
+                                     hi_i, t["valid"], max_rounds=10_000)
+    events[3].record()
+    torch.cuda.synchronize()
+    stage_ms = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    require(np.array_equal(tau_c.cpu().numpy(), card.tau)
+            and np.array_equal(d_c.cpu().numpy(), card.d),
+            "the staged solve differs from solve_kkt_batched")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb.solve_kkt_batched(bp, device=dev)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    breakdown = device_time_by_kernel(lambda: sb.solve_kkt_batched(bp, device=dev))
+    t0 = time.perf_counter()
+    cpu = sb.solve_kkt_batched(bp, device="cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    require(np.array_equal(card.feasible, cpu.feasible), "card and CPU feasibility differ")
+    ties = 0
+    for i in np.flatnonzero(~((card.tau == cpu.tau).all(1) & (card.d == cpu.d).all(1))):
+        ties += 1
+        require(np.ptp(card.tau[i]) == np.ptp(cpu.tau[i])
+                and np.abs(card.d[i] - cpu.d[i]).max() <= 2,
+                f"fleet {i}: card and CPU allocations differ beyond a remainder tie")
+    require(ties <= TIE_SHARE * b, f"{ties} remainder ties between card and CPU")
+    stale = sb.batched_max_staleness(card.tau, card.valid)
+    print(f"solve_kkt_batched B={b}: card {solve_wall_ms:.1f} ms first call, {warm_ms:.1f} "
+          f"ms warm (host clock, copies in), CPU {cpu_ms:.1f} ms; waterfill launches per "
+          f"solve {solve_launches}; card split "
+          f"(CUDA events): bisection {stage_ms[0]:.2f} ms ({relax_rounds['grow']} grow + "
+          f"{relax_rounds['bisection']} bisection steps), integerize {stage_ms[1]:.2f} ms "
+          f"({int_rounds} rounds), SAI {stage_ms[2]:.2f} ms ({sai_rounds} rounds); fleets "
+          f"differing card vs CPU: {ties} (remainder ties); max staleness mean "
+          f"{stale.mean():.3f}, worst {stale.max()}")
+    busy = sum(ms for _, ms, _ in breakdown)
+    print(f"solve_kkt_batched device time by kernel (torch.profiler, one warm solve): "
+          f"{busy:.2f} ms busy in {sum(n for *_, n in breakdown)} launches" if breakdown else
+          "solve_kkt_batched device time by kernel: not measured (no device events)")
+    for name, ms, calls in breakdown[:12]:
+        print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+
+    # -- 5c. the main path with reallocation: run_experiment, fused and eager --
+    drifts = {"CapacityDrift": lambda: CapacityDrift(seed=SEED),
+              "QueueDrift": lambda: QueueDrift(base=CapacityDrift(seed=SEED))}
+    prob = build_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    rows = coefficient_rows(prob, CapacityDrift(seed=SEED), CYCLES)
+    solve_policy_row("kkt_sai", *(r[0] for r in rows), prob, label="warm-up", device=dev)
+    waterfill.launches = 0
+    t0 = time.perf_counter()
+    for rep in range(5):
+        for c in range(CYCLES):
+            solve_policy_row("kkt_sai", *(r[c] for r in rows), prob, label=f"cycle {c}",
+                             device=dev)
+    row_ms = 1e3 * (time.perf_counter() - t0) / (5 * CYCLES)
+    print(f"one-fleet re-solve on the card (solve_policy_row, K = {K}): {row_ms:.2f} ms "
+          f"(host clock), {waterfill.launches / (5 * CYCLES):.1f} waterfill launches")
+    def cpu_row_solves(rows):
+        """The CPU solver on each cycle's capacity row alone, as a run
+        re-solves it (one fleet, ``solve_policy_row``'s tolerances)."""
+        one = lambda v, dt=np.float64: np.full((1, K), v, dt)
+        return [sb.solve_kkt_batched(sb.BatchedProblems(
+            *(r[c][None] for r in rows), np.full(1, prob.T), np.full(1, TOTAL, np.int64),
+            one(float(prob.d_lower)), one(float(prob.d_upper)), one(True, bool)),
+            device="cpu") for c in range(CYCLES)]
+
+    realloc_launches = None
+    for name, make in drifts.items():
+        # the CPU solver's rows for the same capacity rows
+        drift = make()
+        if name == "QueueDrift":
+            rows, _ = solve_rows_state_coupled("kkt_sai", drift, prob, CYCLES,
+                                               label="cycle {}", device="cpu")
+        else:
+            rows = coefficient_rows(prob, drift, CYCLES)
+        solves = cpu_row_solves(rows)
+        taus, ds = [s.tau[0] for s in solves], [s.d[0] for s in solves]
+        # a re-solve launches the kernel at tau = 0 (feasibility) and at the
+        # first bracket tau = 1, then once a grow and once a bisection step
+        n_wf = sum(2 + s.rounds["grow"] + s.rounds["bisection"] for s in solves)
+        want = {"fused": {"train_agg_step": CYCLES, "fed_agg": CYCLES * fed_agg_per_cycle,
+                          "waterfill_residual": n_wf},
+                "eager": {"train_agg_step": 0, "fed_agg": 0, "waterfill_residual": n_wf}}
+        runs = {}
+        for mode in ("fused", "eager"):
+            waterfill.launches = train_step.launches = fed_agg.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[mode] = run_experiment(k=K, T=T_CYCLE, cycles=CYCLES, total_samples=TOTAL,
+                                        seed=SEED, train=train, test=test,
+                                        fused=(mode == "fused"), reallocate=True,
+                                        drift=make())
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / CYCLES
+            counts = {"train_agg_step": train_step.launches, "fed_agg": fed_agg.launches,
+                      "waterfill_residual": waterfill.launches}
+            require(counts == want[mode], f"{name}: the {mode} reallocating run's kernel "
+                    f"launches were {counts}, not {want[mode]}")
+            if mode == "fused" and realloc_launches is None:
+                realloc_launches = counts["waterfill_residual"]
+            runs[mode]["ms"], runs[mode]["counts"] = ms, counts
+        hist_f, hist_e = runs["fused"]["history"], runs["eager"]["history"]
+        for c, (hf, he) in enumerate(zip(hist_f, hist_e)):
+            require(np.array_equal(hf["tau"], he["tau"]) and np.array_equal(hf["d"], he["d"]),
+                    f"{name}: fused and eager runs allocated cycle {c} differently")
+            require(np.array_equal(hf["tau"], taus[c]) and np.array_equal(hf["d"], ds[c]),
+                    f"{name}: cycle {c} differs from the CPU solver's allocation")
+        acc_f = [h["accuracy"] for h in hist_f]
+        acc_e = [h["accuracy"] for h in hist_e]
+        require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in acc_f + acc_e),
+                f"{name}: accuracies out of range: {acc_f}, {acc_e}")
+        require(max(abs(a - e) for a, e in zip(acc_f, acc_e)) <= ACC_TOL,
+                f"{name}: fused {acc_f} and eager {acc_e} accuracies differ by more "
+                f"than {ACC_TOL}")
+        require(acc_f[-1] > acc_f[0], f"{name}: accuracy did not rise: {acc_f}")
+        print(f"run_experiment reallocate=True drift={name}: d by cycle "
+              f"{[h['d'].tolist() for h in hist_f]}, tau {[h['tau'].tolist() for h in hist_f]}; "
+              f"fused accuracy {acc_f}, eager {acc_e}; ms per cycle fused "
+              f"{runs['fused']['ms']:.1f}, eager {runs['eager']['ms']:.1f}; launches fused "
+              f"{runs['fused']['counts']}, eager {runs['eager']['counts']}")
+
+    return {"name": "waterfill_residual", "route": "cuda",
+            "source": "src/repro_torch/csrc/waterfill.cu",
+            "replaces": "src/repro/kernels/waterfill.py:47",
+            "launches": realloc_launches, "max_abs_err": wf_err[torch.float64],
+            "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": wf_bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 if __name__ == "__main__":

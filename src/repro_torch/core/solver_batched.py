@@ -1,0 +1,557 @@
+"""Batched allocation engine: KKT water-filling bisection + integer SAI
+repair for B allocation problems at once, in torch on one device.
+
+The port of the ``kkt_sai`` and ``eta`` halves of
+``repro/core/solver_batched.py``:
+
+  * ``BatchedProblems`` — the (B, K) problem layout: coefficients
+    ``c2/c1/c0`` and per-learner bounds ``d_lo/d_hi`` of shape (B, K),
+    per-fleet ``T``/``total`` of shape (B,), and a ``valid`` mask so fleets
+    of different sizes batch together (padded slots carry
+    ``d_lo = d_hi = 0`` and never receive work).
+  * ``solve_kkt_batched`` — lockstep bisection on the water level tau* of
+    all B fleets, one ``kernels.ops.waterfill_residual`` call a step (the
+    CUDA kernel on the card), then largest-remainder integerization and the
+    SAI greedy repair.
+  * ``solve_eta_batched`` — the equal-task baseline in the same layout.
+  * ``batched_policy`` — the per-cycle re-solve hook of the orchestrator.
+  * ``batched_max_staleness`` / ``batched_avg_staleness`` /
+    ``batched_summary`` — (B,) fleet metrics (host NumPy).
+
+The reference runs its ``while_loop``s vmapped over B; here each is a
+masked loop over the whole batch in lockstep, and the host asks the device
+once a round whether any fleet is still active. A fleet's row of the batch
+sees exactly the steps its own loop would: a finished fleet is frozen.
+
+Numerical contract: with ``x64=True`` (the default) every branch, the
+stable-sort tie-breaks and the greedy moves follow ``solver_kkt.solve``
+decision for decision. Every sum over the learner axis is taken in index
+order, as the reference's CPU program takes it for fleets this size, so
+the card and the CPU give the same bits. ``x64=False`` computes in
+float32/int32. Entry points take ``device=None``, which means the card.
+
+``pgd`` (ROADMAP Queue 1 item 7), ``kkt_energy`` with ``apply_energy_mask``
+(item 9), ``apply_sampling_mask`` (item 11) and the cross-model layer
+(item 10) come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.allocation import Allocation, AllocationProblem
+from repro_torch.core.time_model import TimeModel
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import sum_in_order
+
+__all__ = [
+    "BatchedAllocation",
+    "BatchedProblems",
+    "POLICIES",
+    "apply_active_mask",
+    "batched_avg_staleness",
+    "batched_max_staleness",
+    "batched_policy",
+    "batched_summary",
+    "solve_eta_batched",
+    "solve_kkt_batched",
+]
+
+_INT_SENTINEL = 2**31 - 1
+
+#: schemes with a batched policy in the port (see ``batched_policy``)
+POLICIES = ("kkt_sai", "eta")
+_LATER_POLICIES = {"pgd": "ROADMAP Queue 1 item 7",
+                   "kkt_energy": "ROADMAP Queue 1 item 9"}
+
+
+# ---------------------------------------------------------------------------
+# problem / solution containers (host NumPy)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchedProblems:
+    """B allocation problems in one (B, K) layout (K = widest fleet).
+
+    Padded slots (``valid[b, k] == False``) carry ``d_lo = d_hi = 0``, so
+    every bound clip pins them to zero work; their coefficients are ignored
+    (``from_problems`` writes c2 = c1 = 1, c0 = 0 so divides stay finite);
+    solver outputs carry ``tau = d = 0`` there, and they enter neither the
+    staleness metrics nor the sum constraint.
+    """
+
+    c2: np.ndarray        # (B, K)
+    c1: np.ndarray        # (B, K)
+    c0: np.ndarray        # (B, K)
+    T: np.ndarray         # (B,)
+    total: np.ndarray     # (B,) int
+    d_lo: np.ndarray      # (B, K)
+    d_hi: np.ndarray      # (B, K)
+    valid: np.ndarray     # (B, K) bool
+
+    @property
+    def num_problems(self) -> int:
+        return int(self.c2.shape[0])
+
+    @property
+    def max_learners(self) -> int:
+        return int(self.c2.shape[1])
+
+    @staticmethod
+    def from_problems(problems: "list[AllocationProblem]") -> "BatchedProblems":
+        b = len(problems)
+        k = max(p.num_learners for p in problems)
+        c2 = np.ones((b, k)); c1 = np.ones((b, k)); c0 = np.zeros((b, k))
+        d_lo = np.zeros((b, k)); d_hi = np.zeros((b, k))
+        valid = np.zeros((b, k), bool)
+        T = np.zeros(b); total = np.zeros(b, np.int64)
+        for i, p in enumerate(problems):
+            n = p.num_learners
+            tm = p.time_model
+            c2[i, :n], c1[i, :n], c0[i, :n] = tm.c2, tm.c1, tm.c0
+            d_lo[i, :n] = p.d_lower
+            d_hi[i, :n] = p.d_upper
+            valid[i, :n] = True
+            T[i] = p.T
+            total[i] = p.total_samples
+        return BatchedProblems(c2, c1, c0, T, total, d_lo, d_hi, valid)
+
+    def problem(self, i: int) -> AllocationProblem:
+        """The i-th (unpadded) AllocationProblem."""
+        v = self.valid[i]
+        return AllocationProblem(
+            time_model=TimeModel(c2=self.c2[i, v], c1=self.c1[i, v], c0=self.c0[i, v]),
+            T=float(self.T[i]),
+            total_samples=int(self.total[i]),
+            d_lower=int(round(float(self.d_lo[i, v].min()))),
+            d_upper=int(round(float(self.d_hi[i, v].max()))),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedAllocation:
+    """Batched solver output; padded slots hold tau = d = 0. ``rounds``
+    counts the host loop's rounds of each stage (``grow``, ``bisection``,
+    ``integerize``, ``sai``)."""
+
+    tau: np.ndarray           # (B, K) int
+    d: np.ndarray             # (B, K) int
+    feasible: np.ndarray      # (B,) bool
+    valid: np.ndarray         # (B, K) bool
+    method: str = ""
+    relaxed_tau: np.ndarray | None = None   # (B, K)
+    relaxed_d: np.ndarray | None = None     # (B, K)
+    tau_star: np.ndarray | None = None      # (B,)
+    rounds: dict | None = None
+
+    @property
+    def num_problems(self) -> int:
+        return int(self.tau.shape[0])
+
+    def allocation(self, i: int) -> Allocation:
+        """Per-problem Allocation (strips padding); raises on infeasible."""
+        if not self.feasible[i]:
+            raise ValueError(f"problem {i} infeasible: deadline cannot absorb d")
+        v = self.valid[i]
+        return Allocation(
+            tau=self.tau[i, v].astype(np.int64),
+            d=self.d[i, v].astype(np.int64),
+            method=self.method,
+            relaxed_tau=None if self.relaxed_tau is None else self.relaxed_tau[i, v],
+            relaxed_d=None if self.relaxed_d is None else self.relaxed_d[i, v],
+        )
+
+    def summary(self, bp: BatchedProblems) -> dict:
+        return batched_summary(bp, self.tau, self.d)
+
+
+# ---------------------------------------------------------------------------
+# batched metrics (host NumPy, copied)
+# ---------------------------------------------------------------------------
+
+def batched_max_staleness(tau: np.ndarray, valid: np.ndarray | None = None) -> np.ndarray:
+    """(B,) max-pair staleness  max_k tau - min_k tau  over valid learners."""
+    tau = np.asarray(tau)
+    if valid is None:
+        valid = np.ones(tau.shape, bool)
+    tmax = np.where(valid, tau, -1).max(axis=1)
+    tmin = np.where(valid, tau, _INT_SENTINEL).min(axis=1)
+    n = valid.sum(axis=1)
+    return np.where(n >= 2, tmax - tmin, 0).astype(np.int64)
+
+
+def batched_avg_staleness(tau: np.ndarray, valid: np.ndarray | None = None) -> np.ndarray:
+    """(B,) mean |tau_k - tau_l| over valid pairs k < l (paper Eq. 13)."""
+    tau = np.asarray(tau, dtype=float)
+    if valid is None:
+        valid = np.ones(tau.shape, bool)
+    k = tau.shape[1]
+    diff = np.abs(tau[:, :, None] - tau[:, None, :])
+    pair = (valid[:, :, None] & valid[:, None, :]) & np.triu(np.ones((k, k), bool), 1)
+    n = valid.sum(axis=1)
+    denom = n * (n - 1) / 2.0
+    return np.where(denom > 0, (diff * pair).sum(axis=(1, 2)) / np.maximum(denom, 1.0), 0.0)
+
+
+def batched_summary(bp: BatchedProblems, tau: np.ndarray, d: np.ndarray) -> dict:
+    """Vectorized twin of ``Allocation.summary``: dict of (B,) arrays."""
+    tau = np.asarray(tau); d = np.asarray(d)
+    v = bp.valid
+    t = bp.c2 * tau * d + bp.c1 * d + bp.c0
+    n = np.maximum(v.sum(axis=1), 1)
+    return {
+        "max_staleness": batched_max_staleness(tau, v),
+        "avg_staleness": batched_avg_staleness(tau, v),
+        "total_updates": np.where(v, tau * d, 0).sum(axis=1).astype(np.int64),
+        "min_tau": np.where(v, tau, _INT_SENTINEL).min(axis=1).astype(np.int64),
+        "max_tau": np.where(v, tau, -1).max(axis=1).astype(np.int64),
+        "utilization": np.where(v, t / bp.T[:, None], 0.0).sum(axis=1) / n,
+    }
+
+
+# ---------------------------------------------------------------------------
+# device building blocks: (B, K) tensors, (B,) per-fleet scalars
+# ---------------------------------------------------------------------------
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]`` for every row b."""
+    return x.gather(1, idx[:, None])[:, 0]
+
+
+def _max_tau_of_d(d, c2, c1, c0, T):
+    """Largest integer tau with t_k <= T at integer d (TimeModel.max_tau);
+    ``T`` is (B, 1)."""
+    df = d.to(c2.dtype)
+    t = torch.floor((T - c0 - c1 * df) / (c2 * df))
+    t = torch.where(d > 0, t, 0.0)
+    return torch.clamp_min(t, 0.0).to(d.dtype)
+
+
+def _relaxed_batched(c2, c1, c0, T, total_f, d_lo, d_hi, *, tol, max_iter):
+    """Lockstep water-filling bisection over the (B,) batch, branch for
+    branch ``solver_kkt.solve_relaxed`` per fleet. Returns
+    ``(feasible, tau_star, tau, d, rounds)``."""
+
+    def resid(tau_star):
+        return ops.waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total_f)
+
+    zero = torch.zeros_like(T)
+    feasible = resid(zero) >= -1e-9
+
+    # grow hi per fleet until the absorbed data drops below total
+    hi = torch.ones_like(T)
+    r = resid(hi)
+    grow = 0
+    while grow < 200 and bool((r > 0).any()):
+        hi = torch.where(r > 0, hi * 2.0, hi)
+        grow += 1
+        r = resid(hi)
+
+    # bisection; each fleet's convergence latches via `done`
+    lo = torch.zeros_like(T)
+    done = torch.zeros_like(T, dtype=torch.bool)
+    steps = 0
+    while steps < max_iter and not bool(done.all()):
+        mid = 0.5 * (lo + hi)
+        r = resid(mid)
+        upd = ~done
+        lo = torch.where(upd & (r > 0), mid, lo)
+        hi = torch.where(upd & (r <= 0), mid, hi)
+        done = done | (hi - lo < tol * torch.clamp_min(hi, 1.0))
+        steps += 1
+    tau_star = 0.5 * (lo + hi)
+
+    Tc = T[:, None]
+    d = torch.clamp((Tc - c0) / (c2 * tau_star[:, None] + c1), d_lo, d_hi)
+    # spread the bisection's residual gap over unclamped learners
+    free = (d > d_lo + 1e-9) & (d < d_hi - 1e-9)
+    gap = total_f - sum_in_order(d)
+    fsum = sum_in_order(torch.where(free, d, 0.0))
+    add = torch.where(
+        free & (fsum > 0)[:, None],
+        gap[:, None] * d / torch.where(fsum > 0, fsum, 1.0)[:, None],
+        0.0,
+    )
+    d = torch.clamp(d + add, d_lo, d_hi)
+    tau = torch.where(d > 0, torch.clamp_min((Tc - c0 - c1 * d) / (c2 * d), 0.0), 0.0)
+    return feasible, tau_star, tau, d, {"grow": grow, "bisection": steps}
+
+
+def _integerize(d_real, total_i, lo_i, hi_i):
+    """Largest-remainder rounding to the exact sum within bounds
+    (``solver_kkt._integerize_d``): the ``i % k`` walk over the stable
+    remainder order, one learner a round in every fleet. Returns
+    ``(base, leftover, rounds)``."""
+    k = d_real.shape[1]
+    fl = torch.floor(d_real)
+    base = torch.clamp(fl, lo_i.to(d_real.dtype), hi_i.to(d_real.dtype)).to(total_i.dtype)
+    rema = d_real - fl
+    deficit = total_i - base.sum(dim=1).to(total_i.dtype)
+    pos = deficit > 0
+    order = torch.where(pos[:, None], torch.argsort(-rema, dim=1, stable=True),
+                        torch.argsort(rema, dim=1, stable=True))
+    step = torch.where(pos, 1, -1).to(base.dtype)
+    limit = 10 * k + total_i.abs() + 1
+    i = 0
+    active = (deficit != 0) & (i < limit)
+    while bool(active.any()):
+        kk = order[:, i % k]
+        cur = _pick(base, kk)
+        ok = torch.where(pos, cur < _pick(hi_i, kk), cur > _pick(lo_i, kk))
+        delta = torch.where(ok & active, step, 0)
+        base = base.scatter_add(1, kk[:, None], delta[:, None])
+        deficit = deficit - delta
+        i += 1
+        active = (deficit != 0) & (i < limit)
+    return base, deficit, i
+
+
+def _sai(d0, c2, c1, c0, T, lo_i, hi_i, valid, *, max_rounds):
+    """Greedy suggest-and-improve repair (``solver_kkt.suggest_and_improve``)
+    in lockstep: move samples from a min-tau learner to the highest-tau
+    learner with headroom while staleness improves. Returns
+    ``(tau, d, rounds)``."""
+    Tc = T[:, None]
+    neg_inf = torch.tensor(-torch.inf, dtype=c2.dtype, device=c2.device)
+
+    def tau_of(d):
+        return _max_tau_of_d(d, c2, c1, c0, Tc)
+
+    def stats(tau):
+        tmax = torch.where(valid, tau, -1).amax(dim=1)
+        tmin = torch.where(valid, tau, _INT_SENTINEL).amin(dim=1)
+        return tmax, tmin
+
+    def valid_sum(tau):
+        return torch.where(valid, tau, 0).sum(dim=1)
+
+    d, tau = d0, tau_of(d0)
+    stopped = torch.zeros_like(valid[:, 0])
+    one = torch.ones_like(d0[:, 0])
+    n = 0
+    while n < max_rounds and not bool(stopped.all()):
+        act = ~stopped
+        tmax, tmin = stats(tau)
+        s = tmax - tmin
+        hi0 = torch.where(valid, tau, -1).argmax(dim=1)
+        # min-tau learner freeing the most tau per sample removed (max c2)
+        lo = torch.where(valid & (tau == tmin[:, None]), c2, neg_inf).argmax(dim=1)
+        give = _pick(d, lo) - _pick(lo_i, lo)
+        room_k = torch.minimum(hi_i - d, give[:, None])
+        room0 = _pick(room_k, hi0)
+        # fallback: next-highest-tau learner (above the min) with room
+        elig = valid & (tau > tmin[:, None]) & (room_k > 0)
+        hi1 = torch.where(elig, tau, -1).argmax(dim=1)
+        fallback = room0 <= 0
+        hi = torch.where(fallback, hi1, hi0)
+        room = torch.where(fallback, _pick(room_k, hi1), room0)
+        has_target = torch.where(fallback, elig.any(dim=1), True)
+        tau_sum = valid_sum(tau)
+
+        def try_move(m):
+            d2 = d.scatter_add(1, hi[:, None], m[:, None]).scatter_add(1, lo[:, None], -m[:, None])
+            tau2 = tau_of(d2)
+            tmax2, tmin2 = stats(tau2)
+            s2 = tmax2 - tmin2
+            better = (s2 < s) | ((s2 == s) & (valid_sum(tau2) > tau_sum))
+            return d2, tau2, better
+
+        m_big = torch.clamp_min(torch.div(room, 8, rounding_mode="floor"), 1)
+        d2a, tau2a, acc_a = try_move(m_big)
+        d2b, tau2b, acc_b = try_move(one)
+        retry = ~acc_a & (m_big > 1) & acc_b
+        do_move = (s > 0) & has_target & (acc_a | retry)
+        move = (act & do_move)[:, None]
+        take_a = acc_a[:, None]
+        d = torch.where(move, torch.where(take_a, d2a, d2b), d)
+        tau = torch.where(move, torch.where(take_a, tau2a, tau2b), tau)
+        stopped = stopped | ~do_move
+        n += 1
+    return tau, d, n
+
+
+def _integer_inputs(d_r, feasible, total_i, d_lo, d_hi):
+    """The integer stages' inputs: ``(d_r, total, lo_i, hi_i)`` with the
+    infeasible rows neutralized (their lower bounds and budget), so the
+    integer loops end at once for them."""
+    lo_i = torch.round(d_lo).to(total_i.dtype)
+    hi_i = torch.round(d_hi).to(total_i.dtype)
+    total_safe = torch.where(feasible, total_i, lo_i.sum(dim=1).to(total_i.dtype))
+    d_r_safe = torch.where(feasible[:, None], d_r, d_lo)
+    return d_r_safe, total_safe, lo_i, hi_i
+
+
+def _integerize_and_repair(d_r, feasible, c2, c1, c0, T, total_i, d_lo, d_hi,
+                           valid, *, max_rounds):
+    """The integer tail of every batched policy: largest-remainder rounding
+    to the exact sum, then the SAI repair. Returns ``(tau, d, feasible,
+    rounds)``."""
+    d_r_safe, total_safe, lo_i, hi_i = _integer_inputs(d_r, feasible, total_i, d_lo, d_hi)
+    d_int, leftover, int_rounds = _integerize(d_r_safe, total_safe, lo_i, hi_i)
+    # a walk that exhausted its bound without reaching the sum (hand-built
+    # boxes only) must not pass for a solution
+    feasible = feasible & (leftover == 0)
+    tau, d, n = _sai(d_int, c2, c1, c0, T, lo_i, hi_i, valid, max_rounds=max_rounds)
+    return tau, d, feasible, {"integerize": int_rounds, "sai": n}
+
+
+def _kkt_batched_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid, *,
+                      tol, max_iter, max_rounds):
+    """KKT water-filling + SAI on device tensors."""
+    feasible, tau_star, tau_r, d_r, rounds = _relaxed_batched(
+        c2, c1, c0, T, total_i.to(c2.dtype), d_lo, d_hi, tol=tol, max_iter=max_iter,
+    )
+    tau, d, feasible, int_rounds = _integerize_and_repair(
+        d_r, feasible, c2, c1, c0, T, total_i, d_lo, d_hi, valid, max_rounds=max_rounds,
+    )
+    return dict(tau=tau, d=d, feasible=feasible, relaxed_tau=tau_r, relaxed_d=d_r,
+                tau_star=tau_star, rounds={**rounds, **int_rounds})
+
+
+def _eta(total_i, lo_i, hi_i, valid, c2, c1, c0, T):
+    """Equal-task allocation (``baselines.solve_eta``) of every fleet:
+    d/K spread by index, clipped, then repaired to the exact sum by a walk
+    over the stable descending-d order."""
+    k = lo_i.shape[1]
+    idt = total_i.dtype
+    n_valid = torch.clamp_min(valid.sum(dim=1), 1).to(idt)
+    base = torch.div(total_i, n_valid, rounding_mode="floor")
+    rem = total_i - base * n_valid
+    rank = torch.cumsum(valid.to(idt), dim=1).to(idt) - 1
+    d = torch.where(valid, base[:, None] + (rank < rem[:, None]).to(idt), 0)
+    d = torch.clamp(d, lo_i, hi_i)
+    order = torch.argsort(-d, dim=1, stable=True)
+    gap = total_i - d.sum(dim=1).to(idt)
+    limit = 100 * k + total_i.abs() + 1
+    i = 0
+    active = (gap != 0) & (i < limit)
+    while bool(active.any()):
+        kk = order[:, i % k]
+        cur = _pick(d, kk)
+        delta = torch.where((gap > 0) & (cur < _pick(hi_i, kk)), 1,
+                            torch.where((gap < 0) & (cur > _pick(lo_i, kk)), -1, 0))
+        delta = torch.where(active, delta, 0).to(idt)
+        d = d.scatter_add(1, kk[:, None], delta[:, None])
+        gap = gap - delta
+        i += 1
+        active = (gap != 0) & (i < limit)
+    return _max_tau_of_d(d, c2, c1, c0, T[:, None]), d, gap == 0
+
+
+def _eta_policy(c2, c1, c0, T, total_i, d_lo, d_hi, valid):
+    lo_i = torch.round(d_lo).to(total_i.dtype)
+    hi_i = torch.round(d_hi).to(total_i.dtype)
+    return _eta(total_i, lo_i, hi_i, valid, c2, c1, c0, T)
+
+
+# ---------------------------------------------------------------------------
+# host entry points
+# ---------------------------------------------------------------------------
+
+def _as_batched(problems) -> BatchedProblems:
+    if isinstance(problems, BatchedProblems):
+        return problems
+    return BatchedProblems.from_problems(list(problems))
+
+
+def _to_device(bp: BatchedProblems, x64: bool, device) -> dict:
+    dev = resolve_device(device)
+    fdt = torch.float64 if x64 else torch.float32
+    idt = torch.int64 if x64 else torch.int32
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=fdt, device=dev)
+    return dict(
+        c2=f(bp.c2), c1=f(bp.c1), c0=f(bp.c0), T=f(bp.T),
+        total_i=torch.as_tensor(np.asarray(bp.total), dtype=idt, device=dev),
+        d_lo=f(bp.d_lo), d_hi=f(bp.d_hi),
+        valid=torch.as_tensor(np.asarray(bp.valid, bool), device=dev),
+    )
+
+
+def solve_kkt_batched(
+    problems,
+    *,
+    x64: bool = True,
+    tol: float = 1e-10,
+    max_iter: int = 200,
+    max_rounds: int = 10_000,
+    device=None,
+) -> BatchedAllocation:
+    """Solve B problems (list[AllocationProblem] or BatchedProblems) with
+    the paper's KKT water-filling + SAI pipeline on ``device`` (``None``:
+    the card). ``x64=True`` reproduces ``solve_kkt_sai`` per problem
+    (modulo the documented remainder-tie tolerance of the reference);
+    ``x64=False`` runs float32/int32."""
+    bp = _as_batched(problems)
+    out = _kkt_batched_core(**_to_device(bp, x64, device), tol=tol,
+                            max_iter=max_iter, max_rounds=max_rounds)
+    host = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
+    return BatchedAllocation(
+        tau=host["tau"].astype(np.int64),
+        d=host["d"].astype(np.int64),
+        feasible=host["feasible"],
+        valid=np.asarray(bp.valid, bool),
+        method="kkt_sai_batched",
+        relaxed_tau=host["relaxed_tau"],
+        relaxed_d=host["relaxed_d"],
+        tau_star=host["tau_star"],
+        rounds=out["rounds"],
+    )
+
+
+def solve_eta_batched(problems, *, x64: bool = True, device=None) -> BatchedAllocation:
+    """Equal-task-allocation baseline (``baselines.solve_eta``) over a
+    batch: d_k = d/K spread by index, bound-clipped, integer-sum repaired,
+    then tau_k maximal per learner."""
+    bp = _as_batched(problems)
+    tau, d, ok = _eta_policy(**_to_device(bp, x64, device))
+    return BatchedAllocation(
+        tau=tau.cpu().numpy().astype(np.int64), d=d.cpu().numpy().astype(np.int64),
+        feasible=ok.cpu().numpy(), valid=np.asarray(bp.valid, bool),
+        method="eta_batched",
+    )
+
+
+def batched_policy(name: str, *, tol: float = 1e-10, max_iter: int = 200,
+                   max_rounds: int = 10_000):
+    """The per-cycle re-solve hook of the orchestrator: a callable
+    ``fn(c2, c1, c0, T, total_i, d_lo, d_hi, valid) -> (tau, d, feasible)``
+    on device tensors (``c2/c1/c0/d_lo/d_hi``: (B, K) float; ``T``: (B,)
+    float; ``total_i``: (B,) int; ``valid``: (B, K) bool, padded slots with
+    ``d_lo = d_hi = 0``). ``tau, d`` come back (B, K) int (0 in padded
+    slots), ``feasible`` (B,) bool, False where even tau = 0 cannot absorb
+    the budget (such rows hold neutralized values).
+
+    ``name`` is ``"kkt_sai"`` (water-filling + SAI) or ``"eta"``
+    (equal-task). float64 inputs reproduce the NumPy solvers decision for
+    decision; float32 inputs give the float32 path."""
+    if name == "kkt_sai":
+        def kkt_policy(c2, c1, c0, T, total_i, d_lo, d_hi, valid):
+            out = _kkt_batched_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid,
+                                    tol=tol, max_iter=max_iter, max_rounds=max_rounds)
+            return out["tau"], out["d"], out["feasible"]
+        return kkt_policy
+    if name == "eta":
+        return _eta_policy
+    if name in _LATER_POLICIES:
+        raise ValueError(f"the batched policy {name!r} is not ported yet; it comes "
+                         f"with a later slice of the port ({_LATER_POLICIES[name]})")
+    raise ValueError(f"no batched policy for scheme {name!r}; choose from "
+                     f"{' | '.join(POLICIES)}")
+
+
+def apply_active_mask(total_i, d_lo, d_hi, valid, active):
+    """Project a (B, K) policy problem onto its online sub-fleet: offline
+    slots get the padded-slot semantics (``d_lo = d_hi = 0``,
+    ``valid=False``) and each fleet's budget is clipped into its live box
+    ``[sum d_lo, sum d_hi]``. Torch tensors in, ``(total, d_lo, d_hi,
+    valid)`` of the same shapes and dtypes out."""
+    act = torch.as_tensor(active, dtype=torch.bool, device=d_lo.device)
+    lo = torch.where(act, d_lo, 0.0)
+    hi = torch.where(act, d_hi, 0.0)
+    v = valid & act
+    tot = torch.clamp(total_i.to(lo.dtype), lo.sum(dim=-1), hi.sum(dim=-1))
+    return tot.to(total_i.dtype), lo, hi, v

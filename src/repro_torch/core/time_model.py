@@ -1,9 +1,10 @@
 """Per-learner time model of the MEL global cycle (paper Eqs. 1-5).
 
 A NumPy copy of ``repro/core/time_model.py``: ``ChannelParams``,
-``LearnerProfile``, ``TimeModel`` and ``indoor_80211_profile``. The drift
-processes (``CapacityDrift``, ``QueueDrift``) come with the reallocation
-slice of the port.
+``LearnerProfile``, ``TimeModel``, ``indoor_80211_profile``, and the
+per-cycle capacity drifts ``CapacityDrift`` and ``QueueDrift``. The
+reference draws the drift from ``jax.random``; the port draws the same bits
+from its NumPy twin ``core._threefry``.
 
 Total cycle time of learner k (Eq. 4/5):
 
@@ -20,11 +21,16 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core import _threefry
+
 __all__ = [
+    "CapacityDrift",
     "ChannelParams",
     "LearnerProfile",
+    "QueueDrift",
     "TimeModel",
     "indoor_80211_profile",
+    "is_state_coupled",
 ]
 
 
@@ -126,6 +132,152 @@ class TimeModel:
             t = np.floor((T - self.c0 - self.c1 * d) / (self.c2 * d))
         t = np.where(d > 0, t, 0.0)
         return np.maximum(t, 0.0).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Time-varying capacities (per-cycle drift)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CapacityDrift:
+    """Seeded per-cycle drift of a fleet's capacities (block model: the
+    capacities hold within a cycle and are drawn anew for the next).
+
+      * compute drift: the clock f_k jitters by a uniform factor in
+        ``[1 - clock_jitter, 1 + clock_jitter]``, scaling C2_k by its inverse;
+      * channel fading: the rate R_k is multiplied by ``10^(X/10)``,
+        X ~ N(0, fading_sigma_db) clipped to +-fading_clip_db, scaling C1_k
+        and C0_k by its inverse.
+
+    Cycle c draws from ``fold_in(key(seed), c)``, as the reference does with
+    ``jax.random``, so the path depends on ``seed`` alone. The draws are
+    float32; the dB-to-linear power is taken in float64 and rounded once to
+    float32, as in the reference.
+    """
+
+    clock_jitter: float = 0.1
+    fading_sigma_db: float = 2.0
+    fading_clip_db: float = 6.0
+    seed: int = 0
+
+    def _factors(self, cycles: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """(clock, rate) factors, each (C, K) float32, of the given cycles."""
+        f32 = np.float32
+        keys = _threefry.split(_threefry.fold_in(_threefry.key(self.seed), cycles))
+        clock = f32(1.0) + f32(self.clock_jitter) * (
+            f32(2.0) * _threefry.uniform(keys[:, 0], k) - f32(1.0))
+        db = np.clip(f32(self.fading_sigma_db) * _threefry.normal(keys[:, 1], k),
+                     f32(-self.fading_clip_db), f32(self.fading_clip_db))
+        rate = np.power(10.0, db.astype(np.float64) / 10.0).astype(f32)
+        return clock, rate
+
+    def factors_at(self, cycle: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """(clock_factor, rate_factor), each (K,) float32, for one cycle."""
+        clock, rate = self._factors(np.array([cycle]), k)
+        return clock[0], rate[0]
+
+    def coefficient_path(self, tm: "TimeModel", cycles: int
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Drifted (c2, c1, c0) float64 arrays of shape (C, K); row c is
+        the fleet's capacity during global cycle c."""
+        clock, rate = self._factors(np.arange(cycles), tm.num_learners)
+        clock = clock.astype(np.float64)
+        rate = rate.astype(np.float64)
+        return tm.c2[None] / clock, tm.c1[None] / rate, tm.c0[None] / rate
+
+
+# ---------------------------------------------------------------------------
+# State-coupled capacities (queue-driven drift)
+# ---------------------------------------------------------------------------
+
+def is_state_coupled(drift) -> bool:
+    """True when ``drift`` carries per-fleet state through the run
+    (``state_init``/``state_update``) and its ``factors_at`` reads that
+    state: its capacity rows then depend on the allocations and must be
+    rolled out together with them (``QueueDrift.rollout``)."""
+    return hasattr(drift, "state_update") and hasattr(drift, "state_init")
+
+
+@dataclasses.dataclass(frozen=True)
+class QueueDrift:
+    """State-coupled drift: one congestion queue per learner, driven by the
+    work the allocator dispatches.
+
+      * state: a (K,) float32 backlog ``q``, empty at the start;
+      * dynamics (``state_update``): ``q' = clip(q + gain * (d_k K / sum(d)
+        - service), 0, q_max)``: a learner above its fair share of samples
+        builds a backlog, one below it drains;
+      * coupling (``factors_at``): ``rate_factor = 1 / (1 + congestion q_k)``
+        scales C1_k and C0_k by its inverse; compute is untouched unless a
+        ``base`` ``CapacityDrift`` is composed on top.
+
+    The queue arithmetic is elementwise float32, bitwise as in the
+    reference. The rows of cycle c depend on the allocations of cycles < c,
+    so rows and allocations come together from ``rollout``.
+    """
+
+    congestion: float = 0.3     # rate degradation per unit backlog
+    gain: float = 1.0           # backlog added per unit of excess load
+    service: float = 1.0        # fair-share load served per cycle
+    q_max: float = 8.0          # backlog clip (bounded buffers)
+    base: CapacityDrift | None = None   # exogenous drift composed on top
+
+    def state_init(self, k: int) -> np.ndarray:
+        """Initial (K,) float32 backlog: empty queues."""
+        return np.zeros((k,), np.float32)
+
+    def factors_at(self, cycle: int, k: int, state) -> tuple[np.ndarray, np.ndarray]:
+        """(clock_factor, rate_factor), each (K,) float32, for one cycle
+        given the backlog ``state``."""
+        if self.base is not None:
+            clock, rate = self.base.factors_at(cycle, k)
+        else:
+            clock = np.ones((k,), np.float32)
+            rate = np.ones((k,), np.float32)
+        q = np.asarray(state, np.float32)
+        return clock, rate / (np.float32(1.0) + np.float32(self.congestion) * q)
+
+    def state_update(self, cycle: int, state, tau, d) -> np.ndarray:
+        """Next (K,) float32 backlog after serving ``(tau, d)``. The load
+        ``d_k K / sum(d)`` takes the integer sum exactly; ``tau`` and
+        ``cycle`` are part of the protocol and unused here."""
+        del cycle, tau
+        d = np.asarray(d)
+        k = d.shape[-1]
+        tot = np.float32(max(int(d.sum()), 1))
+        load = d.astype(np.float32) * np.float32(k) / tot
+        q = np.asarray(state, np.float32)
+        q = q + np.float32(self.gain) * (load - np.float32(self.service))
+        return np.clip(q, np.float32(0.0), np.float32(self.q_max))
+
+    def rollout_iter(self, tm: "TimeModel", cycles: int, solve):
+        """Lazy rollout: per cycle, the drifted (c2, c1, c0) row from the
+        current state, ``solve(cycle, c2_row, c1_row, c0_row) -> (tau, d)``,
+        then the state advanced with that allocation; yields
+        ``(c2_row, c1_row, c0_row, tau, d)``. A consumer trains between
+        yields, so an infeasible cycle raises (from ``solve``) only after
+        the feasible prefix ran."""
+        k = tm.num_learners
+        state = self.state_init(k)
+        for c in range(cycles):
+            clock, rate = self.factors_at(c, k, state)
+            c2r = tm.c2 / clock.astype(np.float64)
+            c1r = tm.c1 / rate.astype(np.float64)
+            c0r = tm.c0 / rate.astype(np.float64)
+            tau, d = solve(c, c2r, c1r, c0r)
+            state = self.state_update(c, state, tau, d)
+            yield c2r, c1r, c0r, tau, d
+
+    def rollout(self, tm: "TimeModel", cycles: int, solve):
+        """``rollout_iter`` collected: ``((c2s, c1s, c0s), (taus, ds))``,
+        (C, K) float64 rows and (C, K) int64 allocations."""
+        k = tm.num_learners
+        rows = np.empty((3, cycles, k))
+        alloc = np.zeros((2, cycles, k), np.int64)
+        for c, (c2r, c1r, c0r, tau, d) in enumerate(self.rollout_iter(tm, cycles, solve)):
+            rows[:, c] = c2r, c1r, c0r
+            alloc[:, c] = tau, d
+        return tuple(rows), tuple(alloc)
 
 
 def indoor_80211_profile(

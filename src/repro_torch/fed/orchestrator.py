@@ -11,38 +11,69 @@ Two paths, as in ``repro/fed/orchestrator.py``:
   * ``run`` / ``run_cycle`` — eager: shards staged each cycle, local
     training by autograd (``local_train``), aggregation by ``aggregate``;
     plain torch on whichever device holds the parameters.
-  * ``run_fused`` — all cycles' shards are staged up front on the device,
-    then each cycle is one ``kernels.ops.train_agg_step`` call: the CUDA
-    train+aggregate kernels on the card, their plain version on the CPU.
+  * ``run_fused`` — one flat draw of the per-cycle total a cycle, all
+    staged up front on the device; each cycle splits its draw by that
+    cycle's d there and is one ``kernels.ops.train_agg_step`` call: the
+    CUDA train+aggregate kernels on the card, their plain version on the
+    CPU.
 
-Both draw the same shards and allocation for the same seed. Per-cycle
-reallocation and capacity drift come with a later slice (ROADMAP Queue 1).
+Both draw the same shards and allocation for the same seed.
+
+Per-cycle reallocation (``reallocate=True``, both paths): each cycle's
+allocation is re-solved on that cycle's capacities through
+``core.solver_batched.batched_policy`` (``solve_policy_row``) on the
+parameters' device, so on the card every bisection step launches the
+water-filling kernel. With a ``CapacityDrift`` the capacity rows are the
+drift's ``coefficient_path``; with a state-coupled ``QueueDrift`` rows and
+allocations roll out together (``solve_rows_state_coupled``). An
+infeasible cycle raises ``ValueError`` naming it, after the cycles before
+it trained (``self.params`` holds them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import (
     Allocation,
     AllocationProblem,
+    CapacityDrift,
+    QueueDrift,
     aggregate,
+    apply_active_mask,
+    batched_policy,
     fedavg_weights,
+    is_state_coupled,
     solve_eta,
     solve_kkt_sai,
     solve_synchronous,
     staleness_weights,
 )
+from repro_torch.core.solver_batched import POLICIES
 from repro_torch.core.staleness import avg_staleness, max_staleness
 from repro_torch.data.pipeline import Dataset, FederatedPartitioner
 from repro_torch.kernels import ops
 from repro_torch.models import mlp
 
-__all__ = ["MELConfig", "Orchestrator", "SCHEMES", "local_train", "local_train_stacked"]
+__all__ = [
+    "MELConfig",
+    "Orchestrator",
+    "SCHEMES",
+    "coefficient_rows",
+    "local_train",
+    "local_train_stacked",
+    "policy_problem_args",
+    "require_standalone_rows",
+    "solve_policy_row",
+    "solve_rows_state_coupled",
+]
 
 SCHEMES: dict[str, Callable[[AllocationProblem], Allocation]] = {
     "kkt_sai": solve_kkt_sai,
@@ -50,14 +81,134 @@ SCHEMES: dict[str, Callable[[AllocationProblem], Allocation]] = {
     "sync": solve_synchronous,
 }
 
-_LATER = "comes with a later slice of the port (ROADMAP Queue 1)"
-
-
 def _solver(scheme: str) -> Callable[[AllocationProblem], Allocation]:
     if scheme not in SCHEMES:
         raise KeyError(f"scheme {scheme!r} is not ported yet (ported: "
-                       f"{', '.join(SCHEMES)}); it {_LATER}")
+                       f"{', '.join(SCHEMES)}); it comes with a later slice "
+                       "of the port (ROADMAP Queue 1)")
     return SCHEMES[scheme]
+
+
+def _check_drift(drift) -> None:
+    """The drifts the port runs: None, ``CapacityDrift``, ``QueueDrift``."""
+    if drift is not None and not isinstance(drift, (CapacityDrift, QueueDrift)):
+        raise TypeError(
+            f"{type(drift).__name__} is not a drift the port runs yet (it runs "
+            "CapacityDrift and QueueDrift); availability processes and battery "
+            "drift come with a later slice of the port (ROADMAP Queue 1 item 9)"
+        )
+
+
+def policy_problem_args(prob: AllocationProblem):
+    """Static (1,)/(1, K) float64 problem arrays for a single-fleet call
+    into a ``batched_policy``: ``(T, total, d_lo, d_hi, valid)``."""
+    k = prob.num_learners
+    return (
+        np.asarray([prob.T], np.float64),
+        np.asarray([prob.total_samples], np.int64),
+        np.full((1, k), float(prob.d_lower), np.float64),
+        np.full((1, k), float(prob.d_upper), np.float64),
+        np.ones((1, k), bool),
+    )
+
+
+def require_standalone_rows(drift, *, remedy: str) -> None:
+    """The guard of paths that need capacity rows fixed up front: a
+    state-coupled drift (``QueueDrift``) has none, since its rows depend on
+    the allocations, so it is rejected with ``TypeError``; ``remedy`` says
+    what to do instead."""
+    if drift is None:
+        return
+    _check_drift(drift)
+    if is_state_coupled(drift):
+        raise TypeError(
+            f"{type(drift).__name__} is a state-coupled drift and has no "
+            f"standalone coefficient path (its rows depend on the run state); {remedy}"
+        )
+
+
+def coefficient_rows(prob: AllocationProblem, drift: CapacityDrift | None,
+                     cycles: int):
+    """(C, K) float64 capacity rows per global cycle: drifted under a
+    ``CapacityDrift``, else the base coefficients tiled."""
+    tm = prob.time_model
+    require_standalone_rows(
+        drift,
+        remedy="roll rows and allocations out together via drift.rollout(...) "
+        "or solve_rows_state_coupled(...)",
+    )
+    if drift is None:
+        tile = lambda a: np.broadcast_to(a, (cycles, tm.num_learners)).astype(np.float64)
+        return tile(tm.c2), tile(tm.c1), tile(tm.c0)
+    return drift.coefficient_path(tm, cycles)
+
+
+def solve_policy_row(scheme: str, c2r, c1r, c0r, prob: AllocationProblem, *,
+                     label: str, active=None, device=None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """One fleet's (tau, d) on a single (K,) capacity row through
+    ``batched_policy(scheme)`` in float64 on ``device`` (``None``: the
+    card); the one row solve every reallocating path shares. Raises
+    ``ValueError`` naming ``label`` when the row is infeasible.
+
+    ``active`` (optional (K,) bool) masks offline learners out: their slots
+    get the padded-slot semantics and the budget is clipped into the live
+    fleet's box (``apply_active_mask``); an all-offline row gives zeros
+    without a solve."""
+    policy = batched_policy(scheme)
+    T1, total1, lo1, hi1, valid1 = policy_problem_args(prob)
+    k = prob.num_learners
+    if active is not None:
+        act = np.asarray(active, bool).reshape(1, k)
+        if not act.any():
+            z = np.zeros(k, np.int64)
+            return z, z.copy()
+    dev = resolve_device(device)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    total_t = torch.as_tensor(total1, device=dev)
+    lo_t, hi_t = f64(lo1), f64(hi1)
+    valid_t = torch.as_tensor(valid1, device=dev)
+    if active is not None:
+        total_t, lo_t, hi_t, valid_t = apply_active_mask(
+            total_t, lo_t, hi_t, valid_t, torch.as_tensor(act, device=dev))
+    tau, d, ok = policy(f64(c2r[None]), f64(c1r[None]), f64(c0r[None]), f64(T1),
+                        total_t, lo_t, hi_t, valid_t)
+    if not bool(ok[0]):
+        sub = (f"; {int(np.asarray(active, bool).sum())}/{k} learners online"
+               if active is not None else "")
+        raise ValueError(
+            "infeasible: even with tau=0 the deadline T cannot absorb "
+            f"d samples ({label}{sub})"
+        )
+    return tau[0].cpu().numpy().astype(np.int64), d[0].cpu().numpy().astype(np.int64)
+
+
+def solve_rows_state_coupled(scheme: str, drift, prob: AllocationProblem,
+                             cycles: int, *, label: str, lazy: bool = False,
+                             device=None):
+    """Rows and allocations of a state-coupled drift (``QueueDrift``)
+    rolled out together: cycle by cycle, the row from the drift's state,
+    its ``solve_policy_row`` solve, the state advanced. ``label`` is a
+    format string given the cycle index for infeasibility errors.
+
+    Returns ``((c2s, c1s, c0s), (taus, ds))``, or with ``lazy=True`` the
+    per-cycle iterator (``QueueDrift.rollout_iter``), so a caller can train
+    each cycle before the next one is solved."""
+
+    def _solve(c, c2r, c1r, c0r):
+        return solve_policy_row(scheme, c2r, c1r, c0r, prob, label=label.format(c),
+                                device=device)
+
+    if lazy:
+        return drift.rollout_iter(prob.time_model, cycles, _solve)
+    return drift.rollout(prob.time_model, cycles, _solve)
+
+
+_DRIFT_IGNORED = (
+    "a CapacityDrift is attached but reallocate=False: the run simulates the "
+    "BASE capacities and the drift is ignored (static-under-drift staleness "
+    "analysis lives in fed.simulation.drift_staleness_sweep)"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,8 +289,8 @@ class Orchestrator:
         seed: int = 0,
         drift=None,
     ):
-        if drift is not None:
-            raise NotImplementedError(f"capacity drift {_LATER}")
+        _check_drift(drift)
+        self.drift = drift
         self.mel = mel
         self.problem = problem
         self.loss_fn = loss_fn
@@ -154,6 +305,33 @@ class Orchestrator:
         else:
             w = fedavg_weights(d)
         return torch.as_tensor(w, dtype=torch.float32, device=self.device)
+
+    def _warn_drift_ignored(self) -> None:
+        if self.drift is not None:
+            # a state-coupled drift cannot even be simulated statically
+            require_standalone_rows(
+                self.drift,
+                remedy="run with reallocate=True so rows and allocations roll out together",
+            )
+            warnings.warn(_DRIFT_IGNORED, stacklevel=3)
+
+    def _reallocations(self, cycles: int):
+        """Per-cycle allocations re-solved on each cycle's capacities,
+        lazily, so an infeasible cycle raises only when it is reached."""
+        scheme = self.mel.scheme
+        label = "drifted capacities at cycle {}"
+        method = f"{scheme}_drift"
+        if is_state_coupled(self.drift):
+            for *_, tau, d in solve_rows_state_coupled(
+                    scheme, self.drift, self.problem, cycles, label=label, lazy=True,
+                    device=self.device):
+                yield Allocation(tau=tau, d=d, method=method)
+            return
+        c2s, c1s, c0s = coefficient_rows(self.problem, self.drift, cycles)
+        for c in range(cycles):
+            tau, d = solve_policy_row(scheme, c2s[c], c1s[c], c0s[c], self.problem,
+                                      label=label.format(c), device=self.device)
+            yield Allocation(tau=tau, d=d, method=method)
 
     def _record(self, tau, d) -> dict:
         return {
@@ -191,15 +369,32 @@ class Orchestrator:
         eval_batch=None,
     ) -> list[dict]:
         """Eager run (``fused=True`` routes to ``run_fused``). ``eval_fn``
-        maps the params to a scalar, read after every cycle."""
+        maps the params to a scalar, read after every cycle.
+
+        ``reallocate=True`` re-solves every cycle: through the batched
+        policy on that cycle's (drifted) capacities for the schemes that
+        have one (``kkt_sai``, ``eta``), else (``sync``) by the scheme's
+        own solver on the static problem."""
         if fused:
             return self.run_fused(train, cycles, eval_fn=eval_fn,
                                   eval_batch=eval_batch, reallocate=reallocate)
-        if reallocate:
-            raise NotImplementedError(f"per-cycle reallocation {_LATER}")
+        if not reallocate:
+            self._warn_drift_ignored()
         part = FederatedPartitioner(train, seed=int(self.rng.integers(2**31)))
+        if (reallocate and is_state_coupled(self.drift)
+                and self.mel.scheme not in POLICIES):
+            raise ValueError(
+                f"state-coupled drift needs a batched policy scheme "
+                f"({' | '.join(POLICIES)}); scheme {self.mel.scheme!r} has none"
+            )
+        allocs = (self._reallocations(cycles)
+                  if reallocate and self.mel.scheme in POLICIES else None)
         history = []
         for c in range(cycles):
+            if allocs is not None:
+                self.allocation = next(allocs)
+            elif reallocate and c:
+                self.allocation = _solver(self.mel.scheme)(self.problem)
             rec = self.run_cycle(part.draw(self.allocation.d))
             rec["cycle"] = c
             rec["elapsed_s"] = (c + 1) * self.mel.T
@@ -219,59 +414,68 @@ class Orchestrator:
         reallocate: bool = False,
     ) -> list[dict]:
         """Twin of ``run`` through ``ops.train_agg_step``: the same shard
-        draws and allocation, every cycle's shards staged on the device up
-        front, one train+aggregate call a cycle.
+        draws and allocation, every cycle's flat draw staged on the device
+        up front and split by that cycle's d there, one train+aggregate
+        call a cycle.
 
         eval_fn : optional ``(params, x, y) -> scalar`` (e.g.
             ``mlp.accuracy``), evaluated each cycle on ``eval_batch``.
         eval_batch : ``(x, y)`` arrays or tensors; required with ``eval_fn``.
 
+        reallocate : re-solve every cycle on that cycle's capacities
+            (``solve_policy_row``) before its train+aggregate call; see the
+            module docstring for the infeasibility contract.
+
         Returns one history dict per cycle, the rows ``run`` produces.
         """
-        if reallocate:
-            raise NotImplementedError(f"per-cycle reallocation {_LATER}")
         if self.loss_fn is not mlp.loss:
             raise ValueError("the fused path trains mlp.loss only; use run() "
                              "for another loss function")
         if eval_fn is not None and eval_batch is None:
             raise ValueError("run_fused needs eval_batch=(x, y) with eval_fn")
-        alloc = self.allocation
-        tau = np.asarray(alloc.tau)
-        d = np.asarray(alloc.d)
-        k = len(d)
-        d_max = int(d.max())
-        feat = train.x.shape[1]
+        if reallocate:
+            batched_policy(self.mel.scheme)   # raises for a scheme without one
+            allocs = self._reallocations(cycles)
+            # d_k <= d_upper bounds the width of a learner's shard
+            d_cap = int(self.problem.d_upper)
+        else:
+            self._warn_drift_ignored()
+            allocs = itertools.repeat(self.allocation)
+            d_cap = int(np.max(self.allocation.d))
+        # every ported scheme's d sums to the per-cycle total
+        total = self.problem.total_samples
+        k = self.problem.num_learners
         dev = self.device
 
-        # identical shard sequence to the eager path (same rng consumption)
+        # the eager path's rng consumption: one flat draw of the per-cycle
+        # total a cycle, split by that cycle's d below
         part = FederatedPartitioner(train, seed=int(self.rng.integers(2**31)))
-        xs = np.zeros((cycles, k, d_max, feat), np.float32)
-        ys = np.zeros((cycles, k, d_max), np.int32)
-        ms = np.zeros((cycles, k, d_max), np.float32)
-        for c in range(cycles):
-            xs[c], ys[c], ms[c] = _stage_shards(part.draw(d), d_max, feat)
-        xs, ys, ms = (torch.from_numpy(a).to(dev) for a in (xs, ys, ms))
-        tau_t = torch.as_tensor(tau, dtype=torch.int32, device=dev)
-        w = self._weights(tau, d)
+        idx = np.stack([part.draw_indices(total) for _ in range(cycles)])
+        xs = torch.from_numpy(train.x[idx]).to(dev)     # (C, total, F)
+        ys = torch.from_numpy(train.y[idx]).to(dev)     # (C, total)
         if eval_fn is not None:
             ex, ey = (torch.as_tensor(a, device=dev) for a in eval_batch)
-
-        max_tau = max(int(tau.max()), 1)
-        accs = []
-        for c in range(cycles):
-            self.params = ops.train_agg_step(
-                _broadcast(self.params, k), xs[c], ys[c], ms[c], tau_t, w,
-                self.mel.lr, max_tau=max_tau,
-            )
-            if eval_fn is not None:
-                accs.append(eval_fn(self.params, ex, ey))
+        j = torch.arange(d_cap, device=dev)
 
         history = []
         for c in range(cycles):
+            alloc = next(allocs)
+            tau, d = np.asarray(alloc.tau), np.asarray(alloc.d)
+            d_t = torch.as_tensor(d, device=dev)
+            # the eager path's contiguous slicing of the draw, as a gather;
+            # masked rows add exactly 0 to every gradient
+            gidx = torch.clamp((torch.cumsum(d_t, 0) - d_t)[:, None] + j[None, :], 0, total - 1)
+            m = (j[None, :] < d_t[:, None]).to(torch.float32)
+            self.params = ops.train_agg_step(
+                _broadcast(self.params, k), xs[c][gidx], ys[c][gidx], m,
+                torch.as_tensor(tau, dtype=torch.int32, device=dev),
+                self._weights(tau, d), self.mel.lr, max_tau=max(int(tau.max()), 1),
+            )
+            self.allocation = alloc
             rec = self._record(tau, d)
             rec["cycle"] = c
             rec["elapsed_s"] = (c + 1) * self.mel.T
             if eval_fn is not None:
-                rec["accuracy"] = float(accs[c])
+                rec["accuracy"] = float(eval_fn(self.params, ex, ey))
             history.append(rec)
         return history

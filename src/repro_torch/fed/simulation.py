@@ -4,25 +4,33 @@ Builds the 802.11 indoor environment, derives the time-model coefficients
 from the paper's MNIST-DNN constants (S_m = 8,974,080 bits,
 C_m = 1,123,736 FLOPs/sample), allocates with the requested scheme, and
 runs federated training on synthetic MNIST-class data — the port of
-``build_problem`` and ``run_experiment`` in ``repro/fed/simulation.py``.
+``build_problem``, ``run_experiment``, ``staleness_sweep`` and
+``drift_staleness_sweep`` in ``repro/fed/simulation.py``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import (
     AllocationProblem,
+    BatchedProblems,
+    CapacityDrift,
     TimeModel,
+    batched_avg_staleness,
+    batched_max_staleness,
     indoor_80211_profile,
     mnist_dnn_cost,
+    solve_eta_batched,
+    solve_kkt_batched,
 )
 from repro_torch.data.pipeline import Dataset, synthetic_mnist
-from repro_torch.fed.orchestrator import MELConfig, Orchestrator
+from repro_torch.fed.orchestrator import MELConfig, Orchestrator, _solver
 from repro_torch.models import mlp
 
-__all__ = ["build_problem", "run_experiment"]
+__all__ = ["build_problem", "drift_staleness_sweep", "run_experiment", "staleness_sweep"]
 
 
 def build_problem(
@@ -48,6 +56,171 @@ def build_problem(
     )
 
 
+_BATCHED_SCHEMES = {
+    "kkt_sai": solve_kkt_batched,
+    "eta": solve_eta_batched,
+}
+_INFEASIBLE = "infeasible: even with tau=0 the deadline T cannot absorb d samples"
+
+
+def staleness_sweep(ks, T: float, *, schemes=("kkt_sai", "eta"), seed: int = 0,
+                    total_samples: int = 6000, seeds=None, device=None) -> list[dict]:
+    """Fig. 2: max/avg staleness vs number of learners K per scheme.
+
+    Every (K, seed) fleet is padded into one ``BatchedProblems`` and each
+    batched scheme (kkt_sai, eta) is ONE ``solve_*_batched`` call on
+    ``device`` (``None``: the card) for the whole sweep; ``sync`` uses its
+    per-problem solver, and a scheme the port lacks raises ``KeyError``.
+    The time-varying sweep is ``drift_staleness_sweep``.
+    """
+    for scheme in schemes:
+        if scheme not in _BATCHED_SCHEMES:
+            _solver(scheme)
+    seeds = (seed,) if seeds is None else tuple(seeds)
+    cases = [(k, s) for k in ks for s in seeds]
+    probs = [build_problem(k, T, seed=s, total_samples=total_samples) for k, s in cases]
+
+    rows: list[dict] = []
+    batched = {}
+    bp = BatchedProblems.from_problems(probs)
+    for scheme in schemes:
+        if scheme in _BATCHED_SCHEMES:
+            ba = _BATCHED_SCHEMES[scheme](bp, device=device)
+            batched[scheme] = (ba, ba.summary(bp))
+
+    for i, ((k, s), prob) in enumerate(zip(cases, probs)):
+        for scheme in schemes:
+            row = {"K": k, "T": T, "scheme": scheme}
+            if len(seeds) > 1:
+                row["seed"] = s
+            if scheme in batched:
+                ba, summ = batched[scheme]
+                if not ba.feasible[i]:
+                    row["error"] = _INFEASIBLE
+                else:
+                    row.update(
+                        max_staleness=int(summ["max_staleness"][i]),
+                        avg_staleness=float(summ["avg_staleness"][i]),
+                        total_updates=int(summ["total_updates"][i]),
+                    )
+                rows.append(row)
+                continue
+            try:
+                sm = _solver(scheme)(prob).summary(prob)
+                row.update(
+                    max_staleness=sm["max_staleness"],
+                    avg_staleness=sm["avg_staleness"],
+                    total_updates=sm["total_updates"],
+                )
+            except ValueError as e:
+                row["error"] = str(e)
+            rows.append(row)
+    return rows
+
+
+def drift_staleness_sweep(ks, T: float, *, cycles: int = 8,
+                          drift: CapacityDrift | None = None,
+                          schemes=("kkt_sai", "eta"), seed: int = 0,
+                          total_samples: int = 6000, seeds=None,
+                          device=None) -> list[dict]:
+    """Adaptive-vs-static staleness under time-varying edge capacities.
+
+    For every (K, seed) fleet the drifted capacity path (C cycles) is
+    scored two ways per scheme:
+
+      * ``mode="adaptive"`` — the allocation is re-solved on each cycle's
+        true capacities; ALL case x cycle problems are padded into ONE
+        mixed-K ``BatchedProblems`` and solved with a single
+        ``solve_*_batched`` call per scheme on ``device`` (``None``: the
+        card);
+      * ``mode="static"`` — the allocation is solved once on the base
+        capacities and frozen; each cycle's realized tau_k is the largest
+        integer feasible under that cycle's true capacities with the frozen
+        d_k.
+
+    Rows report mean/worst max-staleness and mean avg-staleness over the C
+    cycles. Ported schemes without a batched engine (``sync``) get error
+    rows; a scheme the port lacks raises ``KeyError``.
+    """
+    drift = CapacityDrift(seed=seed) if drift is None else drift
+    seeds_ = (seed,) if seeds is None else tuple(seeds)
+    cases = [(k, s) for k in ks for s in seeds_]
+    probs = [build_problem(k, T, seed=s, total_samples=total_samples) for k, s in cases]
+    unsupported = [s for s in schemes if s not in _BATCHED_SCHEMES]
+    for scheme in unsupported:
+        _solver(scheme)
+    schemes = [s for s in schemes if s in _BATCHED_SCHEMES]
+    n = len(cases)
+    kmax = max(p.num_learners for p in probs)
+
+    # one (n * cycles, kmax) batch holding every drifted cycle-problem
+    paths = [drift.coefficient_path(p.time_model, cycles) for p in probs]
+    b = n * cycles
+    c2 = np.ones((b, kmax)); c1 = np.ones((b, kmax)); c0 = np.zeros((b, kmax))
+    d_lo = np.zeros((b, kmax)); d_hi = np.zeros((b, kmax))
+    valid = np.zeros((b, kmax), bool)
+    Tb = np.full(b, T); total = np.full(b, total_samples, np.int64)
+    for i, (p, (c2s, c1s, c0s)) in enumerate(zip(probs, paths)):
+        kk = p.num_learners
+        rows = slice(i * cycles, (i + 1) * cycles)
+        c2[rows, :kk], c1[rows, :kk], c0[rows, :kk] = c2s, c1s, c0s
+        d_lo[rows, :kk] = p.d_lower
+        d_hi[rows, :kk] = p.d_upper
+        valid[rows, :kk] = True
+    bp_drift = BatchedProblems(c2, c1, c0, Tb, total, d_lo, d_hi, valid)
+    bp_base = BatchedProblems.from_problems(probs)
+
+    out: list[dict] = []
+    for scheme in unsupported:
+        for (k, s) in cases:
+            row = {"K": k, "T": T, "scheme": scheme, "cycles": cycles,
+                   "error": (f"scheme {scheme!r} has no batched engine; the "
+                             "drift sweep supports "
+                             + " | ".join(sorted(_BATCHED_SCHEMES)))}
+            if len(seeds_) > 1:
+                row["seed"] = s
+            out.append(row)
+    for scheme in schemes:
+        solver = _BATCHED_SCHEMES[scheme]
+        ba = solver(bp_drift, device=device)
+        summ = ba.summary(bp_drift)
+        ba_static = solver(bp_base, device=device)
+        for i, ((k, s), p, (c2s, c1s, c0s)) in enumerate(zip(cases, probs, paths)):
+            rows = slice(i * cycles, (i + 1) * cycles)
+            base = {"K": k, "T": T, "scheme": scheme, "cycles": cycles}
+            if len(seeds_) > 1:
+                base["seed"] = s
+            if not ba.feasible[rows].all() or not ba_static.feasible[i]:
+                out.append({**base, "error": _INFEASIBLE})
+                continue
+            smax = summ["max_staleness"][rows]
+            savg = summ["avg_staleness"][rows]
+            out.append({
+                **base, "mode": "adaptive",
+                "max_staleness_mean": float(smax.mean()),
+                "max_staleness_worst": int(smax.max()),
+                "avg_staleness_mean": float(savg.mean()),
+                "total_updates_mean": float(summ["total_updates"][rows].mean()),
+            })
+            # frozen allocation, realized tau under each cycle's true caps:
+            # a (C, K)-broadcast TimeModel reuses max_tau's clamp semantics
+            kk = p.num_learners
+            d0 = ba_static.d[i, :kk].astype(float)
+            tau_c = TimeModel(c2=c2s, c1=c1s, c0=c0s).max_tau(
+                np.broadcast_to(d0, c2s.shape), T)
+            smax_s = batched_max_staleness(tau_c)
+            savg_s = batched_avg_staleness(tau_c)
+            upd = (tau_c * d0[None]).sum(axis=1)
+            out.append({
+                **base, "mode": "static",
+                "max_staleness_mean": float(smax_s.mean()),
+                "max_staleness_worst": int(smax_s.max()),
+                "avg_staleness_mean": float(savg_s.mean()),
+                "total_updates_mean": float(upd.mean()),
+            })
+    return out
+
+
 def run_experiment(
     *,
     k: int = 10,
@@ -69,8 +242,12 @@ def run_experiment(
 
     ``fused=True`` runs each cycle through the train+aggregate kernels
     (``Orchestrator.run_fused``) and gives the eager history for the same
-    seed, to float32 tolerance. ``device=None`` means the card.
-    ``reallocate`` and ``drift`` come with a later slice of the port.
+    seed, to float32 tolerance. ``reallocate=True`` re-solves the
+    allocation every cycle through the batched solver (the water-filling
+    kernel on the card); pass a ``CapacityDrift`` or ``QueueDrift`` to make
+    the re-solve follow time-varying capacities. ``drift`` without
+    ``reallocate`` is ignored with a warning (the run simulates the base
+    capacities). ``device=None`` means the card.
     """
     device = resolve_device(device)
     if train is None or test is None:

@@ -12,8 +12,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
+from repro_torch.kernels.waterfill import waterfill_residual_cuda
 
-__all__ = ["fed_agg", "train_agg_step"]
+__all__ = ["fed_agg", "train_agg_step", "waterfill_residual"]
 
 
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -30,3 +31,13 @@ def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int) -> list[dic
     if x.device.type == "cpu":
         return ref.train_agg_step_ref(disp, x, y, m, tau, weights, lr, max_tau=max_tau)
     return train_agg_step_cuda(disp, x, y, m, tau, weights, lr, max_tau=max_tau)
+
+
+def waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total) -> torch.Tensor:
+    """Batched water-filling residual
+    ``sum_k clip((T - c0) / (c2 tau* + c1), d_lo, d_hi) - total`` of a
+    (B, K) fleet batch: the inner evaluation of every bisection step in
+    ``core.solver_batched``."""
+    if c2.device.type == "cpu":
+        return ref.waterfill_residual_ref(tau_star, c2, c1, c0, T, d_lo, d_hi, total)
+    return waterfill_residual_cuda(tau_star, c2, c1, c0, T, d_lo, d_hi, total)

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.models import mlp
 
-__all__ = ["fed_agg_ref", "train_agg_step_ref"]
+__all__ = ["fed_agg_ref", "sum_in_order", "train_agg_step_ref", "waterfill_residual_ref"]
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -19,6 +19,25 @@ def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     and returned in the input dtype (``repro.kernels.ref.fed_agg_ref``)."""
     w = weights.to(torch.float32).reshape((-1,) + (1,) * (stacked.dim() - 1))
     return (stacked.to(torch.float32) * w).sum(dim=0).to(stacked.dtype)
+
+
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order, one rounded add at a time:
+    the order of the CUDA kernel, and of the reference's CPU program for
+    the fleet sizes it runs (torch's ``sum`` would pair the terms up)."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def waterfill_residual_ref(tau_star, c2, c1, c0, T, d_lo, d_hi, total):
+    """Batched KKT water-filling residual
+    ``sum_k clip((T - c0) / (c2 tau* + c1), d_lo, d_hi) - total``
+    (``repro.kernels.ref.waterfill_residual_ref``, summed in index order).
+    tau_star/T/total: (B,); c2/c1/c0/d_lo/d_hi: (B, K). Returns (B,)."""
+    d = torch.clamp((T[:, None] - c0) / (c2 * tau_star[:, None] + c1), d_lo, d_hi)
+    return sum_in_order(d) - total
 
 
 def train_agg_step_ref(disp, x, y, m, tau, weights, lr, *, max_tau: int,

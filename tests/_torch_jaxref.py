@@ -2,9 +2,11 @@
 
 The reference imports ``enable_x64`` from ``jax.experimental``, which newer
 jax releases no longer ship (they have ``jax.enable_x64``). This loader is a
-test-side shim: where the name is missing it adds the alias only while the
-reference modules below are imported, then removes it again. Nothing in
-``src/repro`` changes, and no other jax name is aliased.
+test-side shim: where the name is missing it adds the alias while the
+reference modules below are imported and again inside ``loaded()`` (the
+drift's ``coefficient_path`` and ``rollout_iter`` import it when called),
+and removes it on leaving either. Nothing in ``src/repro`` changes, and no
+other jax name is aliased.
 
 The modules it loads are then taken out of ``sys.modules`` again, so that
 the reference's own tests import it as they would without this file (and
@@ -22,23 +24,33 @@ import sys
 import jax
 import jax.experimental
 
+
+@contextlib.contextmanager
+def _enable_x64_alias():
+    """``jax.experimental.enable_x64`` for the duration, where jax lacks it."""
+    added = not hasattr(jax.experimental, "enable_x64")
+    if added:
+        jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+    try:
+        yield
+    finally:
+        if added:
+            del jax.experimental.enable_x64
+
+
 _before = set(sys.modules)
-_added = not hasattr(jax.experimental, "enable_x64")
-if _added:
-    jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
-try:
+with _enable_x64_alias():
     from repro import core
-    from repro.core import aggregation, staleness
+    from repro.core import aggregation, solver_batched, staleness, time_model
     from repro.data import pipeline
     from repro.fed import orchestrator, simulation
     from repro.kernels import ref as kernels_ref
+    from repro.kernels import waterfill as kernels_waterfill
     from repro.models import mlp
-finally:
-    if _added:
-        del jax.experimental.enable_x64
 
-__all__ = ["aggregation", "core", "kernels_ref", "loaded", "mlp", "orchestrator",
-           "pipeline", "simulation", "staleness"]
+__all__ = ["aggregation", "core", "kernels_ref", "kernels_waterfill", "loaded", "mlp",
+           "orchestrator", "pipeline", "simulation", "solver_batched", "staleness",
+           "time_model"]
 
 
 def _is_reference(name: str) -> bool:
@@ -68,12 +80,14 @@ def _unbind() -> None:
 
 @contextlib.contextmanager
 def loaded():
-    """The reference's modules in ``sys.modules`` for the duration; any of
-    its modules first imported inside are kept with them and taken out too."""
+    """The reference's modules in ``sys.modules``, and the ``enable_x64``
+    alias, for the duration; any of its modules first imported inside are
+    kept with them and taken out too."""
     before = set(sys.modules)
     _bind()
     try:
-        yield
+        with _enable_x64_alias():
+            yield
     finally:
         _modules.update({name: sys.modules[name] for name in set(sys.modules) - before
                          if _is_reference(name)})

@@ -12,6 +12,11 @@ all-masked shard, a mask with holes, every tau 0. Tolerance: a few GD
 steps in float32 whose sums run in another order than the plain
 version's, rtol 1e-5 and atol 1e-6 per element.
 
+The water-filling residual kernel sums in the plain version's order and
+rounds every operation as it does, so its tolerance is tight: absolute
+1e-12 * max(1, |total|) in float64, 1e-5 * max(1, |total|) in float32.
+A small ``solve_kkt_batched`` on the card must give the CPU's rows.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -27,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fed_agg, ops, ref, train_step
+from repro_torch.core import solver_batched
+from repro_torch.kernels import fed_agg, ops, ref, train_step, waterfill
 from repro_torch.models import mlp
 
 pytestmark = pytest.mark.cuda
@@ -144,3 +150,82 @@ def test_train_agg_step_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="classes"):
         wide = _model(2, [64, 100], seed=9, dev=dev)
         train_step.train_agg_step_cuda(wide, x, y, m, tau, w, LR, max_tau=1)
+
+
+WATERFILL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _waterfill_args(b, k, dtype, dev, seed):
+    """A (B, K) residual problem with padded slots (lo = hi = 0, c2 = c1 = 1,
+    c0 = 0) in the last column and in a ragged tail of rows, and tau* = 0
+    in the first fleet."""
+    rng = np.random.default_rng(seed)
+    c2 = rng.uniform(1e-4, 1e-2, (b, k))
+    c1 = rng.uniform(1e-5, 1e-3, (b, k))
+    c0 = rng.uniform(0.05, 1.0, (b, k))
+    lo = np.full((b, k), 10.0)
+    hi = rng.uniform(100.0, 2000.0, (b, k))
+    pad = np.zeros((b, k), bool)
+    pad[:, -1] = k > 1
+    pad[b // 2:, k // 2:] = k > 2
+    c2[pad], c1[pad], c0[pad], lo[pad], hi[pad] = 1.0, 1.0, 0.0, 0.0, 0.0
+    tau = rng.uniform(0.0, 60.0, b)
+    tau[0] = 0.0
+    T = rng.uniform(2.0, 30.0, b)
+    total = rng.uniform(10.0, 5000.0, b)
+    return [torch.tensor(a, dtype=dtype, device=dev)
+            for a in (tau, c2, c1, c0, T, lo, hi, total)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [3, 10, 37])
+@pytest.mark.parametrize("b", [1, 5, 1000])
+def test_waterfill_kernel_matches_plain(dev, b, k, dtype):
+    args = _waterfill_args(b, k, dtype, dev, seed=b * 7 + k)
+    waterfill.launches = 0
+    got = ops.waterfill_residual(*args)
+    torch.cuda.synchronize()
+    assert waterfill.launches == 1
+    assert got.dtype == dtype and got.shape == (b,)
+    want = ref.waterfill_residual_ref(*args)
+    bound = WATERFILL_TOL[dtype] * torch.clamp_min(args[-1].abs(), 1.0)
+    assert bool(((got - want).abs() <= bound).all())
+    # a fleet of padded slots only absorbs nothing
+    only_pad = [a.clone() for a in args]
+    only_pad[5].zero_()
+    only_pad[6].zero_()
+    torch.testing.assert_close(ops.waterfill_residual(*only_pad), -only_pad[-1],
+                               rtol=0, atol=0)
+
+
+def test_waterfill_kernel_refuses_what_it_does_not_take(dev):
+    args = _waterfill_args(4, 3, torch.float64, dev, seed=0)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        waterfill.waterfill_residual_cuda(*[a.half() for a in args])
+    with pytest.raises(ValueError, match="c1 must be"):
+        waterfill.waterfill_residual_cuda(args[0], args[1], args[2].float(), *args[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        waterfill.waterfill_residual_cuda(args[0], args[1].t().contiguous().t(), *args[2:])
+    with pytest.raises(ValueError, match="total must be"):
+        waterfill.waterfill_residual_cuda(*args[:-1], args[-1][:3])
+
+
+@pytest.mark.parametrize("x64", [True, False], ids=["f64", "f32"])
+def test_solve_kkt_batched_on_the_card_gives_the_cpu_rows(dev, x64):
+    from repro_torch.core import CapacityDrift
+    from repro_torch.fed.simulation import build_problem
+
+    prob = build_problem(8, 15.0, seed=0)
+    c2, c1, c0 = CapacityDrift(seed=0).coefficient_path(prob.time_model, 257)
+    b = c2.shape[0]
+    bp = solver_batched.BatchedProblems(
+        c2, c1, c0, np.full(b, prob.T), np.full(b, prob.total_samples, np.int64),
+        np.full(c2.shape, float(prob.d_lower)), np.full(c2.shape, float(prob.d_upper)),
+        np.ones(c2.shape, bool))
+    waterfill.launches = 0
+    card = solver_batched.solve_kkt_batched(bp, x64=x64, device=dev)
+    assert waterfill.launches == 1 + 1 + card.rounds["grow"] + card.rounds["bisection"]
+    cpu = solver_batched.solve_kkt_batched(bp, x64=x64, device="cpu")
+    for name in ("tau", "d", "feasible", "tau_star", "relaxed_d"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
+    assert card.rounds == cpu.rounds
