@@ -466,7 +466,7 @@ class Orchestrator:
             # masked rows add exactly 0 to every gradient
             gidx = torch.clamp((torch.cumsum(d_t, 0) - d_t)[:, None] + j[None, :], 0, total - 1)
             m = (j[None, :] < d_t[:, None]).to(torch.float32)
-            self.params = ops.train_agg_step(
+            self.params, _ = ops.train_agg_step(
                 _broadcast(self.params, k), xs[c][gidx], ys[c][gidx], m,
                 torch.as_tensor(tau, dtype=torch.int32, device=dev),
                 self._weights(tau, d), self.mel.lr, max_tau=max(int(tau.max()), 1),

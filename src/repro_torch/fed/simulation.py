@@ -4,8 +4,9 @@ Builds the 802.11 indoor environment, derives the time-model coefficients
 from the paper's MNIST-DNN constants (S_m = 8,974,080 bits,
 C_m = 1,123,736 FLOPs/sample), allocates with the requested scheme, and
 runs federated training on synthetic MNIST-class data — the port of
-``build_problem``, ``run_experiment``, ``staleness_sweep`` and
-``drift_staleness_sweep`` in ``repro/fed/simulation.py``.
+``build_problem``, ``build_spread_problem``, ``run_experiment``,
+``staleness_sweep``, ``drift_staleness_sweep``, ``run_async_experiment`` and
+``async_mode_sweep`` in ``repro/fed/simulation.py``.
 """
 
 from __future__ import annotations
@@ -27,10 +28,19 @@ from repro_torch.core import (
     solve_kkt_batched,
 )
 from repro_torch.data.pipeline import Dataset, synthetic_mnist
+from repro_torch.fed.async_engine import AsyncConfig, AsyncFedEngine, summarize_async_history
 from repro_torch.fed.orchestrator import MELConfig, Orchestrator, _solver
 from repro_torch.models import mlp
 
-__all__ = ["build_problem", "drift_staleness_sweep", "run_experiment", "staleness_sweep"]
+__all__ = [
+    "async_mode_sweep",
+    "build_problem",
+    "build_spread_problem",
+    "drift_staleness_sweep",
+    "run_async_experiment",
+    "run_experiment",
+    "staleness_sweep",
+]
 
 
 def build_problem(
@@ -53,6 +63,28 @@ def build_problem(
     d_u = min(total_samples, int(d_upper_frac * total_samples / k))
     return AllocationProblem(
         time_model=tm, T=T, total_samples=total_samples, d_lower=d_l, d_upper=d_u
+    )
+
+
+def build_spread_problem(
+    k: int = 3, T: float = 6.0, *, total_samples: int = 60,
+) -> AllocationProblem:
+    """A small (K <= 5) fleet whose integer-rounded cycle times land well
+    apart — the regime where the async engine's exact bucket grid stays
+    small and local training stays cheap. The KKT allocator equalizes
+    relaxed finish times, so the spread comes from the integer tau
+    rounding: the coefficients are hand-picked to make that slack differ
+    per learner."""
+    if not (1 <= k <= 5):
+        raise ValueError("the hand-tuned spread fleet has at most 5 learners")
+    c2 = np.array([0.050, 0.031, 0.022, 0.045, 0.027])[:k]
+    c1 = np.array([0.004, 0.006, 0.003, 0.005, 0.002])[:k]
+    c0 = np.array([0.40, 0.55, 0.30, 0.25, 0.45])[:k]
+    return AllocationProblem(
+        time_model=TimeModel(c2=c2, c1=c1, c0=c0), T=T,
+        total_samples=total_samples,
+        d_lower=max(1, total_samples // (2 * k)),
+        d_upper=min(total_samples, 2 * total_samples // k),
     )
 
 
@@ -277,3 +309,176 @@ def run_experiment(
         "final_accuracy": history[-1]["accuracy"],
         "allocation": orch.allocation.summary(prob),
     }
+
+
+# ---------------------------------------------------------------------------
+# event-driven asynchronous federation (fed.async_engine)
+# ---------------------------------------------------------------------------
+
+def run_async_experiment(
+    *,
+    k: int = 6,
+    T: float = 10.0,
+    cycles: int = 6,
+    mode: str = "fedasync",
+    scheme: str = "kkt_sai",
+    aggregation: str = "staleness",
+    total_samples: int = 2000,
+    lr: float = 0.1,
+    seed: int = 0,
+    drift=None,
+    reallocate: bool = False,
+    alpha: float = 0.6,
+    staleness_fn: str = "poly",
+    buffer_size: int = 0,
+    bucketed: bool = False,
+    num_buckets: int = 0,
+    strict: bool = True,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+    problem=None,
+    max_events: int = 100_000,
+    faults: dict | None = None,
+    device=None,
+) -> dict:
+    """One event-driven async MEL run to virtual time ``cycles * T``.
+
+    ``mode`` selects the server: ``"cycle"`` is the paper's cycle-gated
+    scheme as the engine's barrier regime (buffered, M = K),
+    ``"fedasync"`` mixes per upload with version-staleness discounting,
+    ``"buffered"`` flushes a size-M buffer (default M = K/2, min 2).
+    ``bucketed=True`` (event modes only) runs the grouped kernel path:
+    ``num_buckets=0`` the event-indexed ``run_events``, ``num_buckets > 0``
+    the fixed grid ``run_bucketed``; otherwise the eager ``run``. Pass
+    ``problem`` to replace the MNIST-constants fleet (``build_problem``).
+    ``drift`` takes a ``CapacityDrift`` or a state-coupled ``QueueDrift``
+    (``reallocate=True`` required). ``faults`` forwards fault knobs
+    (``drop_rate``, ``straggler_rate``, ``deadline``, ``quorum``, ... — see
+    ``AsyncConfig``) into the config; the summary's ``"faults"`` holds the
+    schedule's counters. ``device=None`` means the card.
+    """
+    device = resolve_device(device)
+    if problem is None:
+        problem = build_problem(k, T, total_samples=total_samples, seed=seed)
+    else:
+        k, T = problem.num_learners, problem.T
+        total_samples = problem.total_samples
+    # dataset sizing follows the resolved per-cycle budget
+    if train is None or test is None:
+        train, test = synthetic_mnist(max(total_samples * 2, 12_000), seed=seed)
+    horizon = cycles * T
+    common = dict(scheme=scheme, aggregation=aggregation, lr=lr,
+                  reallocate=reallocate, **(faults or {}))
+    if mode == "cycle":
+        cfg = AsyncConfig(mode="buffered", barrier=True, **common)
+    elif mode == "buffered":
+        cfg = AsyncConfig(
+            mode="buffered", alpha=alpha, staleness_fn=staleness_fn,
+            buffer_size=buffer_size or max(2, k // 2), **common,
+        )
+    else:
+        cfg = AsyncConfig(mode=mode, alpha=alpha, staleness_fn=staleness_fn, **common)
+    params = mlp.init(seed, device=device)
+    eng = AsyncFedEngine(cfg, problem, mlp.loss, params, seed=seed, drift=drift)
+    eval_batch = (torch.from_numpy(test.x[:2000]).to(device),
+                  torch.from_numpy(test.y[:2000]).to(device))
+    if bucketed:
+        if mode == "cycle":
+            raise ValueError(
+                "mode='cycle' is the barrier regime: its kernel path is "
+                "Orchestrator.run_fused (run_experiment(fused=True)); "
+                "bucketed=True applies to the event-driven modes"
+            )
+        if num_buckets:
+            history = eng.run_bucketed(
+                train, horizon, num_buckets, eval_fn=mlp.accuracy,
+                eval_batch=eval_batch, strict=strict, max_events=max_events,
+            )
+        else:
+            history = eng.run_events(
+                train, horizon, eval_fn=mlp.accuracy, eval_batch=eval_batch,
+                max_events=max_events,
+            )
+    else:
+        history = eng.run(
+            train, horizon, eval_fn=mlp.accuracy, eval_batch=eval_batch,
+            max_events=max_events,
+        )
+    summary = summarize_async_history(
+        history, counters=eng.fault_counters, energy=eng.energy_ledger
+    )
+    return {
+        "mode": mode,
+        "scheme": scheme,
+        "K": k,
+        "T": T,
+        "cycles": cycles,
+        "bucketed": bucketed,
+        "history": history,
+        "summary": summary,
+        "final_accuracy": summary["final_accuracy"],
+        "accuracy_trace": [
+            (round(float(r["t"]), 3), round(float(r["accuracy"]), 4))
+            for r in history if "accuracy" in r
+        ],
+    }
+
+
+def async_mode_sweep(
+    ks,
+    T: float,
+    *,
+    cycles: int = 6,
+    modes=("cycle", "fedasync", "buffered"),
+    drift=None,
+    scheme: str = "kkt_sai",
+    seed: int = 0,
+    total_samples: int = 2000,
+    reallocate: bool = True,
+    alpha: float = 0.6,
+    staleness_fn: str = "poly",
+    problem=None,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+    device=None,
+) -> list[dict]:
+    """The paper's cycle-gated scheme against FedAsync and buffered
+    aggregation at equal virtual time (``cycles * T`` seconds) under
+    time-varying capacities: per (K, mode), final accuracy, the
+    version-staleness profile and the aggregation/upload counts.
+    ``drift`` defaults to ``CapacityDrift(seed=seed)``; ``reallocate=False``
+    freezes every mode's allocation at the base capacities. An infeasible
+    case gives an error row, as in the reference."""
+    drift = CapacityDrift(seed=seed) if drift is None else drift
+    rows: list[dict] = []
+    for k in np.atleast_1d(ks):
+        for mode in modes:
+            try:
+                res = run_async_experiment(
+                    k=int(k), T=T, cycles=cycles, mode=mode, scheme=scheme,
+                    seed=seed, total_samples=total_samples, drift=drift,
+                    reallocate=reallocate, alpha=alpha,
+                    staleness_fn=staleness_fn, problem=problem,
+                    train=train, test=test, device=device,
+                )
+            except ValueError as e:
+                rows.append({"K": int(k), "T": T, "mode": mode,
+                             "cycles": cycles, "error": str(e)})
+                continue
+            s = res["summary"]
+            rows.append({
+                "K": res["K"],      # a problem= override resolves K and T
+                "T": res["T"],
+                "mode": mode,
+                "cycles": cycles,
+                "scheme": scheme,
+                "reallocate": reallocate,
+                "final_accuracy": res["final_accuracy"],
+                "aggregations": s["aggregations"],
+                "uploads": s["uploads"],
+                "virtual_time": s["virtual_time"],
+                "staleness_mean": s["staleness"]["mean"],
+                "staleness_max": s["staleness"]["max"],
+                "accuracy_trace": res["accuracy_trace"][:40],
+            })
+    return rows

@@ -24,13 +24,23 @@ def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return fed_agg_cuda(stacked, weights)
 
 
-def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int) -> list[dict]:
-    """One train+aggregate cycle of the MLP (cycle form): ``tau_k`` masked
-    GD steps of ``mlp.loss`` per learner from ``disp``, then the weighted
-    aggregation. ``max_tau`` is the host's bound on ``max(tau)``."""
+def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int, server=None,
+                   acc=None, keep=None, flush=None):
+    """One train+aggregate step of the MLP: ``tau_k`` masked GD steps of
+    ``mlp.loss`` per learner from ``disp``, then
+
+    * cycle form (``acc=None``): the weighted aggregation of the trained
+      learners; returns ``(new_model, None)``;
+    * async form (``server``, ``acc``, ``keep``, ``flush`` given): the
+      accumulate ``acc1 = acc + sum_k w_k local_k`` and the flush; returns
+      ``(keep * server + flush * acc1, (1 - flush) * acc1)``.
+
+    ``max_tau`` is the host's bound on ``max(tau)``; ``keep`` and ``flush``
+    are host numbers."""
+    kw = dict(max_tau=max_tau, server=server, acc=acc, keep=keep, flush=flush)
     if x.device.type == "cpu":
-        return ref.train_agg_step_ref(disp, x, y, m, tau, weights, lr, max_tau=max_tau)
-    return train_agg_step_cuda(disp, x, y, m, tau, weights, lr, max_tau=max_tau)
+        return ref.train_agg_step_ref(disp, x, y, m, tau, weights, lr, **kw)
+    return train_agg_step_cuda(disp, x, y, m, tau, weights, lr, **kw)
 
 
 def waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total) -> torch.Tensor:

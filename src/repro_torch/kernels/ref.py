@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.models import mlp
 
-__all__ = ["fed_agg_ref", "sum_in_order", "train_agg_step_ref", "waterfill_residual_ref"]
+__all__ = ["accum_flush_ref", "fed_agg_ref", "sum_in_order", "train_agg_step_ref",
+           "waterfill_residual_ref"]
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -40,15 +41,41 @@ def waterfill_residual_ref(tau_star, c2, c1, c0, T, d_lo, d_hi, total):
     return sum_in_order(d) - total
 
 
+def accum_flush_ref(locals_, weights, acc, server, keep, flush):
+    """The async epilogue of the train+aggregate step on one leaf:
+    ``acc1 = fed_agg_ref([acc, locals_], [1, w])``,
+    ``server' = fed_agg_ref([server, acc1], [keep, flush])`` and
+    ``acc' = (1 - flush) * acc1``. locals_: (K, ...); weights: (K,);
+    acc, server: (...); keep, flush: host scalars. Returns
+    ``(server', acc')``."""
+    dev = locals_.device
+    w = torch.cat([torch.ones(1, dtype=torch.float32, device=dev),
+                   weights.to(torch.float32)])
+    acc1 = fed_agg_ref(torch.cat([acc[None], locals_]), w)
+    kf = torch.tensor([float(keep), float(flush)], dtype=torch.float32, device=dev)
+    server1 = fed_agg_ref(torch.stack([server, acc1]), kf)
+    return server1, (1.0 - kf[1]) * acc1
+
+
 def train_agg_step_ref(disp, x, y, m, tau, weights, lr, *, max_tau: int,
-                       loss_fn=mlp.loss) -> list[dict]:
-    """Cycle form of the train+aggregate step: ``local_train_stacked``
-    (``tau_k`` masked GD steps per learner from its own parameters)
-    followed by ``fed_agg_ref`` on every leaf."""
+                       loss_fn=mlp.loss, server=None, acc=None, keep=None,
+                       flush=None):
+    """The train+aggregate step, unfused: ``local_train_stacked``
+    (``tau_k`` masked GD steps per learner from its own parameters), then
+    on every leaf either ``fed_agg_ref`` of the trained learners (cycle
+    form, ``acc=None``) or ``accum_flush_ref`` (async form, with
+    ``server``, ``acc``, ``keep`` and ``flush``). Returns
+    ``(new_server, new_acc)``, ``new_acc=None`` in cycle form
+    (``repro.kernels.ref.train_agg_step_ref``)."""
     from repro_torch.fed.orchestrator import local_train_stacked
 
     locals_ = local_train_stacked(disp, x, y, m, tau, lr, max_tau=max_tau,
                                   loss_fn=loss_fn)
     w = weights.to(torch.float32)
-    return [{name: fed_agg_ref(leaf, w) for name, leaf in layer.items()}
-            for layer in locals_]
+    if acc is None:
+        return [{name: fed_agg_ref(leaf, w) for name, leaf in layer.items()}
+                for layer in locals_], None
+    pairs = [{name: accum_flush_ref(leaf, w, acc[l][name], server[l][name], keep, flush)
+              for name, leaf in layer.items()} for l, layer in enumerate(locals_)]
+    return ([{name: p[0] for name, p in layer.items()} for layer in pairs],
+            [{name: p[1] for name, p in layer.items()} for layer in pairs])

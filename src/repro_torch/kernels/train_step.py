@@ -1,17 +1,23 @@
-"""CUDA kernels for one train+aggregate cycle of K learners (cycle form).
+"""CUDA kernels for one train+aggregate step of K learners.
 
 Replaces the Pallas TPU megakernel ``train_agg_step_pallas``
-(``repro/kernels/train_step.py:119``) in its cycle form: each learner runs
+(``repro/kernels/train_step.py:119``) in both its forms: each learner runs
 ``tau_k`` masked gradient steps of the MLP's masked mean NLL from its own
-parameters, then the trained learners are aggregated with weights ``w``.
-The source, with its bound and design, is ``csrc/train_step.cu``; one C
-call runs every step of the cycle on the current stream, and the
-aggregation launches the ``fed_agg`` kernel once per leaf. The plain torch
-version is ``repro_torch.kernels.ref.train_agg_step_ref``;
-``ops.train_agg_step`` picks between the two by the tensors' device.
+parameters, then
 
-``launches`` counts the cycle entry point's calls in this process; set it
-to 0 to start a count.
+* cycle form: the trained learners are aggregated with weights ``w``, the
+  ``fed_agg`` kernel once per leaf;
+* async form (``server``, ``acc``, ``keep``, ``flush`` given): they are
+  folded into the accumulator and the flush applied, the ``accum_flush``
+  kernel once per leaf.
+
+The training source, with its bound and design, is ``csrc/train_step.cu``;
+one C call runs every step on the current stream. The plain torch version
+is ``repro_torch.kernels.ref.train_agg_step_ref``; ``ops.train_agg_step``
+picks between the two by the tensors' device.
+
+``launches`` counts the training entry point's calls in this process (both
+forms); set it to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.accum_flush import accum_flush_cuda
 from repro_torch.kernels.fed_agg import fed_agg_cuda
 
 __all__ = ["train_agg_step_cuda", "launches"]
@@ -82,15 +89,18 @@ def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
     return widths
 
 
-def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *,
-                        max_tau: int) -> list[dict]:
-    """One cycle on the card; returns the aggregated model.
+def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
+                        server=None, acc=None, keep=None, flush=None):
+    """One train+aggregate step on the card; returns ``(new_server,
+    new_acc)``, ``new_acc=None`` in cycle form (``acc=None``).
 
     disp : list of ``{"w": (K, fan_in, fan_out), "b": (K, fan_out)}``
         float32 — each learner's start parameters (a broadcast view is fine)
     x : (K, d_cap, F) float32; y : (K, d_cap) int32; m : (K, d_cap) float32
     tau : (K,) int32; weights : (K,) float32; all contiguous, on one card
     max_tau : the host's ``max(tau)`` bound on the steps (no device read)
+    server, acc : the async form's server model and accumulator (lists of
+        ``{"w", "b"}`` float32 leaves, contiguous); keep, flush : host numbers
     """
     global launches
     widths = _check_inputs(disp, x, y, m, tau, weights)
@@ -117,5 +127,11 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *,
         )
     _build.check(lib, code, "train_agg_step kernel launch")
     launches += 1
-    return [{name: fed_agg_cuda(leaf, weights) for name, leaf in layer.items()}
-            for layer in work]
+    if acc is None:
+        return [{name: fed_agg_cuda(leaf, weights) for name, leaf in layer.items()}
+                for layer in work], None
+    pairs = [{name: accum_flush_cuda(leaf, weights, acc[l][name], server[l][name],
+                                     keep, flush)
+              for name, leaf in layer.items()} for l, layer in enumerate(work)]
+    return ([{name: p[0] for name, p in layer.items()} for layer in pairs],
+            [{name: p[1] for name, p in layer.items()} for layer in pairs])

@@ -12,6 +12,9 @@ all-masked shard, a mask with holes, every tau 0. Tolerance: a few GD
 steps in float32 whose sums run in another order than the plain
 version's, rtol 1e-5 and atol 1e-6 per element.
 
+The accumulate/flush kernel runs the plain version's sum in its order with
+every product rounded, so it is held to 1e-6.
+
 The water-filling residual kernel sums in the plain version's order and
 rounds every operation as it does, so its tolerance is tight: absolute
 1e-12 * max(1, |total|) in float64, 1e-5 * max(1, |total|) in float32.
@@ -33,7 +36,7 @@ import pytest
 import torch
 
 from repro_torch.core import solver_batched
-from repro_torch.kernels import fed_agg, ops, ref, train_step, waterfill
+from repro_torch.kernels import accum_flush, fed_agg, ops, ref, train_step, waterfill
 from repro_torch.models import mlp
 
 pytestmark = pytest.mark.cuda
@@ -114,11 +117,12 @@ def test_train_agg_step_kernel_matches_plain(dev, case):
     w = torch.softmax(torch.arange(k, dtype=torch.float32, device=dev), 0)
     max_tau = max(max(tau), 1)
     fed_agg.launches = train_step.launches = 0
-    got = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
+    got, none = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
     torch.cuda.synchronize()
     assert train_step.launches == 1
     assert fed_agg.launches == 2 * (len(layers) - 1)
-    want = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
+    want, _ = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
+    assert none is None
     for g_layer, w_layer in zip(got, want):
         for name in w_layer:
             torch.testing.assert_close(g_layer[name], w_layer[name], **TOL)
@@ -131,7 +135,7 @@ def test_finished_learner_stays_bitwise_untouched(dev):
     x, y, m = _batch(3, 70, layers, seed=6, dev=dev)
     tau = torch.tensor([3, 0, 2], dtype=torch.int32, device=dev)
     w = torch.tensor([0.0, 1.0, 0.0], device=dev)
-    got = ops.train_agg_step(disp, x, y, m, tau, w, LR, max_tau=3)
+    got, _ = ops.train_agg_step(disp, x, y, m, tau, w, LR, max_tau=3)
     for g_layer, d_layer in zip(got, disp):
         for name in d_layer:
             assert torch.equal(g_layer[name], d_layer[name][1])
@@ -150,6 +154,76 @@ def test_train_agg_step_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="classes"):
         wide = _model(2, [64, 100], seed=9, dev=dev)
         train_step.train_agg_step_cuda(wide, x, y, m, tau, w, LR, max_tau=1)
+
+
+# async form: (keep, flush) of an accumulate-only step, a buffered flush and
+# a fedasync mix
+FLUSH_CASES = {"accumulate": (1.0, 0.0), "buffered_flush": (0.0, 1.0),
+               "fedasync_mix": (0.4, 1.0)}
+
+
+@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
+@pytest.mark.parametrize("shape", [(1, 1), (3, 257), (10, 784, 300), (5, 60, 10)])
+def test_accum_flush_kernel_matches_plain(dev, shape, case):
+    keep, flush = FLUSH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    locals_ = torch.randn(shape, generator=gen, device=dev)
+    acc, server = (torch.randn(shape[1:], generator=gen, device=dev) for _ in range(2))
+    w = torch.softmax(torch.randn(shape[0], generator=gen, device=dev), 0) * 0.6
+    accum_flush.launches = 0
+    got = accum_flush.accum_flush_cuda(locals_, w, acc, server, keep, flush)
+    torch.cuda.synchronize()
+    assert accum_flush.launches == 1
+    want = ref.accum_flush_ref(locals_, w, acc, server, keep, flush)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-6, atol=1e-6)
+    if flush:
+        assert bool((got[1] == 0).all())
+    else:
+        assert torch.equal(got[0], server)
+
+
+def test_accum_flush_kernel_refuses_what_it_does_not_take(dev):
+    locals_ = torch.randn(3, 8, device=dev)
+    acc, server, w = torch.zeros(8, device=dev), torch.zeros(8, device=dev), torch.ones(3, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        accum_flush.accum_flush_cuda(locals_.double(), w, acc, server, 1.0, 0.0)
+    with pytest.raises(ValueError, match="learner axis"):
+        accum_flush.accum_flush_cuda(locals_, w[:2], acc, server, 1.0, 0.0)
+    with pytest.raises(ValueError, match="leaf"):
+        accum_flush.accum_flush_cuda(locals_, w, acc[:4], server, 1.0, 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
+def test_async_train_agg_step_kernel_matches_plain(dev, case):
+    """One group step of the async form: the fedasync shape (one learner
+    trains, the others have tau 0 and an all-zero mask) and a buffered one."""
+    keep, flush = FLUSH_CASES[case]
+    layers = [100, 70, 33, 10]
+    k = 4
+    disp = _model(k, layers, seed=11, dev=dev)
+    server = mlp.init(12, layers, device=dev)
+    acc = [{n: 0.1 * torch.ones_like(v) for n, v in layer.items()} for layer in server]
+    x, y, m = _batch(k, 50, layers, seed=13, dev=dev)
+    if case == "fedasync_mix":
+        tau = [3, 0, 0, 0]
+        m[1:] = 0.0
+        w = torch.tensor([0.6, 0.0, 0.0, 0.0], device=dev)
+    else:
+        tau = [3, 1, 0, 2]
+        w = torch.softmax(torch.arange(k, dtype=torch.float32, device=dev), 0)
+    tau_t = torch.tensor(tau, dtype=torch.int32, device=dev)
+    kw = dict(max_tau=max(tau), server=server, acc=acc, keep=keep, flush=flush)
+    fed_agg.launches = train_step.launches = accum_flush.launches = 0
+    got = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, **kw)
+    torch.cuda.synchronize()
+    assert (train_step.launches, fed_agg.launches) == (1, 0)
+    assert accum_flush.launches == 2 * (len(layers) - 1)
+    want = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, **kw)
+    for got_tree, want_tree in zip(got, want):
+        for g_layer, w_layer in zip(got_tree, want_tree):
+            for name in w_layer:
+                torch.testing.assert_close(g_layer[name], w_layer[name], **TOL)
 
 
 WATERFILL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}

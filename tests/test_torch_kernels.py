@@ -31,7 +31,7 @@ from tests._torch_jaxref import mlp as jx_mlp
 
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.fed.orchestrator import local_train_stacked
-from repro_torch.kernels import fed_agg, ops, ref, train_step
+from repro_torch.kernels import accum_flush, fed_agg, ops, ref, train_step
 from repro_torch.models import mlp as pt_mlp
 
 LAYERS = [64, 32, 16, 10]
@@ -174,9 +174,66 @@ def test_train_agg_step_ref_matches_unfused_jax(case):
     want, _ = jx_ref.train_agg_step_ref(
         disp, jnp.asarray(x), jnp.asarray(y), jnp.asarray(m), jnp.asarray(tau),
         jnp.asarray(w), jnp.float32(LR), loss_fn=jx_mlp.loss, max_tau=max_tau)
-    got = ref.train_agg_step_ref(params_from_jax(disp, "cpu"), _t(x), _t(y), _t(m),
-                                 _t(tau), _t(w), LR, max_tau=max_tau)
+    got, none = ref.train_agg_step_ref(params_from_jax(disp, "cpu"), _t(x), _t(y),
+                                       _t(m), _t(tau), _t(w), LR, max_tau=max_tau)
+    assert none is None
     _assert_trees_close(params_to_numpy(got), want, rtol=RTOL, atol=ATOL)
+
+
+# async form: (keep, flush) of an accumulate-only step, a buffered flush
+# and a fedasync mix (keep = 1 - w of the one arrival)
+FLUSH_CASES = {"accumulate": (1.0, 0.0), "buffered_flush": (0.0, 1.0),
+               "fedasync_mix": (None, 1.0)}
+
+
+@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
+def test_async_train_agg_step_ref_matches_unfused_jax(case):
+    keep, flush = FLUSH_CASES[case]
+    k = 3
+    rng = np.random.default_rng(len(case))
+    disp = _stacked_jax_params(k, seed=50)
+    server = _jax_params(60)
+    acc = [{n: rng.standard_normal(v.shape).astype(np.float32) * 0.1
+            for n, v in layer.items()} for layer in server]
+    x, y, m = _batch(rng, k, 20)
+    tau = np.asarray([3, 0, 2], np.int32)
+    w = (rng.dirichlet(np.ones(k)) * 0.6).astype(np.float32)
+    if keep is None:   # one arrival mixes at rate w, the others sit idle
+        w[1:] = 0.0
+        keep = float(1.0 - np.float64(w[0]))
+    want_s, want_a = jx_ref.train_agg_step_ref(
+        disp, jnp.asarray(x), jnp.asarray(y), jnp.asarray(m), jnp.asarray(tau),
+        jnp.asarray(w), jnp.float32(LR), loss_fn=jx_mlp.loss, max_tau=3,
+        server=server, acc=acc, keep=keep, flush=flush)
+    got_s, got_a = ref.train_agg_step_ref(
+        params_from_jax(disp, "cpu"), _t(x), _t(y), _t(m), _t(tau), _t(w), LR,
+        max_tau=3, server=params_from_jax(server, "cpu"), acc=params_from_jax(acc, "cpu"),
+        keep=keep, flush=flush)
+    _assert_trees_close(params_to_numpy(got_s), want_s, rtol=RTOL, atol=ATOL)
+    _assert_trees_close(params_to_numpy(got_a), want_a, rtol=RTOL, atol=ATOL)
+    if flush:
+        assert all(np.all(leaf == 0) for layer in params_to_numpy(got_a)
+                   for leaf in layer.values())
+    else:
+        _assert_trees_close(params_to_numpy(got_s), server, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
+def test_accum_flush_ref_is_the_async_epilogue(case):
+    """``accum_flush_ref`` on one leaf against the reference's contractions."""
+    keep, flush = FLUSH_CASES[case]
+    rng = np.random.default_rng(7)
+    locals_ = rng.standard_normal((5, 33, 7)).astype(np.float32)
+    acc, server = (rng.standard_normal((33, 7)).astype(np.float32) for _ in range(2))
+    w = (rng.dirichlet(np.ones(5)) * 0.5).astype(np.float32)
+    keep = 0.7 if keep is None else keep
+    acc1 = jx_ref.fed_agg_ref(jnp.concatenate([acc[None], locals_]),
+                              jnp.concatenate([jnp.ones(1), w]))
+    want_s = jx_ref.fed_agg_ref(jnp.stack([server, acc1]), jnp.asarray([keep, flush]))
+    got_s, got_a = ref.accum_flush_ref(_t(locals_), _t(w), _t(acc), _t(server), keep, flush)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_a.numpy(), (1.0 - flush) * np.asarray(acc1),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_finished_learners_stay_bitwise_untouched():
@@ -198,24 +255,34 @@ def test_finished_learners_stay_bitwise_untouched():
 
 def test_cpu_dispatch_reaches_the_plain_versions():
     rng = np.random.default_rng(5)
-    fed_agg.launches = train_step.launches = 0
+    fed_agg.launches = train_step.launches = accum_flush.launches = 0
     stacked = _t(rng.standard_normal((4, 33)).astype(np.float32))
     w = _t(rng.dirichlet(np.ones(4)).astype(np.float32))
     assert torch.equal(ops.fed_agg(stacked, w), ref.fed_agg_ref(stacked, w))
     disp = params_from_jax(_stacked_jax_params(2, seed=30), "cpu")
     x, y, m = (_t(a) for a in _batch(rng, 2, 12))
     tau = torch.tensor([2, 1], dtype=torch.int32)
-    got = ops.train_agg_step(disp, x, y, m, tau, w[:2], LR, max_tau=2)
-    want = ref.train_agg_step_ref(disp, x, y, m, tau, w[:2], LR, max_tau=2)
+    got, _ = ops.train_agg_step(disp, x, y, m, tau, w[:2], LR, max_tau=2)
+    want, _ = ref.train_agg_step_ref(disp, x, y, m, tau, w[:2], LR, max_tau=2)
     for g_layer, w_layer in zip(got, want):
         for name in w_layer:
             assert torch.equal(g_layer[name], w_layer[name])
+    server = params_from_jax(_jax_params(31), "cpu")
+    acc = [{n: torch.ones_like(v) for n, v in layer.items()} for layer in server]
+    kw = dict(max_tau=2, server=server, acc=acc, keep=0.25, flush=1.0)
+    got = ops.train_agg_step(disp, x, y, m, tau, w[:2], LR, **kw)
+    want = ref.train_agg_step_ref(disp, x, y, m, tau, w[:2], LR, **kw)
+    for got_tree, want_tree in zip(got, want):
+        for g_layer, w_layer in zip(got_tree, want_tree):
+            for name in w_layer:
+                assert torch.equal(g_layer[name], w_layer[name])
     assert fed_agg.launches == 0 and train_step.launches == 0
+    assert accum_flush.launches == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers raise on CPU tensors: they never compute there."""
-    fed_agg.launches = train_step.launches = 0
+    fed_agg.launches = train_step.launches = accum_flush.launches = 0
     x = torch.zeros(2, 4, LAYERS[0])
     with pytest.raises(ValueError, match="CUDA"):
         fed_agg.fed_agg_cuda(torch.zeros(2, 3), torch.ones(2))
@@ -224,4 +291,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         train_step.train_agg_step_cuda(
             disp, x, torch.zeros(2, 4, dtype=torch.int32), torch.ones(2, 4),
             torch.ones(2, dtype=torch.int32), torch.ones(2) / 2, LR, max_tau=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        accum_flush.accum_flush_cuda(torch.zeros(2, 3), torch.ones(2), torch.zeros(3),
+                                     torch.zeros(3), 1.0, 0.0)
     assert fed_agg.launches == 0 and train_step.launches == 0
+    assert accum_flush.launches == 0
