@@ -40,7 +40,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
         (``bucketed=True``, through the kernels) and eager (plain torch), with
         rows held to each other and to the CPU schedule's, every launch
         count held exactly, and ms per aggregation; fedasync again with
-        ``seg_batch=1``.
+        ``seg_batch=1``;
+  7. the energy and churn paths:
+     a. ``waterfill_energy_residual`` kernel vs its plain version on phase
+        5's fleet-scale batch with the energy rows of
+        ``build_energy_problem(8, 15.0, seed=0)`` and a budget of 0.75 x
+        the median spend of the blind ``kkt_sai`` allocation, at tau* = 0,
+        the solved tau* and 2 tau*, in float64 and float32, with kernel,
+        plain and bound times; at eb = +inf it must give the time-only
+        kernel's output bitwise, and NaN fleets (e2 = e1 = 0, eb = e0)
+        must sit where the plain version's do;
+     b. ``solve_energy_batched`` of that batch on the card against the CPU,
+        with zero budget violations and the card's split;
+     c. ``run_async_experiment(k=10, T=15, cycles=3, scheme="kkt_energy",
+        reallocate=True)`` on ``build_energy_problem`` with that budget
+        under ``BatteryDrift(base=CapacityDrift(seed=0))``, fedasync and
+        buffered (M = 5), grouped and eager, with rows and the energy
+        ledger held to a CPU-built schedule, zero violations and every
+        launch count exact;
+     d. churn: the buffered run under ``MarkovAvailability(p_drop=0.2,
+        base=CapacityDrift(seed=0))`` with ``churn_sweep``'s fault mix,
+        grouped, its masks, rows and counters held to the CPU's;
+     e. budgeted ``pgd`` on the card: ``solve_policy_row("pgd", ...)`` on
+        three drifted rows of phase 7c's budgeted fleet (one energy
+        water-filling a re-solve, counted) and the per-problem
+        ``solve_pgd_jax`` that a run with ``scheme="pgd"`` starts from,
+        each held to its budget and compared with the CPU's.
+
+Phases 4, 5c, 6c and 7c-e each set the kernels' launch counters to 0 just
+before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -59,9 +87,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 outside the tensor
-# cores and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 and FP64 outside
+# the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
 
 FED_AGG_TOL = 1e-5      # max |kernel - plain| / max(1, max |plain|)
@@ -86,6 +115,11 @@ ASYNC_ACC_TOL = 0.01    # |grouped - eager| accuracy on 2000 test samples (20 sa
 # float32 version does
 FLOAT32_SPREAD = 1.5
 ASYNC_MODES = {"fedasync": {}, "buffered": {"buffer_size": 5}}
+# phase 7: the budget is this share of the blind kkt_sai allocation's median
+# per-learner spend (energy_sweep's anchor); the churn run's Markov chain
+BUDGET_FRAC = 0.75
+CHURN_P_DROP = 0.2
+PGD_RESOLVES = 3
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -148,6 +182,81 @@ def leaf_errors(got, want) -> tuple[float, float]:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+class CallCounter:
+    """Counts the calls of ``ops.<name>`` while it is entered: on the CPU
+    these are the plain version's calls, one for each launch the card's
+    run of the same schedule makes."""
+
+    def __init__(self, name: str):
+        from repro_torch.kernels import ops
+
+        self.ops, self.name, self.calls = ops, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.ops, self.name)
+
+        def counted(*args):
+            self.calls += 1
+            return self.fn(*args)
+
+        setattr(self.ops, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.fn)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import accum_flush, fed_agg, train_step, waterfill
+
+    waterfill.launches = waterfill.energy_launches = 0
+    train_step.launches = fed_agg.launches = accum_flush.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import accum_flush, fed_agg, train_step, waterfill
+
+    return {"train_agg_step": train_step.launches, "accum_flush": accum_flush.launches,
+            "fed_agg": fed_agg.launches, "waterfill_residual": waterfill.launches,
+            "waterfill_energy_residual": waterfill.energy_launches}
+
+
+def cpu_schedule(train, horizon: float, prob, cfg, drift, counted: str) -> dict:
+    """The async engine's schedule built on the CPU with the engine's rng
+    discipline: flush rows, groups, counters, ledger, block masks, and the
+    calls of ``ops.<counted>`` its re-solves made."""
+    from repro_torch.data.pipeline import FederatedPartitioner
+    from repro_torch.fed import async_engine as ae
+    from repro_torch.models import mlp
+
+    eng = ae.AsyncFedEngine(cfg, prob, mlp.loss, mlp.init(SEED, device="cpu"), seed=SEED,
+                            drift=drift)
+    part = FederatedPartitioner(train, seed=int(eng.rng.integers(2**31)))
+    with CallCounter(counted) as count:
+        sched = eng._build_schedule(part, horizon, 100_000)
+    rows, group = [], []
+    for a in sched.arrivals:
+        if a.flush_id >= 0:
+            group.append(a)
+            if a.flush:
+                rows.append(ae._flush_row(a, group, cfg.mode))
+                group = []
+    return {"rows": rows, "groups": ae._event_segments(sched.arrivals), "sched": sched,
+            "solves": count.calls, "masks": eng._block_masks,
+            "blocks": sorted(eng._alloc_cache)}
+
+
+def check_rows(hist, want_rows, what: str) -> None:
+    import numpy as np
+
+    require(len(hist) == len(want_rows), f"{what}: {len(hist)} aggregations, the CPU "
+            f"schedule has {len(want_rows)}")
+    for i, (r, w) in enumerate(zip(hist, want_rows)):
+        for name in w:
+            require(np.array_equal(np.asarray(r[name]), np.asarray(w[name])),
+                    f"{what}: row {i} column {name} differs from the CPU schedule's")
 
 
 def main() -> int:
@@ -316,6 +425,7 @@ def main() -> int:
 
     wf = realloc_phase(dev, train, test, fed_agg_per_cycle=2 * len(mats))
     async_rows = async_phase(dev, train, test, leaves=2 * len(mats), row_flops=row_flops)
+    energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -332,6 +442,7 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": fa_lib_ms},
         wf,
         *async_rows,
+        energy_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -556,11 +667,10 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
     import numpy as np
     import torch
 
-    from repro_torch.core import CapacityDrift, solver_batched as sb
-    from repro_torch.data.pipeline import FederatedPartitioner
+    from repro_torch.core import CapacityDrift
     from repro_torch.fed import async_engine as ae
     from repro_torch.fed.simulation import build_problem, run_async_experiment
-    from repro_torch.kernels import accum_flush, fed_agg, ref, train_step, waterfill
+    from repro_torch.kernels import accum_flush, ref, train_step
     from repro_torch.models import mlp
 
     widths = mlp.PAPER_LAYERS
@@ -610,36 +720,13 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
           f"{af_bound_ms:.4f} ms ({af_bytes / 1e6:.1f} MB, bytes)")
 
     # the CPU schedule of each mode, with the engine's rng discipline: the
-    # rows the card's runs must give, the groups, and the blocks re-solved
+    # rows the card's runs must give, the groups, the blocks re-solved and
+    # the water-fillings their re-solves make
     prob = build_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
-    cpu = {}
-    for mode, extra in ASYNC_MODES.items():
-        eng = ae.AsyncFedEngine(
-            ae.AsyncConfig(mode=mode, reallocate=True, **extra), prob, mlp.loss,
-            mlp.init(SEED, device="cpu"), seed=SEED, drift=CapacityDrift(seed=SEED))
-        part = FederatedPartitioner(train, seed=int(eng.rng.integers(2**31)))
-        sched = eng._build_schedule(part, horizon, 100_000)
-        groups = ae._event_segments(sched.arrivals)
-        rows, group = [], []
-        for a in sched.arrivals:
-            if a.flush_id >= 0:
-                group.append(a)
-                if a.flush:
-                    rows.append(ae._flush_row(a, group, mode))
-                    group = []
-        c2s, c1s, c0s = eng._block_rows(max(int(np.ceil(horizon / T_CYCLE)) + 1, 1))
-        one = lambda v, dt=np.float64: np.full((1, K), v, dt)
-        n_wf = 0
-        # a re-solve launches the kernel at tau = 0 and at the first bracket,
-        # then once a grow and once a bisection step
-        for b in sorted(eng._alloc_cache):
-            s_b = sb.solve_kkt_batched(sb.BatchedProblems(
-                c2s[b][None], c1s[b][None], c0s[b][None], np.full(1, prob.T),
-                np.full(1, TOTAL, np.int64), one(float(prob.d_lower)),
-                one(float(prob.d_upper)), one(True, bool)), device="cpu")
-            n_wf += 2 + s_b.rounds["grow"] + s_b.rounds["bisection"]
-        cpu[mode] = {"rows": rows, "groups": groups, "sched": sched, "n_wf": n_wf,
-                     "blocks": sorted(eng._alloc_cache)}
+    cpu = {mode: cpu_schedule(train, horizon, prob,
+                              ae.AsyncConfig(mode=mode, reallocate=True, **extra),
+                              CapacityDrift(seed=SEED), "waterfill_residual")
+           for mode, extra in ASYNC_MODES.items()}
 
     # -- 6b. one async group step at full width ---------------------------------
     tx = torch.from_numpy(train.x).to(dev)
@@ -741,15 +828,14 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
     for mode, extra in ASYNC_MODES.items():
         want_rows = cpu[mode]["rows"]
         n_groups = len(cpu[mode]["groups"])
-        n_wf = cpu[mode]["n_wf"]
-        want = {"eager": {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
-                          "waterfill_residual": n_wf},
+        n_wf = cpu[mode]["solves"]
+        fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0}
+        want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
-                            "fed_agg": 0, "waterfill_residual": n_wf}}
+                            **fixed}}
         runs = {}
         for path in ("eager", "grouped", "grouped warm"):
-            waterfill.launches = train_step.launches = fed_agg.launches = 0
-            accum_flush.launches = 0
+            reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = run_async_experiment(
@@ -759,20 +845,12 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
                 buffer_size=extra.get("buffer_size", 0))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {"train_agg_step": train_step.launches,
-                      "accum_flush": accum_flush.launches, "fed_agg": fed_agg.launches,
-                      "waterfill_residual": waterfill.launches}
+            counts = read_launches()
             key = path.split()[0]
             require(counts == want[key], f"{mode}: the {path} run's kernel launches were "
                     f"{counts}, not {want[key]}")
             hist = res["history"]
-            require(len(hist) == len(want_rows), f"{mode} {path}: {len(hist)} "
-                    f"aggregations, the CPU schedule has {len(want_rows)}")
-            for i, (r, w) in enumerate(zip(hist, want_rows)):
-                for name in w:
-                    require(np.array_equal(np.asarray(r[name]), np.asarray(w[name])),
-                            f"{mode} {path}: row {i} column {name} differs from the "
-                            "CPU schedule's")
+            check_rows(hist, want_rows, f"{mode} {path}")
             accs = [r["accuracy"] for r in hist]
             require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
                     f"{mode} {path}: accuracies out of range")
@@ -846,6 +924,395 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
          "ms": af_ms, "plain_ms": af_plain_ms, "bound_ms": af_bound_ms,
          "bound_by": "bytes", "library_ms": af_lib_ms},
     ]
+
+
+def energy_phase(dev, train, test, *, leaves: int) -> dict:
+    """Phase 7; returns the budgeted water-filling kernel's entry of the
+    kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        BatteryDrift,
+        CapacityDrift,
+        MarkovAvailability,
+        solve_kkt_sai,
+        solver_batched as sb,
+    )
+    from repro_torch.fed import async_engine as ae
+    from repro_torch.fed.orchestrator import solve_rows_availability
+    from repro_torch.fed.simulation import (
+        build_energy_problem,
+        build_problem,
+        run_async_experiment,
+    )
+    from repro_torch.kernels import ref, waterfill
+
+    # -- 7a. the kernel against its plain version at fleet scale --------------
+    free = build_energy_problem(FLEET_K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    blind = solve_kkt_sai(free)
+    eb = BUDGET_FRAC * float(np.median(free.energy.cycle_energy(blind.tau, blind.d)))
+    c2, c1, c0 = CapacityDrift(seed=SEED).coefficient_path(free.time_model, FLEET_B)
+    b, k = c2.shape
+    e2, e1, e0, ebr = (np.broadcast_to(r, (b, k)).copy() for r in free.energy.rows(eb))
+    bp = sb.BatchedProblems(
+        c2, c1, c0, np.full(b, free.T), np.full(b, free.total_samples, np.int64),
+        np.full((b, k), float(free.d_lower)), np.full((b, k), float(free.d_upper)),
+        np.ones((b, k), bool), e2, e1, e0, ebr)
+    print(f"energy fleet batch: B = {b} drifted problems of K = {k}, budget {eb:.4f} J "
+          f"({BUDGET_FRAC} x the median blind kkt_sai spend; the blind spend by learner "
+          f"{np.round(free.energy.cycle_energy(blind.tau, blind.d), 3).tolist()})")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = sb.solve_energy_batched(bp, device=dev)
+    solve_wall_ms = 1e3 * (time.perf_counter() - t0)
+    solve_launches = read_launches()
+    require(bool(card.feasible.all()), "the energy fleet batch has infeasible rows")
+    require(solve_launches["waterfill_energy_residual"]
+            == 2 + card.rounds["grow"] + card.rounds["bisection"]
+            and solve_launches["waterfill_residual"] == 0,
+            f"solve_energy_batched launched {solve_launches}")
+
+    ew_err, times = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        x64 = dtype == torch.float64
+        t = sb._to_device(bp, x64, dev)
+        en = sb._energy_to_device(bp, x64, dev)
+        # the residual as the solve calls it: on the affordability-masked box
+        total_m, lo_m, hi_m, _ = sb.apply_energy_mask(t["total_i"], t["d_lo"], t["d_hi"],
+                                                      t["valid"], en)
+        args = [t["c2"], t["c1"], t["c0"], t["T"], *en, lo_m, hi_m, total_m.to(dtype)]
+        tau_star = torch.as_tensor(card.tau_star, dtype=dtype, device=dev)
+        bound = WATERFILL_TOL[str(dtype)[6:]] * torch.clamp_min(args[-1].abs(), 1.0)
+        err = 0.0
+        for name, tau in (("0", torch.zeros_like(tau_star)), ("tau*", tau_star),
+                          ("2 tau*", 2.0 * tau_star)):
+            got = waterfill.waterfill_energy_residual_cuda(tau, *args)
+            want = ref.waterfill_energy_residual_ref(tau, *args)
+            diff = (got - want).abs()
+            require(bool(torch.isfinite(got).all()), f"energy waterfill kernel gave "
+                    f"non-finite residuals at tau = {name}, {dtype}")
+            require(bool((diff <= bound).all()), f"energy waterfill kernel differs from "
+                    f"its plain version by {diff.max().item():g} at tau = {name}, {dtype}")
+            err = max(err, diff.max().item())
+        # eb = +inf with zero energy coefficients: the time-only kernel's bits
+        inf_args = [*args[:4], *(torch.zeros_like(e) for e in en[:3]),
+                    torch.full_like(en[3], torch.inf), *args[8:]]
+        require(torch.equal(waterfill.waterfill_energy_residual_cuda(tau_star, *inf_args),
+                            waterfill.waterfill_residual_cuda(tau_star, *args[:4],
+                                                              *args[8:])),
+                f"at eb = +inf the energy kernel differs from the time-only kernel, {dtype}")
+        # e2 = e1 = 0 with eb = e0 in every 4096th fleet's first learner: 0 / 0
+        nan_args = [a.clone() for a in args]
+        rows = torch.arange(b, device=dev) % 4096 == 0
+        nan_args[4][rows, 0] = 0.0
+        nan_args[5][rows, 0] = 0.0
+        nan_args[7][rows, 0] = nan_args[6][rows, 0]
+        got = waterfill.waterfill_energy_residual_cuda(tau_star, *nan_args)
+        want = ref.waterfill_energy_residual_ref(tau_star, *nan_args)
+        require(torch.equal(torch.isnan(got), torch.isnan(want))
+                and int(torch.isnan(got).sum()) == int(rows.sum()),
+                f"the energy kernel's NaNs sit elsewhere than the plain version's, {dtype}")
+        ew_err[dtype] = err
+        kernel_args = [tau_star, *args]
+        # back-to-back launches are host-paced, so the kernel's own time is
+        # its device time a launch by torch.profiler
+        times[dtype] = {
+            "ms": kernel_device_ms(lambda a=kernel_args:
+                                   waterfill.waterfill_energy_residual_cuda(*a),
+                                   "waterfill_energy_residual_kernel", 50),
+            "paced_ms": cuda_ms(lambda a=kernel_args:
+                                waterfill.waterfill_energy_residual_cuda(*a), 200),
+            "plain_ms": cuda_ms(lambda a=kernel_args:
+                                ref.waterfill_energy_residual_ref(*a), 50),
+        }
+        size = torch.finfo(dtype).bits // 8
+        ew_bytes = size * (9 * b * k + 3 * b + b)
+        # per learner: 4 + 4 for the two hyperbolae, a min, a two-sided
+        # clip and an add; one subtract per fleet
+        ew_ops = 12 * b * k + b
+        peak = PEAK_FP64_FLOPS if x64 else PEAK_FP32_FLOPS
+        times[dtype]["bytes_ms"] = 1e3 * ew_bytes / PEAK_BYTES_PER_S
+        times[dtype]["ops_ms"] = 1e3 * ew_ops / peak
+        times[dtype]["mb"] = ew_bytes / 1e6
+    f64, f32 = times[torch.float64], times[torch.float32]
+    bound_ms = max(f64["bytes_ms"], f64["ops_ms"])
+    print(f"waterfill_energy_residual: max_abs_err float64 {ew_err[torch.float64]:.3g}, "
+          f"float32 {ew_err[torch.float32]:.3g} (at tau* = 0, tau*, 2 tau*); eb = +inf equal "
+          f"to the time-only kernel; NaN fleets where the plain version's are; kernel "
+          f"device time {f64['ms']:.4f} ms a launch float64 (float32 {f32['ms']:.4f}; "
+          f"host-paced loop {f64['paced_ms']:.4f} / {f32['paced_ms']:.4f}), plain "
+          f"{f64['plain_ms']:.4f} / {f32['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms float64 "
+          f"({f64['mb']:.1f} MB; operations {f64['ops_ms']:.5f} ms), "
+          f"{max(f32['bytes_ms'], f32['ops_ms']):.4f} ms float32 ({f32['mb']:.1f} MB)")
+
+    # -- 7b. the budgeted batched solve, card against CPU --------------------
+    t = sb._to_device(bp, True, dev)
+    en = sb._energy_to_device(bp, True, dev)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    events[0].record()
+    total_m, lo_m, hi_m, valid_m = sb.apply_energy_mask(t["total_i"], t["d_lo"], t["d_hi"],
+                                                        t["valid"], en)
+    feas, _, _, d_r, relax_rounds = sb._relaxed_batched(
+        t["c2"], t["c1"], t["c0"], t["T"], total_m.double(), lo_m, hi_m, tol=1e-10,
+        max_iter=200, energy=en)
+    events[1].record()
+    d_r, total_safe, lo_i, hi_i = sb._integer_inputs(d_r, feas, total_m, lo_m, hi_m)
+    d_int, _, int_rounds = sb._integerize(d_r, total_safe, lo_i, hi_i)
+    events[2].record()
+    tau_c, d_c, sai_rounds = sb._sai(d_int, t["c2"], t["c1"], t["c0"], t["T"], lo_i, hi_i,
+                                     valid_m, max_rounds=10_000, energy=en)
+    events[3].record()
+    torch.cuda.synchronize()
+    stage_ms = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    require(np.array_equal(tau_c.cpu().numpy(), card.tau)
+            and np.array_equal(d_c.cpu().numpy(), card.d),
+            "the staged energy solve differs from solve_energy_batched")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb.solve_energy_batched(bp, device=dev)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cpu = sb.solve_energy_batched(bp, device="cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    require(np.array_equal(card.feasible, cpu.feasible),
+            "card and CPU feasibility differ (energy)")
+    ties = 0
+    for i in np.flatnonzero(~((card.tau == cpu.tau).all(1) & (card.d == cpu.d).all(1))):
+        ties += 1
+        require(np.ptp(card.tau[i]) == np.ptp(cpu.tau[i])
+                and np.abs(card.d[i] - cpu.d[i]).max() <= 2,
+                f"fleet {i}: card and CPU energy allocations differ beyond a remainder tie")
+    require(ties <= TIE_SHARE * b, f"{ties} remainder ties between card and CPU (energy)")
+    spent = np.where(card.d > 0, e2 * card.tau * card.d + e1 * card.d + e0, 0.0)
+    violations = int((spent > ebr * (1 + 1e-9)).sum())
+    require(violations == 0, f"{violations} learners over budget in the card's energy solve")
+    # learners whose tau the budget caps below what the deadline allows
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tau_time = np.floor((free.T - c0 - c1 * card.d) / (c2 * card.d))
+        tau_energy = np.floor((ebr - e0 - e1 * card.d) / (e2 * card.d))
+    binding = float(((card.d > 0) & (tau_energy < tau_time)).mean())
+    stale = sb.batched_max_staleness(card.tau, card.valid)
+    print(f"solve_energy_batched B={b}: card {solve_wall_ms:.1f} ms first call, "
+          f"{warm_ms:.1f} ms warm (host clock, copies in), CPU {cpu_ms:.1f} ms; energy "
+          f"water-fillings per solve {solve_launches['waterfill_energy_residual']}; card "
+          f"split (CUDA events): mask + bisection {stage_ms[0]:.2f} ms "
+          f"({relax_rounds['grow']} grow + {relax_rounds['bisection']} bisection steps), "
+          f"integerize {stage_ms[1]:.2f} ms ({int_rounds} rounds), SAI {stage_ms[2]:.2f} ms "
+          f"({sai_rounds} rounds); fleets differing card vs CPU: {ties}; budget violations "
+          f"0; learners whose tau the budget caps {100 * binding:.1f}%; max staleness mean "
+          f"{stale.mean():.3f}, worst {stale.max()}")
+
+    # -- 7c. the energy main path: run_async_experiment under BatteryDrift ------
+    horizon = CYCLES * T_CYCLE
+    free = build_energy_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    blind = solve_kkt_sai(free)
+    eb = BUDGET_FRAC * float(np.median(free.energy.cycle_energy(blind.tau, blind.d)))
+    prob = dataclasses.replace(free, e_budget=eb)
+
+    def battery():
+        return BatteryDrift(energy=prob.energy, capacity_j=2 * eb, recharge_j=0.25 * eb,
+                            p_plugged=0.5, seed=SEED, base=CapacityDrift(seed=SEED))
+
+    energy_launches = 0
+    for mode, extra in ASYNC_MODES.items():
+        cfg = ae.AsyncConfig(mode=mode, scheme="kkt_energy", reallocate=True, **extra)
+        cpu_s = cpu_schedule(train, horizon, prob, cfg, battery(), "waterfill_energy_residual")
+        n_groups = len(cpu_s["groups"])
+        sched = cpu_s["sched"]
+        require(sched.energy_violations == 0, f"{mode}: the CPU schedule overspends")
+        want = {"eager": {"train_agg_step": 0, "accum_flush": 0},
+                "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves}}
+        runs = {}
+        for path in ("eager", "grouped", "grouped warm"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_async_experiment(
+                problem=prob, cycles=CYCLES, seed=SEED, mode=mode, scheme="kkt_energy",
+                drift=battery(), reallocate=True, bucketed=path != "eager", train=train,
+                test=test, buffer_size=extra.get("buffer_size", 0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            key = path.split()[0]
+            require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
+                               "waterfill_energy_residual": cpu_s["solves"]},
+                    f"{mode} energy {path}: kernel launches {counts}, CPU solves "
+                    f"{cpu_s['solves']}")
+            hist = res["history"]
+            check_rows(hist, cpu_s["rows"], f"{mode} energy {path}")
+            led = res["summary"]["energy"]
+            require(led["violations"] == 0, f"{mode} energy {path}: {led['violations']} "
+                    "budget violations")
+            require(np.array_equal(np.asarray(led["per_learner"]), sched.energy_spent),
+                    f"{mode} energy {path}: the ledger differs from the CPU schedule's")
+            require(res["summary"]["faults"] == sched.counters,
+                    f"{mode} energy {path}: counters differ from the CPU schedule's")
+            accs = [r["accuracy"] for r in hist]
+            require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+                    f"{mode} energy {path}: accuracies out of range")
+            runs[path] = {"ms": 1e3 * wall / len(hist), "accs": accs, "counts": counts}
+        energy_launches += runs["grouped"]["counts"]["waterfill_energy_residual"]
+        rows_ = device_time_by_kernel(lambda: run_async_experiment(
+            problem=prob, cycles=CYCLES, seed=SEED, mode=mode, scheme="kkt_energy",
+            drift=battery(), reallocate=True, bucketed=True, train=train, test=test,
+            buffer_size=extra.get("buffer_size", 0)))
+        wall_ms = runs["grouped warm"]["ms"] * len(cpu_s["rows"])
+        busy = sum(ms for _, ms, _ in rows_)
+        gap = max(abs(a - e) for a, e in zip(runs["grouped"]["accs"], runs["eager"]["accs"]))
+        require(gap <= ASYNC_ACC_TOL, f"{mode} energy: grouped and eager accuracies differ "
+                f"by {gap:g} > {ASYNC_ACC_TOL}")
+        print(f"run_async_experiment mode={mode} kkt_energy BatteryDrift k={K} "
+              f"cycles={CYCLES}: {len(cpu_s['rows'])} aggregations in {n_groups} groups, "
+              f"tau up to {sched.max_tau}, d up to {sched.d_cap}; joules by learner "
+              f"{np.round(sched.energy_spent, 2).tolist()} (budget {eb:.4f} J a dispatch), "
+              f"0 violations; final accuracy grouped {runs['grouped']['accs'][-1]:.4f}, "
+              f"eager {runs['eager']['accs'][-1]:.4f} (max gap {gap:.4f}); ms per "
+              f"aggregation grouped {runs['grouped']['ms']:.2f} (first), "
+              f"{runs['grouped warm']['ms']:.2f} (warm), eager {runs['eager']['ms']:.2f}; "
+              f"launches grouped {runs['grouped']['counts']}")
+        print(f"  device busy {busy:.1f} ms (torch.profiler) of {wall_ms:.1f} ms warm wall "
+              f"({100 * (1 - busy / wall_ms):.0f}% idle) in {sum(n for *_, n in rows_)} "
+              f"launches" if rows_ else "  device time not measured (no device events)")
+        for name, ms, calls in rows_[:6]:
+            print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+    require(energy_launches > 0, "the energy main path launched no energy water-filling")
+
+    budgeted = prob
+
+    # -- 7d. churn: the buffered run under a Markov availability chain --------
+    prob = build_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    faults = dict(drop_rate=CHURN_P_DROP / 2, straggler_rate=0.2, straggler_factor=3.0,
+                  delay_rate=0.2, delay_mean=0.5 * T_CYCLE, deadline=2.5 * T_CYCLE,
+                  retry_backoff=0.25 * T_CYCLE, retry_backoff_cap=T_CYCLE, quorum=2,
+                  flush_timeout=1.5 * T_CYCLE)
+
+    def churn():
+        return MarkovAvailability(p_drop=CHURN_P_DROP, p_join=0.5, seed=SEED,
+                                  base=CapacityDrift(seed=SEED))
+
+    cfg = ae.AsyncConfig(mode="buffered", buffer_size=5, reallocate=True, **faults)
+    cpu_s = cpu_schedule(train, horizon, prob, cfg, churn(), "waterfill_residual")
+    counters = cpu_s["sched"].counters
+    require(counters["offline_deferrals"] >= 1, "the churn schedule deferred no dispatch")
+    nblocks = len(cpu_s["masks"])
+    rows_c, alloc_c, masks_c = solve_rows_availability("kkt_sai", churn(), prob, nblocks,
+                                                       label="block {}", device=dev)
+    require(np.array_equal(masks_c, cpu_s["masks"]), "the card's churn masks differ")
+    rows_h, alloc_h, _ = solve_rows_availability("kkt_sai", churn(), prob, nblocks,
+                                                 label="block {}", device="cpu")
+    require(all(np.array_equal(a, h) for a, h in zip((*rows_c, *alloc_c),
+                                                     (*rows_h, *alloc_h))),
+            "the card's masked re-solves differ from the CPU's")
+    n_groups = len(cpu_s["groups"])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_async_experiment(problem=prob, cycles=CYCLES, seed=SEED, mode="buffered",
+                               drift=churn(), reallocate=True, bucketed=True, train=train,
+                               test=test, buffer_size=5, faults=faults)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
+                       "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
+                       "waterfill_energy_residual": 0},
+            f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
+    check_rows(res["history"], cpu_s["rows"], "churn run")
+    require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
+    accs = [r["accuracy"] for r in res["history"]]
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            "churn run: accuracies out of range")
+    print(f"run_async_experiment buffered churn MarkovAvailability(p_drop={CHURN_P_DROP}) "
+          f"k={K} cycles={CYCLES}: online by block {cpu_s['masks'].sum(1).tolist()}, "
+          f"{len(accs)} aggregations in {n_groups} groups, counters "
+          f"{ {n: v for n, v in counters.items() if v} }; final accuracy {accs[-1]:.4f}; "
+          f"{1e3 * wall / len(accs):.2f} ms per aggregation; launches {counts}")
+
+    # -- 7e. budgeted pgd on the card ------------------------------------------
+    energy_launches += pgd_step(dev, budgeted)
+
+    return {"name": "waterfill_energy_residual", "route": "cuda",
+            "source": "src/repro_torch/csrc/waterfill.cu",
+            "replaces": "src/repro/kernels/waterfill.py:117",
+            "launches": energy_launches, "max_abs_err": ew_err[torch.float64],
+            "ms": f64["ms"], "plain_ms": f64["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "bytes" if f64["bytes_ms"] >= f64["ops_ms"] else "operations",
+            "library_ms": None}
+
+
+def pgd_step(dev, prob) -> int:
+    """Phase 7e: budgeted ``pgd`` re-solves (``solve_policy_row``, float64)
+    and the per-problem ``solve_pgd_jax`` (float32) on the card against the
+    CPU. The 600-step gradient stage is chaotic (a start one ulp away moves
+    the budgeted allocation tens of samples; ``tests/test_torch_solver_numeric.py``),
+    so card and CPU are held to the same feasibility, sample sum and budget,
+    and their distance is reported. Returns the re-solves' energy
+    water-filling launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import CapacityDrift
+    from repro_torch.core.staleness import max_staleness
+    from repro_torch.fed.orchestrator import _solver, solve_policy_row
+
+    c2s, c1s, c0s = CapacityDrift(seed=SEED).coefficient_path(prob.time_model, PGD_RESOLVES)
+    eb = prob.energy_rows()[3]
+
+    def resolves(device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [solve_policy_row("pgd", c2s[c], c1s[c], c0s[c], prob, label=f"pgd row {c}",
+                                 device=device) for c in range(PGD_RESOLVES)]
+        torch.cuda.synchronize()
+        return rows, 1e3 * (time.perf_counter() - t0) / PGD_RESOLVES
+
+    reset_launches()
+    card, card_ms = resolves(dev)
+    counts = read_launches()
+    require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
+                       "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES},
+            f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
+            f"water-filling each of {PGD_RESOLVES}")
+    cpu, cpu_ms = resolves("cpu")
+    same, dmax, sgap = 0, 0, 0
+    for c, ((tau, d), (tau_h, d_h)) in enumerate(zip(card, cpu)):
+        require(int(d.sum()) == int(d_h.sum()) == prob.total_samples,
+                f"pgd row {c}: sample sums card {d.sum()}, CPU {d_h.sum()}")
+        for name, (t_, d_) in (("card", (tau, d)), ("CPU", (tau_h, d_h))):
+            require(bool((prob.energy.cycle_energy(t_, d_) <= eb * (1 + 1e-9)).all()),
+                    f"pgd row {c}: the {name}'s allocation overspends its budget")
+        same += int(np.array_equal(tau, tau_h) and np.array_equal(d, d_h))
+        dmax = max(dmax, int(np.abs(d - d_h).max()))
+        sgap = max(sgap, abs(max_staleness(tau) - max_staleness(tau_h)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = _solver("pgd", dev)(prob)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    one_h = _solver("pgd", "cpu")(prob)
+    one_cpu_ms = 1e3 * (time.perf_counter() - t0)
+    require(one.method == one_h.method == "pgd_energy_sai"
+            and int(one.d.sum()) == int(one_h.d.sum()),
+            f"solve_pgd_jax card {one.method}/{one.d.sum()} vs CPU {one_h.method}/"
+            f"{one_h.d.sum()}")
+    require(bool((prob.energy.cycle_energy(one.tau, one.d) <= eb * (1 + 1e-9)).all()),
+            "solve_pgd_jax on the card overspends its budget")
+    print(f"budgeted pgd k={prob.num_learners}: {PGD_RESOLVES} solve_policy_row re-solves "
+          f"(float64) {card_ms:.1f} ms each on the card, {cpu_ms:.1f} ms on the CPU (host "
+          f"clock); launches {counts}; equal to the CPU on {same} of {PGD_RESOLVES} rows, "
+          f"max |d card - d CPU| {dmax}, max staleness gap {sgap}; solve_pgd_jax (float32) "
+          f"{one_ms:.1f} ms on the card, {one_cpu_ms:.1f} ms on the CPU, max |d card - d "
+          f"CPU| {int(np.abs(one.d - one_h.d).max())}, max staleness "
+          f"{max_staleness(one.tau)} / {max_staleness(one_h.tau)}; 0 budget violations")
+    return counts["waterfill_energy_residual"]
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fedavg_weights", "staleness_weights", "aggregate"]
+__all__ = ["fedavg_weights", "staleness_weights", "aggregate", "aggregate_stacked"]
 
 
 def fedavg_weights(d: np.ndarray) -> np.ndarray:
@@ -41,3 +41,7 @@ def aggregate(models: list[dict], weights: torch.Tensor) -> list[dict]:
         return (leaf * w).sum(dim=0)
 
     return [{name: wsum(leaf) for name, leaf in layer.items()} for layer in models]
+
+
+# alias that documents the stacked-leading-axis contract
+aggregate_stacked = aggregate

@@ -1,20 +1,28 @@
 """Batched allocation engine: KKT water-filling bisection + integer SAI
 repair for B allocation problems at once, in torch on one device.
 
-The port of the ``kkt_sai`` and ``eta`` halves of
-``repro/core/solver_batched.py``:
+The port of ``repro/core/solver_batched.py`` without its cross-model layer
+(``SPLIT_POLICIES``, ``cross_model_weights``, ``cross_model_split``,
+``multimodel_policy``: ROADMAP Queue 1 item 10) and ``apply_sampling_mask``
+(item 11):
 
   * ``BatchedProblems`` — the (B, K) problem layout: coefficients
     ``c2/c1/c0`` and per-learner bounds ``d_lo/d_hi`` of shape (B, K),
-    per-fleet ``T``/``total`` of shape (B,), and a ``valid`` mask so fleets
-    of different sizes batch together (padded slots carry
-    ``d_lo = d_hi = 0`` and never receive work).
+    per-fleet ``T``/``total`` of shape (B,), a ``valid`` mask so fleets of
+    different sizes batch together (padded slots carry ``d_lo = d_hi = 0``
+    and never receive work), and optional energy rows ``e2/e1/e0`` with
+    per-learner joule budgets ``e_budget`` (arXiv 2012.00143).
   * ``solve_kkt_batched`` — lockstep bisection on the water level tau* of
     all B fleets, one ``kernels.ops.waterfill_residual`` call a step (the
     CUDA kernel on the card), then largest-remainder integerization and the
     SAI greedy repair.
+  * ``solve_energy_batched`` — the budgeted pipeline (``kkt_energy``): the
+    affordability mask (``apply_energy_mask``), the bisection on
+    ``kernels.ops.waterfill_energy_residual`` (its CUDA kernel on the
+    card), and the integer tail with every tau capped by the budget.
   * ``solve_eta_batched`` — the equal-task baseline in the same layout.
-  * ``batched_policy`` — the per-cycle re-solve hook of the orchestrator.
+  * ``batched_policy`` — the per-cycle re-solve hook of the orchestrator
+    (``kkt_sai``, ``eta``, ``kkt_energy``, ``pgd``).
   * ``batched_max_staleness`` / ``batched_avg_staleness`` /
     ``batched_summary`` — (B,) fleet metrics (host NumPy).
 
@@ -25,14 +33,11 @@ sees exactly the steps its own loop would: a finished fleet is frozen.
 
 Numerical contract: with ``x64=True`` (the default) every branch, the
 stable-sort tie-breaks and the greedy moves follow ``solver_kkt.solve``
-decision for decision. Every sum over the learner axis is taken in index
-order, as the reference's CPU program takes it for fleets this size, so
-the card and the CPU give the same bits. ``x64=False`` computes in
-float32/int32. Entry points take ``device=None``, which means the card.
-
-``pgd`` (ROADMAP Queue 1 item 7), ``kkt_energy`` with ``apply_energy_mask``
-(item 9), ``apply_sampling_mask`` (item 11) and the cross-model layer
-(item 10) come with later slices.
+(and ``solve_energy``) decision for decision. Every sum over the learner
+axis is taken in index order, as the reference's CPU program takes it for
+fleets this size, so the card and the CPU give the same bits.
+``x64=False`` computes in float32/int32. Entry points take
+``device=None``, which means the card.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.allocation import Allocation, AllocationProblem
+from repro_torch.core.energy import EnergyModel
 from repro_torch.core.time_model import TimeModel
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import sum_in_order
@@ -53,20 +59,26 @@ __all__ = [
     "BatchedProblems",
     "POLICIES",
     "apply_active_mask",
+    "apply_energy_mask",
     "batched_avg_staleness",
     "batched_max_staleness",
     "batched_policy",
     "batched_summary",
+    "solve_energy_batched",
     "solve_eta_batched",
     "solve_kkt_batched",
 ]
 
 _INT_SENTINEL = 2**31 - 1
 
-#: schemes with a batched policy in the port (see ``batched_policy``)
-POLICIES = ("kkt_sai", "eta")
-_LATER_POLICIES = {"pgd": "ROADMAP Queue 1 item 7",
-                   "kkt_energy": "ROADMAP Queue 1 item 9"}
+#: "unbounded tau" sentinel of the energy cap: finite (``floor(inf)`` has
+#: no integer) and exact in float32, far above any deadline-feasible tau,
+#: so ``min(time_cap, _TAU_BIG)`` is the time cap where the budget never binds
+_TAU_BIG = 2**30
+
+#: schemes with a batched policy in the port (see ``batched_policy``); the
+#: reference names this tuple ``TRACED_POLICIES``
+POLICIES = ("kkt_sai", "eta", "pgd", "kkt_energy")
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +94,11 @@ class BatchedProblems:
     (``from_problems`` writes c2 = c1 = 1, c0 = 0 so divides stay finite);
     solver outputs carry ``tau = d = 0`` there, and they enter neither the
     staleness metrics nor the sum constraint.
+
+    The optional energy rows ``e2/e1/e0`` and per-learner budgets
+    ``e_budget`` default to None; ``energy_rows()`` then gives the
+    zero-coefficient, infinite-budget rows under which ``kkt_energy``
+    decides as ``kkt_sai`` does.
     """
 
     c2: np.ndarray        # (B, K)
@@ -92,6 +109,10 @@ class BatchedProblems:
     d_lo: np.ndarray      # (B, K)
     d_hi: np.ndarray      # (B, K)
     valid: np.ndarray     # (B, K) bool
+    e2: np.ndarray | None = None        # (B, K) optional energy rows
+    e1: np.ndarray | None = None        # (B, K)
+    e0: np.ndarray | None = None        # (B, K)
+    e_budget: np.ndarray | None = None  # (B, K) joules, +inf = unconstrained
 
     @property
     def num_problems(self) -> int:
@@ -101,6 +122,22 @@ class BatchedProblems:
     def max_learners(self) -> int:
         return int(self.c2.shape[1])
 
+    @property
+    def has_energy(self) -> bool:
+        return self.e2 is not None
+
+    def energy_rows(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(e2, e1, e0, e_budget) float64 rows; zero coefficients and +inf
+        budgets when the struct carries no energy model."""
+        b, k = self.c2.shape
+        if self.e2 is None:
+            z = np.zeros((b, k))
+            return z, z.copy(), z.copy(), np.full((b, k), np.inf)
+        eb = (np.full((b, k), np.inf) if self.e_budget is None
+              else np.asarray(self.e_budget, np.float64))
+        return (np.asarray(self.e2, np.float64), np.asarray(self.e1, np.float64),
+                np.asarray(self.e0, np.float64), eb)
+
     @staticmethod
     def from_problems(problems: "list[AllocationProblem]") -> "BatchedProblems":
         b = len(problems)
@@ -109,6 +146,11 @@ class BatchedProblems:
         d_lo = np.zeros((b, k)); d_hi = np.zeros((b, k))
         valid = np.zeros((b, k), bool)
         T = np.zeros(b); total = np.zeros(b, np.int64)
+        any_energy = any(p.energy is not None for p in problems)
+        if any_energy:
+            # padded slots: zero cost, infinite budget (never binding)
+            e2 = np.zeros((b, k)); e1 = np.zeros((b, k)); e0 = np.zeros((b, k))
+            eb = np.full((b, k), np.inf)
         for i, p in enumerate(problems):
             n = p.num_learners
             tm = p.time_model
@@ -118,17 +160,28 @@ class BatchedProblems:
             valid[i, :n] = True
             T[i] = p.T
             total[i] = p.total_samples
-        return BatchedProblems(c2, c1, c0, T, total, d_lo, d_hi, valid)
+            if any_energy and p.energy is not None:
+                e2[i, :n], e1[i, :n], e0[i, :n], eb[i, :n] = p.energy_rows()
+        if not any_energy:
+            return BatchedProblems(c2, c1, c0, T, total, d_lo, d_hi, valid)
+        return BatchedProblems(c2, c1, c0, T, total, d_lo, d_hi, valid, e2, e1, e0, eb)
 
     def problem(self, i: int) -> AllocationProblem:
         """The i-th (unpadded) AllocationProblem."""
         v = self.valid[i]
+        energy = e_budget = None
+        if self.has_energy:
+            energy = EnergyModel(e2=self.e2[i, v], e1=self.e1[i, v], e0=self.e0[i, v])
+            if self.e_budget is not None:
+                e_budget = self.e_budget[i, v]
         return AllocationProblem(
             time_model=TimeModel(c2=self.c2[i, v], c1=self.c1[i, v], c0=self.c0[i, v]),
             T=float(self.T[i]),
             total_samples=int(self.total[i]),
             d_lower=int(round(float(self.d_lo[i, v].min()))),
             d_upper=int(round(float(self.d_hi[i, v].max()))),
+            energy=energy,
+            e_budget=e_budget,
         )
 
 
@@ -231,13 +284,40 @@ def _max_tau_of_d(d, c2, c1, c0, T):
     return torch.clamp_min(t, 0.0).to(d.dtype)
 
 
-def _relaxed_batched(c2, c1, c0, T, total_f, d_lo, d_hi, *, tol, max_iter):
-    """Lockstep water-filling bisection over the (B,) batch, branch for
-    branch ``solver_kkt.solve_relaxed`` per fleet. Returns
-    ``(feasible, tau_star, tau, d, rounds)``."""
+def _max_tau_energy(d, e2, e1, e0, eb):
+    """Largest integer tau with E_k <= eb at integer d, the energy twin of
+    ``_max_tau_of_d``: ``_TAU_BIG`` where compute is free (e2 = 0) or the
+    budget infinite; 0 where even tau = 0 busts the budget."""
+    df = d.to(e2.dtype)
+    num = eb - e0 - e1 * df
+    den = e2 * df
+    pos = den > 0
+    raw = torch.where(pos, num / torch.where(pos, den, 1.0),
+                      torch.where(num >= 0, torch.inf, -1.0))
+    t = torch.floor(raw)
+    t = torch.where(torch.isfinite(t), t, float(_TAU_BIG))
+    t = torch.where(d > 0, t, 0.0)
+    return torch.clamp_min(t, 0.0).to(d.dtype)
 
-    def resid(tau_star):
-        return ops.waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total_f)
+
+def _relaxed_batched(c2, c1, c0, T, total_f, d_lo, d_hi, *, tol, max_iter, energy=None):
+    """Lockstep water-filling bisection over the (B,) batch, branch for
+    branch ``solver_kkt.solve_relaxed`` per fleet. With ``energy = (e2, e1,
+    e0, eb)`` rows it is the budgeted bisection of ``solve_energy``: each
+    learner absorbs ``min(d_time, d_energy)`` at the water level, every step
+    is one ``ops.waterfill_energy_residual`` call, and the relaxed tau is
+    the tighter of the two caps at the final d. Returns ``(feasible,
+    tau_star, tau, d, rounds)``."""
+
+    if energy is None:
+        def resid(tau_star):
+            return ops.waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total_f)
+    else:
+        e2, e1, e0, eb = energy
+
+        def resid(tau_star):
+            return ops.waterfill_energy_residual(tau_star, c2, c1, c0, T, e2, e1, e0, eb,
+                                                 d_lo, d_hi, total_f)
 
     zero = torch.zeros_like(T)
     feasible = resid(zero) >= -1e-9
@@ -266,7 +346,10 @@ def _relaxed_batched(c2, c1, c0, T, total_f, d_lo, d_hi, *, tol, max_iter):
     tau_star = 0.5 * (lo + hi)
 
     Tc = T[:, None]
-    d = torch.clamp((Tc - c0) / (c2 * tau_star[:, None] + c1), d_lo, d_hi)
+    d = (Tc - c0) / (c2 * tau_star[:, None] + c1)
+    if energy is not None:
+        d = torch.minimum(d, (eb - e0) / (e2 * tau_star[:, None] + e1))
+    d = torch.clamp(d, d_lo, d_hi)
     # spread the bisection's residual gap over unclamped learners
     free = (d > d_lo + 1e-9) & (d < d_hi - 1e-9)
     gap = total_f - sum_in_order(d)
@@ -277,7 +360,10 @@ def _relaxed_batched(c2, c1, c0, T, total_f, d_lo, d_hi, *, tol, max_iter):
         0.0,
     )
     d = torch.clamp(d + add, d_lo, d_hi)
-    tau = torch.where(d > 0, torch.clamp_min((Tc - c0 - c1 * d) / (c2 * d), 0.0), 0.0)
+    tau = (Tc - c0 - c1 * d) / (c2 * d)
+    if energy is not None:
+        tau = torch.minimum(tau, (eb - e0 - e1 * d) / (e2 * d))
+    tau = torch.where(d > 0, torch.clamp_min(tau, 0.0), 0.0)
     return feasible, tau_star, tau, d, {"grow": grow, "bisection": steps}
 
 
@@ -310,16 +396,21 @@ def _integerize(d_real, total_i, lo_i, hi_i):
     return base, deficit, i
 
 
-def _sai(d0, c2, c1, c0, T, lo_i, hi_i, valid, *, max_rounds):
+def _sai(d0, c2, c1, c0, T, lo_i, hi_i, valid, *, max_rounds, energy=None):
     """Greedy suggest-and-improve repair (``solver_kkt.suggest_and_improve``)
     in lockstep: move samples from a min-tau learner to the highest-tau
-    learner with headroom while staleness improves. Returns
-    ``(tau, d, rounds)``."""
+    learner with headroom while staleness improves. With ``energy = (e2,
+    e1, e0, eb)`` rows every tau is also capped by the budget
+    (``_max_tau_energy``), as ``solver_kkt._sai_energy_np`` caps it.
+    Returns ``(tau, d, rounds)``."""
     Tc = T[:, None]
     neg_inf = torch.tensor(-torch.inf, dtype=c2.dtype, device=c2.device)
 
     def tau_of(d):
-        return _max_tau_of_d(d, c2, c1, c0, Tc)
+        t = _max_tau_of_d(d, c2, c1, c0, Tc)
+        if energy is None:
+            return t
+        return torch.minimum(t, _max_tau_energy(d, *energy))
 
     def stats(tau):
         tmax = torch.where(valid, tau, -1).amax(dim=1)
@@ -386,16 +477,17 @@ def _integer_inputs(d_r, feasible, total_i, d_lo, d_hi):
 
 
 def _integerize_and_repair(d_r, feasible, c2, c1, c0, T, total_i, d_lo, d_hi,
-                           valid, *, max_rounds):
+                           valid, *, max_rounds, energy=None):
     """The integer tail of every batched policy: largest-remainder rounding
-    to the exact sum, then the SAI repair. Returns ``(tau, d, feasible,
-    rounds)``."""
+    to the exact sum, then the SAI repair (with every tau capped by the
+    ``energy`` rows, if given). Returns ``(tau, d, feasible, rounds)``."""
     d_r_safe, total_safe, lo_i, hi_i = _integer_inputs(d_r, feasible, total_i, d_lo, d_hi)
     d_int, leftover, int_rounds = _integerize(d_r_safe, total_safe, lo_i, hi_i)
     # a walk that exhausted its bound without reaching the sum (hand-built
     # boxes only) must not pass for a solution
     feasible = feasible & (leftover == 0)
-    tau, d, n = _sai(d_int, c2, c1, c0, T, lo_i, hi_i, valid, max_rounds=max_rounds)
+    tau, d, n = _sai(d_int, c2, c1, c0, T, lo_i, hi_i, valid, max_rounds=max_rounds,
+                     energy=energy)
     return tau, d, feasible, {"integerize": int_rounds, "sai": n}
 
 
@@ -407,6 +499,44 @@ def _kkt_batched_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid, *,
     )
     tau, d, feasible, int_rounds = _integerize_and_repair(
         d_r, feasible, c2, c1, c0, T, total_i, d_lo, d_hi, valid, max_rounds=max_rounds,
+    )
+    return dict(tau=tau, d=d, feasible=feasible, relaxed_tau=tau_r, relaxed_d=d_r,
+                tau_star=tau_star, rounds={**rounds, **int_rounds})
+
+
+def apply_energy_mask(total_i, d_lo, d_hi, valid, energy):
+    """Project a (B, K) policy problem onto its affordable sub-fleet.
+
+    The budget at tau = 0 caps each learner's data at ``(eb - e0) / e1``
+    samples; the upper bound is tightened to that cap, and a learner whose
+    cap cannot cover its ``d_lo`` is masked out through
+    ``apply_active_mask`` (the padded-slot semantics, as for an offline
+    learner). An infinite budget changes nothing: the cap is +inf.
+    ``energy`` is the ``(e2, e1, e0, eb)`` tuple of (B, K) tensors. Returns
+    ``(total, d_lo, d_hi, valid)``."""
+    e2, e1, e0, eb = energy
+    room = eb - e0
+    pos = e1 > 0
+    capf = torch.where(pos, room / torch.where(pos, e1, 1.0),
+                       torch.where(room >= 0, torch.inf, -1.0))
+    hi_e = torch.minimum(torch.clamp_min(torch.minimum(torch.floor(capf), d_hi), 0.0), d_hi)
+    return apply_active_mask(total_i, d_lo, hi_e, valid, hi_e >= d_lo)
+
+
+def _kkt_energy_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy, *,
+                     tol, max_iter, max_rounds):
+    """The energy-budgeted pipeline (``kkt_energy``): affordability mask,
+    budgeted water-filling, integerize, SAI with energy-capped taus. Every
+    stage keeps ``E_k(tau, d) <= eb_k``, so its solutions spend within
+    budget."""
+    total_i, d_lo, d_hi, valid = apply_energy_mask(total_i, d_lo, d_hi, valid, energy)
+    feasible, tau_star, tau_r, d_r, rounds = _relaxed_batched(
+        c2, c1, c0, T, total_i.to(c2.dtype), d_lo, d_hi, tol=tol, max_iter=max_iter,
+        energy=energy,
+    )
+    tau, d, feasible, int_rounds = _integerize_and_repair(
+        d_r, feasible, c2, c1, c0, T, total_i, d_lo, d_hi, valid, max_rounds=max_rounds,
+        energy=energy,
     )
     return dict(tau=tau, d=d, feasible=feasible, relaxed_tau=tau_r, relaxed_d=d_r,
                 tau_star=tau_star, rounds={**rounds, **int_rounds})
@@ -502,6 +632,49 @@ def solve_kkt_batched(
     )
 
 
+def _energy_to_device(bp: BatchedProblems, x64: bool, device) -> tuple:
+    """``bp.energy_rows()`` as the (e2, e1, e0, eb) tuple of device tensors."""
+    fdt = torch.float64 if x64 else torch.float32
+    return tuple(torch.as_tensor(r, dtype=fdt, device=resolve_device(device))
+                 for r in bp.energy_rows())
+
+
+def solve_energy_batched(
+    problems,
+    *,
+    x64: bool = True,
+    tol: float = 1e-10,
+    max_iter: int = 200,
+    max_rounds: int = 10_000,
+    device=None,
+) -> BatchedAllocation:
+    """Solve B energy-budgeted problems (arXiv 2012.00143) with the
+    ``kkt_energy`` pipeline on ``device`` (``None``: the card); every
+    bisection step is one ``ops.waterfill_energy_residual`` call. Problems
+    without an energy model get zero-coefficient rows and infinite budgets,
+    under which the decisions are ``solve_kkt_batched``'s; with budgets,
+    every allocation satisfies ``E_k(tau, d) <= e_budget_k`` (learners
+    whose budget cannot cover ``d_lower`` get the padded-slot semantics,
+    as offline learners do). ``x64=True`` reproduces ``solve_energy`` per
+    problem; ``x64=False`` runs float32/int32."""
+    bp = _as_batched(problems)
+    out = _kkt_energy_core(**_to_device(bp, x64, device),
+                           energy=_energy_to_device(bp, x64, device), tol=tol,
+                           max_iter=max_iter, max_rounds=max_rounds)
+    host = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
+    return BatchedAllocation(
+        tau=host["tau"].astype(np.int64),
+        d=host["d"].astype(np.int64),
+        feasible=host["feasible"],
+        valid=np.asarray(bp.valid, bool),
+        method="kkt_energy_batched",
+        relaxed_tau=host["relaxed_tau"],
+        relaxed_d=host["relaxed_d"],
+        tau_star=host["tau_star"],
+        rounds=out["rounds"],
+    )
+
+
 def solve_eta_batched(problems, *, x64: bool = True, device=None) -> BatchedAllocation:
     """Equal-task-allocation baseline (``baselines.solve_eta``) over a
     batch: d_k = d/K spread by index, bound-clipped, integer-sum repaired,
@@ -516,7 +689,7 @@ def solve_eta_batched(problems, *, x64: bool = True, device=None) -> BatchedAllo
 
 
 def batched_policy(name: str, *, tol: float = 1e-10, max_iter: int = 200,
-                   max_rounds: int = 10_000):
+                   max_rounds: int = 10_000, pgd_steps: int = 600):
     """The per-cycle re-solve hook of the orchestrator: a callable
     ``fn(c2, c1, c0, T, total_i, d_lo, d_hi, valid) -> (tau, d, feasible)``
     on device tensors (``c2/c1/c0/d_lo/d_hi``: (B, K) float; ``T``: (B,)
@@ -525,20 +698,35 @@ def batched_policy(name: str, *, tol: float = 1e-10, max_iter: int = 200,
     slots), ``feasible`` (B,) bool, False where even tau = 0 cannot absorb
     the budget (such rows hold neutralized values).
 
-    ``name`` is ``"kkt_sai"`` (water-filling + SAI) or ``"eta"``
-    (equal-task). float64 inputs reproduce the NumPy solvers decision for
-    decision; float32 inputs give the float32 path."""
+    ``name`` is one of ``POLICIES``: ``"kkt_sai"`` (water-filling + SAI),
+    ``"eta"`` (equal-task), ``"kkt_energy"`` (the budgeted pipeline; it
+    takes a 9th argument, the ``(e2, e1, e0, eb)`` tuple of (B, K) energy
+    rows, and with ``eb = +inf`` decides as ``kkt_sai``) or ``"pgd"``
+    (relaxed projected gradient, ``pgd_steps`` steps, then the same integer
+    tail; an optional 9th argument as ``kkt_energy``'s). float64 inputs
+    reproduce the NumPy solvers decision for decision; float32 inputs give
+    the float32 path."""
     if name == "kkt_sai":
         def kkt_policy(c2, c1, c0, T, total_i, d_lo, d_hi, valid):
             out = _kkt_batched_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid,
                                     tol=tol, max_iter=max_iter, max_rounds=max_rounds)
             return out["tau"], out["d"], out["feasible"]
         return kkt_policy
+    if name == "kkt_energy":
+        def kkt_energy_policy(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy):
+            out = _kkt_energy_core(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy,
+                                   tol=tol, max_iter=max_iter, max_rounds=max_rounds)
+            return out["tau"], out["d"], out["feasible"]
+        return kkt_energy_policy
     if name == "eta":
         return _eta_policy
-    if name in _LATER_POLICIES:
-        raise ValueError(f"the batched policy {name!r} is not ported yet; it comes "
-                         f"with a later slice of the port ({_LATER_POLICIES[name]})")
+    if name == "pgd":
+        from repro_torch.core.solver_numeric import pgd_policy
+
+        def pgd(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy=None):
+            return pgd_policy(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy,
+                              steps=pgd_steps, max_rounds=max_rounds)
+        return pgd
     raise ValueError(f"no batched policy for scheme {name!r}; choose from "
                      f"{' | '.join(POLICIES)}")
 

@@ -1,8 +1,9 @@
 """Per-learner time model of the MEL global cycle (paper Eqs. 1-5).
 
 A NumPy copy of ``repro/core/time_model.py``: ``ChannelParams``,
-``LearnerProfile``, ``TimeModel``, ``indoor_80211_profile``, and the
-per-cycle capacity drifts ``CapacityDrift`` and ``QueueDrift``. The
+``LearnerProfile``, ``TimeModel``, the reference environments
+``indoor_80211_profile`` and ``pod_slice_profile``, and the per-cycle
+capacity drifts ``CapacityDrift`` and ``QueueDrift``. The
 reference draws the drift from ``jax.random``; the port draws the same bits
 from its NumPy twin ``core._threefry``.
 
@@ -31,6 +32,7 @@ __all__ = [
     "TimeModel",
     "indoor_80211_profile",
     "is_state_coupled",
+    "pod_slice_profile",
 ]
 
 
@@ -321,3 +323,38 @@ def indoor_80211_profile(
         )
     return profiles
 
+
+
+def pod_slice_profile(
+    k: int,
+    *,
+    seed: int = 0,
+    chips_per_slice: int = 256,
+    peak_flops: float = 197e12,
+    mfu_range: tuple[float, float] = (0.3, 0.55),
+    dcn_gbps_range: tuple[float, float] = (25.0, 100.0),
+) -> list[LearnerProfile]:
+    """A fleet of accelerator pod slices as learners: each has an effective
+    throughput (chips x peak x MFU) and a fixed-rate datacenter link to the
+    orchestrator, encoded as an equivalent (W, SNR) pair with rate ==
+    ``dcn_gbps``.
+
+    ``peak_flops`` is an input of this simulated fleet (the reference's
+    default, a per-chip peak from a data sheet), not a measurement of any
+    device this package runs on.
+    """
+    rng = np.random.default_rng(seed)
+    profiles = []
+    for i in range(k):
+        mfu = rng.uniform(*mfu_range)
+        flops = chips_per_slice * peak_flops * mfu
+        rate_bps = rng.uniform(*dcn_gbps_range) * 1e9
+        # encode the fixed rate: W = rate, SNR = 1 -> W*log2(2) = rate
+        ch = ChannelParams(
+            bandwidth_hz=rate_bps,
+            tx_power_w=1.0,
+            gain=1.0,
+            noise_psd=1.0 / rate_bps,
+        )
+        profiles.append(LearnerProfile(clock_hz=flops, channel=ch, name=f"slice-{i}"))
+    return profiles

@@ -43,10 +43,15 @@ replay it:
 
 Capacity drift composes through the schedule: ``CapacityDrift`` rows per
 block, and a state-coupled ``QueueDrift`` rolled out block by block with
-its re-solves (``reallocate=True`` required). Availability churn and the
-energy ledger come with a later slice of the port (ROADMAP Queue 1 item 9):
-an availability drift raises ``TypeError``, and the ``energy`` columns are
-zeros, as the reference gives without an ``EnergyModel``.
+its re-solves (``reallocate=True`` required). Client churn too: under an
+availability process (``core.availability``) or a ``BatteryDrift`` each
+block's online mask gates dispatching, an offline learner's dispatch is
+deferred to its next online block or churned out of the run, and adaptive
+runs solve each block masked (``solve_rows_availability``; a battery's
+charge also caps an energy-aware scheme's budget). With an
+``EnergyModel`` on the problem every dispatch is charged its joules
+(``E_k(tau_k, d_k)``) in its arrival's ``energy`` column and in
+``energy_ledger``, which counts the dispatches over the problem's budget.
 """
 
 from __future__ import annotations
@@ -62,7 +67,10 @@ from repro_torch.core import (
     AllocationProblem,
     CapacityDrift,
     aggregate,
+    availability_masks,
+    capacity_state_coupled,
     fedavg_weights,
+    has_availability,
     is_state_coupled,
     staleness_weights,
 )
@@ -81,6 +89,7 @@ from repro_torch.fed.orchestrator import (
     coefficient_rows,
     local_train,
     solve_policy_row,
+    solve_rows_availability,
     solve_rows_state_coupled,
 )
 from repro_torch.kernels import ops
@@ -237,8 +246,10 @@ class _Schedule:
     d_cap: int               # max d over arrivals (>= 1)
     max_tau: int             # max tau over arrivals (>= 1)
     counters: dict = dataclasses.field(default_factory=dict)
-    energy_spent: np.ndarray | None = None   # per-learner joules (zeros here)
-    energy_violations: int = 0
+    # per-learner joules charged at dispatch (dropped, in-flight and
+    # deadline-cancelled uploads included: the device spent them)
+    energy_spent: np.ndarray | None = None
+    energy_violations: int = 0   # dispatches costing more than e_budget
 
 
 FAULT_COUNTERS = (
@@ -380,10 +391,12 @@ class AsyncFedEngine:
     that holds ``init_params``.
 
     Parameters mirror ``Orchestrator``: the ``AllocationProblem`` supplies
-    the per-learner wall-clock model, ``drift`` (optional, a
-    ``CapacityDrift`` or ``QueueDrift``) the per-block capacity evolution
-    (block length = ``problem.T``; a task's cost is evaluated under the
-    block of its dispatch time).
+    the per-learner wall-clock model (and, with an ``EnergyModel``, the
+    per-dispatch joules), ``drift`` (optional: a ``CapacityDrift``, a
+    ``QueueDrift``, an availability process or a ``BatteryDrift``) the
+    per-block capacity and availability evolution (block length =
+    ``problem.T``; a task's cost is evaluated under the block of its
+    dispatch time).
     """
 
     def __init__(
@@ -419,7 +432,18 @@ class AsyncFedEngine:
                 f"quorum (= {cfg.quorum}) must be <= buffer_size "
                 f"(= {self.buffer_size}): a full buffer flushes on its own"
             )
-        if is_state_coupled(drift) and not cfg.reallocate:
+        if has_availability(drift):
+            if cfg.barrier:
+                raise ValueError(
+                    "availability churn has no barrier regime (one offline "
+                    "learner would gate every round forever); use the "
+                    "event-driven modes, or the Orchestrator for the "
+                    "fault-free paper scheme"
+                )
+            coupled = capacity_state_coupled(drift)
+        else:
+            coupled = is_state_coupled(drift)
+        if coupled and not cfg.reallocate:
             raise ValueError(
                 "state-coupled drift ties capacities to the dispatched "
                 "allocations; the async engine supports it only with "
@@ -428,20 +452,43 @@ class AsyncFedEngine:
         # the paper-scheme allocation on the base capacities (the barrier
         # path's, so it matches Orchestrator.run); event-mode dispatches
         # solve through the batched policy instead
-        self.allocation = _solver(cfg.scheme)(problem)
+        self.allocation = _solver(cfg.scheme, self.device)(problem)
         self._alloc_cache: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._static_alloc: tuple[np.ndarray, np.ndarray] | None = None
-        # fault tallies of the LAST schedule built by a run method
+        self._block_masks: np.ndarray | None = None
+        # fault/churn tallies of the LAST schedule built by a run method
         self.fault_counters: dict = _zero_fault_counters()
-        # per-learner joule ledger of the last run: zeros (no energy model)
+        # per-learner joule ledger of the last run (zeros without an
+        # EnergyModel): joules spent per learner and the count of dispatches
+        # over their e_budget, zero by construction under kkt_energy
         self.energy_ledger: dict = {"per_learner": np.zeros(k), "violations": 0}
 
     # -- capacities & allocation --------------------------------------------
     def _block_rows(self, nblocks: int):
         """(C, K) float64 capacity rows per drift block, the orchestrator's
         row source. A state-coupled drift has no standalone rows, so rows
-        and per-block solves roll out together and prefill the cache."""
+        and per-block solves roll out together and prefill the cache. An
+        availability process also gives the per-block online masks
+        (``self._block_masks``) that gate dispatching: adaptive runs solve
+        each block masked (``solve_rows_availability``); frozen runs
+        dispatch the static base allocation whenever a learner is online,
+        with the masks rolled out under that frozen allocation."""
         drift = self.drift
+        self._block_masks = None
+        if has_availability(drift):
+            if self.cfg.reallocate:
+                rows, (taus, ds), masks = solve_rows_availability(
+                    self.cfg.scheme, drift, self.problem, nblocks,
+                    label="capacities at drift block {}", device=self.device,
+                )
+                for b in range(nblocks):
+                    self._alloc_cache[b] = (taus[b], ds[b])
+                self._block_masks = masks
+                return rows
+            tau0, d0 = self._alloc_base()
+            self._block_masks = availability_masks(
+                drift, self.problem.num_learners, nblocks, tau=tau0, d=d0)
+            return coefficient_rows(self.problem, drift.base, nblocks)
         if is_state_coupled(drift):
             rows, (taus, ds) = solve_rows_state_coupled(
                 self.cfg.scheme, drift, self.problem, nblocks,
@@ -501,12 +548,18 @@ class AsyncFedEngine:
         m = self.buffer_size
         nblocks = max(int(np.ceil(horizon / T)) + 1, 1)
         rows = self._block_rows(nblocks)
+        masks = self._block_masks           # (nblocks, K) bool under churn
         # without drift every block row is the base row: re-solving per
         # block would repeat the static solve
         realloc = cfg.reallocate and self.drift is not None
         frng = (np.random.default_rng(int(self.rng.integers(2**31)))
                 if cfg.has_faults else None)
         counters = _zero_fault_counters()
+        # joules are charged at dispatch, against the problem's static
+        # per-learner budget rows
+        e_rows = prob.energy_rows()
+        energy_spent = np.zeros(k_fleet)
+        energy_violations = 0
         heap: list = []
         seq = 0
         server_version = 0
@@ -524,17 +577,45 @@ class AsyncFedEngine:
             seq += 1
 
         def dispatch(k: int, t: float, attempt: int = 0) -> None:
-            nonlocal next_did
+            nonlocal next_did, energy_violations
             block = min(int(t // T), nblocks - 1)
+            if masks is not None:
+                # an offline learner cannot take a task: defer the dispatch
+                # to the start of its next online block, or churn it out of
+                # the run if none remains within the horizon
+                b = block
+                while b < nblocks and not masks[b][k]:
+                    b += 1
+                if b >= nblocks or b * T > horizon:
+                    counters["offline_churned"] += 1
+                    return
+                if b != block:
+                    counters["offline_deferrals"] += 1
+                    block, t = b, b * T
             if realloc:
                 tau_a, d_a = self._alloc_for_block(block, rows)
             else:
                 tau_a, d_a = self._alloc_base()
             tau_k, d_k = int(tau_a[k]), int(d_a[k])
+            if masks is not None and d_k == 0:
+                # the masked solve gave this online learner nothing (the
+                # budget fit in the rest of the fleet): try the next block
+                if (block + 1) * T <= horizon and block + 1 < nblocks:
+                    dispatch(k, (block + 1) * T, attempt)
+                else:
+                    counters["offline_churned"] += 1
+                return
             idx = part.draw_indices(d_k)
             c2, c1, c0 = (r[block, k] for r in rows)
             cost = float(c2 * tau_k * d_k + c1 * d_k + c0)
             counters["dispatches"] += 1
+            energy_j = 0.0
+            if e_rows is not None:
+                e2k, e1k, e0k, ebk = (row[k] for row in e_rows)
+                energy_j = float(e2k * tau_k * d_k + e1k * d_k + e0k)
+                energy_spent[k] += energy_j
+                if energy_j > ebk * (1 + 1e-9):
+                    energy_violations += 1
             dropped = False
             if frng is not None:
                 # fixed per-dispatch draw order: straggle -> delay -> drop
@@ -554,7 +635,7 @@ class AsyncFedEngine:
                 counters["drops"] += 1
             else:
                 push(t + cost, _EV_ARRIVE,
-                     (did, k, t, server_version, tau_k, d_k, idx, attempt, 0.0))
+                     (did, k, t, server_version, tau_k, d_k, idx, attempt, energy_j))
             if cfg.deadline > 0:
                 push(t + cfg.deadline, _EV_DEADLINE, (did, k, attempt))
 
@@ -668,7 +749,7 @@ class AsyncFedEngine:
             d_cap=max([a.d for a in arrivals], default=1),
             max_tau=max([a.tau for a in arrivals] + [1]),
             counters=counters,
-            energy_spent=np.zeros(k_fleet), energy_violations=0,
+            energy_spent=energy_spent, energy_violations=energy_violations,
         )
 
     def _schedule(self, train: Dataset, horizon: float, max_events: int) -> _Schedule:
@@ -736,6 +817,9 @@ class AsyncFedEngine:
             cycles = int(np.floor(horizon / prob.T + 1e-9))
         part = FederatedPartitioner(train, seed=int(self.rng.integers(2**31)))
         self.fault_counters = _zero_fault_counters()   # barrier is fault-free
+        e_rows = prob.energy_rows()
+        energy_spent = np.zeros(prob.num_learners)
+        energy_violations = 0
         eval_fn, ex, ey = self._eval_pair(eval_fn, eval_batch)
         # without drift, per-cycle re-solves would repeat the static solve
         rows = (self._block_rows(cycles)
@@ -763,6 +847,13 @@ class AsyncFedEngine:
             # discount is exactly 1 and the weights are the orchestrator's
             self.params = aggregate(locals_, torch.as_tensor(w, dtype=torch.float32,
                                                              device=dev))
+            if e_rows is not None:
+                e2r, e1r, e0r, ebr = e_rows
+                e_c = np.where(d > 0, e2r * tau * d + e1r * d + e0r, 0.0)
+                energy_spent += e_c
+                energy_violations += int(np.sum(e_c > ebr * (1 + 1e-9)))
+            else:
+                e_c = np.zeros(prob.num_learners)
             rec = {
                 "event": c,
                 "t": (c + 1) * prob.T,
@@ -776,7 +867,7 @@ class AsyncFedEngine:
                 "version_staleness_mean": 0.0,
                 "weights": np.asarray(w, np.float64),
                 "keep": 0.0,
-                "energy": np.zeros(prob.num_learners),
+                "energy": e_c,
                 "max_staleness": max_staleness(tau),
                 "avg_staleness": avg_staleness(tau),
                 "cycle": c,
@@ -786,8 +877,8 @@ class AsyncFedEngine:
             if eval_fn is not None:
                 rec["accuracy"] = float(eval_fn(self.params, ex, ey))
             history.append(rec)
-        self.energy_ledger = {"per_learner": np.zeros(prob.num_learners),
-                              "violations": 0}
+        self.energy_ledger = {"per_learner": energy_spent,
+                              "violations": energy_violations}
         return history
 
     # -- grouped (kernel) paths -------------------------------------------------

@@ -27,12 +27,21 @@ water-filling kernel. With a ``CapacityDrift`` the capacity rows are the
 drift's ``coefficient_path``; with a state-coupled ``QueueDrift`` rows and
 allocations roll out together (``solve_rows_state_coupled``). An
 infeasible cycle raises ``ValueError`` naming it, after the cycles before
-it trained (``self.params`` holds them).
+it trained (``self.params`` holds them). The energy-aware schemes
+(``ENERGY_SCHEMES``) solve with the problem's energy rows
+(``policy_energy_args``), so on the card their bisections launch the
+budgeted water-filling kernel.
+
+Availability processes and ``BatteryDrift`` (client churn, battery drain)
+have no offline semantics in the cycle-gated ``Orchestrator``, which
+rejects them as the reference does; the async engine runs them through
+``solve_rows_availability``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import warnings
 from typing import Callable
@@ -50,9 +59,13 @@ from repro_torch.core import (
     apply_active_mask,
     batched_policy,
     fedavg_weights,
+    has_availability,
     is_state_coupled,
     solve_eta,
+    solve_kkt_energy,
     solve_kkt_sai,
+    solve_pgd_jax,
+    solve_slsqp,
     solve_synchronous,
     staleness_weights,
 )
@@ -63,39 +76,55 @@ from repro_torch.kernels import ops
 from repro_torch.models import mlp
 
 __all__ = [
+    "ENERGY_SCHEMES",
     "MELConfig",
     "Orchestrator",
     "SCHEMES",
     "coefficient_rows",
     "local_train",
     "local_train_stacked",
+    "policy_energy_args",
     "policy_problem_args",
     "require_standalone_rows",
     "solve_policy_row",
+    "solve_rows_availability",
     "solve_rows_state_coupled",
 ]
 
 SCHEMES: dict[str, Callable[[AllocationProblem], Allocation]] = {
     "kkt_sai": solve_kkt_sai,
+    "kkt_energy": solve_kkt_energy,
+    "slsqp": solve_slsqp,
+    "pgd": solve_pgd_jax,
     "eta": solve_eta,
     "sync": solve_synchronous,
 }
 
-def _solver(scheme: str) -> Callable[[AllocationProblem], Allocation]:
+# schemes whose batched policy takes the (e2, e1, e0, e_budget) energy rows
+# (with e_budget = +inf the rows change no decision)
+ENERGY_SCHEMES = frozenset({"kkt_energy", "pgd"})
+
+
+def _solver(scheme: str, device=None) -> Callable[[AllocationProblem], Allocation]:
+    """The scheme's per-problem solver. ``pgd`` runs its gradient stage on
+    ``device`` (``None``: the card), the device of the run that asks; the
+    other schemes are host NumPy."""
     if scheme not in SCHEMES:
-        raise KeyError(f"scheme {scheme!r} is not ported yet (ported: "
-                       f"{', '.join(SCHEMES)}); it comes with a later slice "
-                       "of the port (ROADMAP Queue 1)")
+        raise KeyError(f"unknown scheme {scheme!r}; choose from {' | '.join(SCHEMES)}")
+    if scheme == "pgd":
+        return functools.partial(solve_pgd_jax, device=device)
     return SCHEMES[scheme]
 
 
 def _check_drift(drift) -> None:
-    """The drifts the port runs: None, ``CapacityDrift``, ``QueueDrift``."""
-    if drift is not None and not isinstance(drift, (CapacityDrift, QueueDrift)):
+    """The drifts the port runs: None, ``CapacityDrift``, ``QueueDrift``, an
+    availability process or ``BatteryDrift`` (both have ``online_at``)."""
+    if (drift is not None and not isinstance(drift, (CapacityDrift, QueueDrift))
+            and not has_availability(drift)):
         raise TypeError(
-            f"{type(drift).__name__} is not a drift the port runs yet (it runs "
-            "CapacityDrift and QueueDrift); availability processes and battery "
-            "drift come with a later slice of the port (ROADMAP Queue 1 item 9)"
+            f"{type(drift).__name__} is not a drift the port runs (it runs "
+            "CapacityDrift, QueueDrift, the availability processes of "
+            "core.availability and BatteryDrift)"
         )
 
 
@@ -112,19 +141,36 @@ def policy_problem_args(prob: AllocationProblem):
     )
 
 
+def policy_energy_args(prob: AllocationProblem):
+    """Static (1, K) float64 energy rows ``(e2, e1, e0, e_budget)`` for a
+    single-fleet call into an energy-aware policy: the problem's
+    ``EnergyModel`` and budget, or zero coefficients and infinite budgets
+    (under which ``kkt_energy`` decides as ``kkt_sai``) when it has none."""
+    rows = prob.energy_rows()
+    if rows is None:
+        k = prob.num_learners
+        z = np.zeros((1, k), np.float64)
+        return z, z.copy(), z.copy(), np.full((1, k), np.inf)
+    return tuple(np.asarray(r, np.float64)[None] for r in rows)
+
+
 def require_standalone_rows(drift, *, remedy: str) -> None:
     """The guard of paths that need capacity rows fixed up front: a
-    state-coupled drift (``QueueDrift``) has none, since its rows depend on
-    the allocations, so it is rejected with ``TypeError``; ``remedy`` says
-    what to do instead."""
+    state-coupled drift (``QueueDrift``) or an availability process has
+    none, since its rows depend on the run state (past allocations, who was
+    online), so it is rejected with ``TypeError``; ``remedy`` says what to
+    do instead."""
     if drift is None:
         return
     _check_drift(drift)
-    if is_state_coupled(drift):
-        raise TypeError(
-            f"{type(drift).__name__} is a state-coupled drift and has no "
-            f"standalone coefficient path (its rows depend on the run state); {remedy}"
-        )
+    avail = has_availability(drift)
+    if not avail and not is_state_coupled(drift):
+        return
+    kind = "an availability process" if avail else "a state-coupled drift"
+    raise TypeError(
+        f"{type(drift).__name__} is {kind} and has no standalone coefficient "
+        f"path (its rows depend on the run state); {remedy}"
+    )
 
 
 def coefficient_rows(prob: AllocationProblem, drift: CapacityDrift | None,
@@ -134,8 +180,8 @@ def coefficient_rows(prob: AllocationProblem, drift: CapacityDrift | None,
     tm = prob.time_model
     require_standalone_rows(
         drift,
-        remedy="roll rows and allocations out together via drift.rollout(...) "
-        "or solve_rows_state_coupled(...)",
+        remedy="roll rows and allocations out together via drift.rollout(...), "
+        "solve_rows_state_coupled(...) or solve_rows_availability(...)",
     )
     if drift is None:
         tile = lambda a: np.broadcast_to(a, (cycles, tm.num_learners)).astype(np.float64)
@@ -144,7 +190,7 @@ def coefficient_rows(prob: AllocationProblem, drift: CapacityDrift | None,
 
 
 def solve_policy_row(scheme: str, c2r, c1r, c0r, prob: AllocationProblem, *,
-                     label: str, active=None, device=None
+                     label: str, active=None, e_budget=None, device=None
                      ) -> tuple[np.ndarray, np.ndarray]:
     """One fleet's (tau, d) on a single (K,) capacity row through
     ``batched_policy(scheme)`` in float64 on ``device`` (``None``: the
@@ -154,10 +200,25 @@ def solve_policy_row(scheme: str, c2r, c1r, c0r, prob: AllocationProblem, *,
     ``active`` (optional (K,) bool) masks offline learners out: their slots
     get the padded-slot semantics and the budget is clipped into the live
     fleet's box (``apply_active_mask``); an all-offline row gives zeros
-    without a solve."""
+    without a solve.
+
+    ``e_budget`` (optional (K,) joules, energy-aware schemes only) tightens
+    the problem's static per-learner budget to the smaller of the two, so a
+    ``BatteryDrift`` charge caps what each dispatch may spend."""
     policy = batched_policy(scheme)
     T1, total1, lo1, hi1, valid1 = policy_problem_args(prob)
     k = prob.num_learners
+    energy1 = None
+    if scheme in ENERGY_SCHEMES:
+        e2r, e1r, e0r, ebr = policy_energy_args(prob)
+        if e_budget is not None:
+            ebr = np.minimum(ebr, np.asarray(e_budget, np.float64).reshape(1, k))
+        energy1 = (e2r, e1r, e0r, ebr)
+    elif e_budget is not None:
+        raise ValueError(
+            f"e_budget needs an energy-aware scheme ({' | '.join(sorted(ENERGY_SCHEMES))}); "
+            f"scheme {scheme!r} cannot honor it"
+        )
     if active is not None:
         act = np.asarray(active, bool).reshape(1, k)
         if not act.any():
@@ -171,8 +232,11 @@ def solve_policy_row(scheme: str, c2r, c1r, c0r, prob: AllocationProblem, *,
     if active is not None:
         total_t, lo_t, hi_t, valid_t = apply_active_mask(
             total_t, lo_t, hi_t, valid_t, torch.as_tensor(act, device=dev))
-    tau, d, ok = policy(f64(c2r[None]), f64(c1r[None]), f64(c0r[None]), f64(T1),
-                        total_t, lo_t, hi_t, valid_t)
+    args = (f64(c2r[None]), f64(c1r[None]), f64(c0r[None]), f64(T1), total_t, lo_t,
+            hi_t, valid_t)
+    if energy1 is not None:
+        args += (tuple(f64(e) for e in energy1),)
+    tau, d, ok = policy(*args)
     if not bool(ok[0]):
         sub = (f"; {int(np.asarray(active, bool).sum())}/{k} learners online"
                if active is not None else "")
@@ -202,6 +266,44 @@ def solve_rows_state_coupled(scheme: str, drift, prob: AllocationProblem,
     if lazy:
         return drift.rollout_iter(prob.time_model, cycles, _solve)
     return drift.rollout(prob.time_model, cycles, _solve)
+
+
+def solve_rows_availability(scheme: str, drift, prob: AllocationProblem, cycles: int,
+                            *, label: str, device=None):
+    """Rows, allocations and online masks of an availability process rolled
+    out together: per cycle, the online mask from the availability state,
+    the (base-drifted or backlog-coupled) capacity row, the masked solve
+    (``solve_policy_row(active=...)``) and the joint state advanced with the
+    solved allocation. Offline learners get tau = d = 0 and the budget
+    shrinks to the live fleet's box; all-offline cycles solve to zeros.
+    ``label`` is a format string given the cycle index.
+
+    Returns ``((c2s, c1s, c0s), (taus, ds), masks)``, each (C, K) (masks
+    bool). When the drift has ``budget_at`` (a ``BatteryDrift``) and the
+    scheme is energy-aware, each solve is also capped by the current
+    per-learner charge."""
+    tm = prob.time_model
+    k = tm.num_learners
+    budgeted = scheme in ENERGY_SCHEMES and hasattr(drift, "budget_at")
+    c2s, c1s, c0s = (np.empty((cycles, k)) for _ in range(3))
+    taus = np.zeros((cycles, k), np.int64)
+    ds = np.zeros((cycles, k), np.int64)
+    masks = np.zeros((cycles, k), bool)
+    state = drift.state_init(k)
+    for c in range(cycles):
+        mask = np.asarray(drift.online_at(c, k, state))
+        clock, rate = drift.factors_at(c, k, state)
+        c2r = tm.c2 / np.asarray(clock, np.float64)
+        c1r = tm.c1 / np.asarray(rate, np.float64)
+        c0r = tm.c0 / np.asarray(rate, np.float64)
+        e_budget = drift.budget_at(c, k, state) if budgeted else None
+        tau, d = solve_policy_row(scheme, c2r, c1r, c0r, prob, label=label.format(c),
+                                  active=mask, e_budget=e_budget, device=device)
+        state = drift.state_update(c, state, tau, d)
+        masks[c] = mask
+        c2s[c], c1s[c], c0s[c] = c2r, c1r, c0r
+        taus[c], ds[c] = tau, d
+    return (c2s, c1s, c0s), (taus, ds), masks
 
 
 _DRIFT_IGNORED = (
@@ -290,6 +392,13 @@ class Orchestrator:
         drift=None,
     ):
         _check_drift(drift)
+        if has_availability(drift):
+            # every learner takes part in every barrier round by construction
+            raise TypeError(
+                f"{type(drift).__name__} models client availability; the "
+                "cycle-gated Orchestrator has no offline semantics — run churn "
+                "scenarios through fed.async_engine.AsyncFedEngine"
+            )
         self.drift = drift
         self.mel = mel
         self.problem = problem
@@ -297,7 +406,7 @@ class Orchestrator:
         self.params = init_params
         self.device = init_params[0]["w"].device
         self.rng = np.random.default_rng(seed)
-        self.allocation = _solver(mel.scheme)(problem)
+        self.allocation = _solver(mel.scheme, self.device)(problem)
 
     def _weights(self, tau, d) -> torch.Tensor:
         if self.mel.aggregation == "staleness":
@@ -373,7 +482,7 @@ class Orchestrator:
 
         ``reallocate=True`` re-solves every cycle: through the batched
         policy on that cycle's (drifted) capacities for the schemes that
-        have one (``kkt_sai``, ``eta``), else (``sync``) by the scheme's
+        have one (``POLICIES``), else (``slsqp``, ``sync``) by the scheme's
         own solver on the static problem."""
         if fused:
             return self.run_fused(train, cycles, eval_fn=eval_fn,
@@ -394,7 +503,7 @@ class Orchestrator:
             if allocs is not None:
                 self.allocation = next(allocs)
             elif reallocate and c:
-                self.allocation = _solver(self.mel.scheme)(self.problem)
+                self.allocation = _solver(self.mel.scheme, self.device)(self.problem)
             rec = self.run_cycle(part.draw(self.allocation.d))
             rec["cycle"] = c
             rec["elapsed_s"] = (c + 1) * self.mel.T

@@ -4,12 +4,14 @@ Builds the 802.11 indoor environment, derives the time-model coefficients
 from the paper's MNIST-DNN constants (S_m = 8,974,080 bits,
 C_m = 1,123,736 FLOPs/sample), allocates with the requested scheme, and
 runs federated training on synthetic MNIST-class data — the port of
-``build_problem``, ``build_spread_problem``, ``run_experiment``,
-``staleness_sweep``, ``drift_staleness_sweep``, ``run_async_experiment`` and
-``async_mode_sweep`` in ``repro/fed/simulation.py``.
+``repro/fed/simulation.py`` without the fleet and multi-tenant sweeps
+(``fleet_scale_sweep``: ROADMAP Queue 1 item 11; ``multi_model_sweep`` and
+``laggard_time_to_accuracy``: item 10).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,11 +21,14 @@ from repro_torch.core import (
     AllocationProblem,
     BatchedProblems,
     CapacityDrift,
+    EnergyModel,
+    MarkovAvailability,
     TimeModel,
     batched_avg_staleness,
     batched_max_staleness,
     indoor_80211_profile,
     mnist_dnn_cost,
+    solve_energy_batched,
     solve_eta_batched,
     solve_kkt_batched,
 )
@@ -34,9 +39,12 @@ from repro_torch.models import mlp
 
 __all__ = [
     "async_mode_sweep",
+    "build_energy_problem",
     "build_problem",
     "build_spread_problem",
+    "churn_sweep",
     "drift_staleness_sweep",
+    "energy_sweep",
     "run_async_experiment",
     "run_experiment",
     "staleness_sweep",
@@ -91,19 +99,22 @@ def build_spread_problem(
 _BATCHED_SCHEMES = {
     "kkt_sai": solve_kkt_batched,
     "eta": solve_eta_batched,
+    "kkt_energy": solve_energy_batched,
 }
 _INFEASIBLE = "infeasible: even with tau=0 the deadline T cannot absorb d samples"
 
 
-def staleness_sweep(ks, T: float, *, schemes=("kkt_sai", "eta"), seed: int = 0,
-                    total_samples: int = 6000, seeds=None, device=None) -> list[dict]:
+def staleness_sweep(ks, T: float, *, schemes=("kkt_sai", "slsqp", "eta"),
+                    seed: int = 0, total_samples: int = 6000, seeds=None,
+                    device=None) -> list[dict]:
     """Fig. 2: max/avg staleness vs number of learners K per scheme.
 
     Every (K, seed) fleet is padded into one ``BatchedProblems`` and each
-    batched scheme (kkt_sai, eta) is ONE ``solve_*_batched`` call on
-    ``device`` (``None``: the card) for the whole sweep; ``sync`` uses its
-    per-problem solver, and a scheme the port lacks raises ``KeyError``.
-    The time-varying sweep is ``drift_staleness_sweep``.
+    batched scheme (kkt_sai, eta, kkt_energy) is ONE ``solve_*_batched``
+    call on ``device`` (``None``: the card) for the whole sweep; the other
+    schemes (slsqp, pgd, sync) use their per-problem solvers, and an
+    unknown scheme raises ``KeyError``. The time-varying sweep is
+    ``drift_staleness_sweep``.
     """
     for scheme in schemes:
         if scheme not in _BATCHED_SCHEMES:
@@ -138,7 +149,7 @@ def staleness_sweep(ks, T: float, *, schemes=("kkt_sai", "eta"), seed: int = 0,
                 rows.append(row)
                 continue
             try:
-                sm = _solver(scheme)(prob).summary(prob)
+                sm = _solver(scheme, device)(prob).summary(prob)
                 row.update(
                     max_staleness=sm["max_staleness"],
                     avg_staleness=sm["avg_staleness"],
@@ -480,5 +491,191 @@ def async_mode_sweep(
                 "staleness_mean": s["staleness"]["mean"],
                 "staleness_max": s["staleness"]["max"],
                 "accuracy_trace": res["accuracy_trace"][:40],
+            })
+    return rows
+
+
+def churn_sweep(
+    drop_rates=(0.0, 0.2, 0.4),
+    *,
+    mode: str = "buffered",
+    cycles: int = 10,
+    seed: int = 0,
+    policies=("adaptive", "static", "equal"),
+    problem=None,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+    device=None,
+) -> list[dict]:
+    """Adaptive KKT reallocation against frozen and equal allocation as the
+    fleet churns: one event-driven run per (dropout rate, policy) cell under
+    a compound fault schedule, at equal virtual time.
+
+    Each ``rate`` drives both the availability chain
+    (``MarkovAvailability(p_drop=rate)``: learners go offline between
+    blocks) and upload loss (``drop_rate = rate / 2``), over a fixed
+    straggler / delay / deadline-retry background and, in buffered mode, a
+    quorum of 2 with graceful degradation. Policies: ``"adaptive"``
+    re-solves the masked KKT allocation per drift block, ``"static"``
+    freezes the base KKT solve (dispatched whenever a learner is online),
+    ``"equal"`` re-solves the equal-task baseline per block. Every cell
+    runs the grouped kernel path (``run_events``) on ``device`` (``None``:
+    the card) and reports accuracy, staleness quantiles and the schedule's
+    fault counters.
+    """
+    prob = problem or build_spread_problem(k=4, total_samples=80)
+    k, T = prob.num_learners, prob.T
+    if train is None or test is None:
+        train, test = synthetic_mnist(6000, seed=seed)
+    policy_kw = {
+        "adaptive": dict(scheme="kkt_sai", reallocate=True),
+        "static": dict(scheme="kkt_sai", reallocate=False),
+        "equal": dict(scheme="eta", reallocate=True),
+    }
+    rows: list[dict] = []
+    for rate in drop_rates:
+        availability = MarkovAvailability(p_drop=float(rate), p_join=0.5, seed=seed)
+        faults = dict(
+            drop_rate=float(rate) / 2,
+            straggler_rate=0.2, straggler_factor=3.0,
+            delay_rate=0.2, delay_mean=0.5 * T,
+            deadline=2.5 * T, retry_backoff=0.25 * T, retry_backoff_cap=T,
+        )
+        if mode == "buffered":
+            faults.update(quorum=2, flush_timeout=1.5 * T)
+        for policy in policies:
+            res = run_async_experiment(
+                mode=mode, cycles=cycles, seed=seed, problem=prob,
+                train=train, test=test, drift=availability,
+                buffer_size=min(3, k), bucketed=True, faults=faults,
+                device=device, **policy_kw[policy],
+            )
+            s = res["summary"]
+            rows.append({
+                "K": k,
+                "T": T,
+                "mode": mode,
+                "cycles": cycles,
+                "drop_rate": float(rate),
+                "policy": policy,
+                "final_accuracy": res["final_accuracy"],
+                "aggregations": s["aggregations"],
+                "uploads": s["uploads"],
+                "virtual_time": s["virtual_time"],
+                "staleness_mean": s["staleness"]["mean"],
+                "staleness_p50": s["staleness"]["p50"],
+                "staleness_p90": s["staleness"]["p90"],
+                "staleness_p99": s["staleness"]["p99"],
+                "staleness_max": s["staleness"]["max"],
+                "faults": s["faults"],
+            })
+    return rows
+
+
+def build_energy_problem(
+    k: int,
+    T: float,
+    *,
+    total_samples: int = 2000,
+    d_lower_frac: float = 0.25,
+    d_upper_frac: float = 3.0,
+    e_budget=None,
+    seed: int = 0,
+) -> AllocationProblem:
+    """``build_problem`` with the matching per-cycle ``EnergyModel``
+    attached: the same 802.11 profiles and MNIST-DNN constants feed the time
+    model (Eq. 5) and its energy mirror. ``e_budget=None`` attaches the
+    model for accounting only (any scheme may run); a finite budget makes
+    the problem strict, solvable only by the energy-aware schemes
+    (``kkt_energy``, the budgeted ``pgd``)."""
+    cost = mnist_dnn_cost()
+    profiles = indoor_80211_profile(k, seed=seed)
+    tm = TimeModel.build(
+        profiles,
+        model_complexity_flops=cost.flops_per_sample,
+        model_size_bits=cost.model_bits,
+    )
+    em = EnergyModel.build(
+        profiles,
+        model_complexity_flops=cost.flops_per_sample,
+        model_size_bits=cost.model_bits,
+    )
+    d_l = max(1, int(d_lower_frac * total_samples / k))
+    d_u = min(total_samples, int(d_upper_frac * total_samples / k))
+    return AllocationProblem(
+        time_model=tm, T=T, total_samples=total_samples,
+        d_lower=d_l, d_upper=d_u, energy=em, e_budget=e_budget,
+    )
+
+
+def energy_sweep(
+    budget_fracs=(0.5, 0.75, 1.0),
+    *,
+    k: int = 4,
+    T: float = 10.0,
+    cycles: int = 8,
+    mode: str = "fedasync",
+    schemes=("kkt_energy", "kkt_sai", "eta"),
+    total_samples: int = 800,
+    seed: int = 0,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+    device=None,
+) -> list[dict]:
+    """Accuracy-vs-energy frontier: the budgeted KKT allocation against the
+    energy-blind schemes across per-learner budgets, at equal virtual time,
+    on ``device`` (``None``: the card).
+
+    The budget axis is anchored to the fleet's own unconstrained spend: the
+    blind ``kkt_sai`` allocation's per-learner cycle energies ``E0`` set the
+    scale, and each level dispatches under the uniform budget
+    ``frac * median(E0)`` joules per cycle. The energy-aware schemes solve
+    with the budget (every re-dispatch through the budgeted policy) and
+    report zero violations by construction; the blind schemes run on the
+    same fleet with the energy model attached for accounting only, and
+    their overruns are counted against the same budget from the
+    per-dispatch joules in the history."""
+    prob_free = build_energy_problem(k, T, total_samples=total_samples, seed=seed)
+    em = prob_free.energy
+    alloc0 = _solver("kkt_sai")(prob_free)
+    e_blind = em.cycle_energy(alloc0.tau, alloc0.d)
+    if train is None or test is None:
+        train, test = synthetic_mnist(max(total_samples * 2, 12_000), seed=seed)
+    rows: list[dict] = []
+    for frac in budget_fracs:
+        eb = float(frac) * float(np.median(e_blind))
+        for scheme in schemes:
+            aware = scheme in ("kkt_energy", "pgd")
+            prob = dataclasses.replace(prob_free, e_budget=eb) if aware else prob_free
+            res = run_async_experiment(
+                mode=mode, cycles=cycles, seed=seed, problem=prob,
+                train=train, test=test, scheme=scheme, reallocate=True,
+                bucketed=(mode != "cycle"), device=device,
+            )
+            s = res["summary"]
+            # blind schemes never see the budget: score their dispatches
+            # against it after the fact
+            overruns = sum(
+                int((np.atleast_1d(r.get("energy", [])) > eb * (1 + 1e-9)).sum())
+                for r in res["history"]
+            )
+            rows.append({
+                "K": k,
+                "T": T,
+                "mode": mode,
+                "cycles": cycles,
+                "scheme": scheme,
+                "energy_aware": aware,
+                "budget_frac": float(frac),
+                "e_budget_j": round(eb, 4),
+                "final_accuracy": res["final_accuracy"],
+                "aggregations": s["aggregations"],
+                "uploads": s["uploads"],
+                "joules_total": round(s["energy"]["joules_total"], 3),
+                "joules_p50": round(s["energy"]["joules_p50"], 4),
+                "joules_p99": round(s["energy"]["joules_p99"], 4),
+                "violations": int(s["energy"]["violations"]) if aware else overruns,
+                "staleness_mean": s["staleness"]["mean"],
+                "staleness_max": s["staleness"]["max"],
             })
     return rows

@@ -12,9 +12,12 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
-from repro_torch.kernels.waterfill import waterfill_residual_cuda
+from repro_torch.kernels.waterfill import (
+    waterfill_energy_residual_cuda,
+    waterfill_residual_cuda,
+)
 
-__all__ = ["fed_agg", "train_agg_step", "waterfill_residual"]
+__all__ = ["fed_agg", "train_agg_step", "waterfill_energy_residual", "waterfill_residual"]
 
 
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -51,3 +54,17 @@ def waterfill_residual(tau_star, c2, c1, c0, T, d_lo, d_hi, total) -> torch.Tens
     if c2.device.type == "cpu":
         return ref.waterfill_residual_ref(tau_star, c2, c1, c0, T, d_lo, d_hi, total)
     return waterfill_residual_cuda(tau_star, c2, c1, c0, T, d_lo, d_hi, total)
+
+
+def waterfill_energy_residual(tau_star, c2, c1, c0, T, e2, e1, e0, eb, d_lo, d_hi,
+                              total) -> torch.Tensor:
+    """Energy-budgeted water-filling residual
+    ``sum_k clip(min((T - c0) / (c2 tau* + c1), (eb - e0) / (e2 tau* + e1)),
+    d_lo, d_hi) - total`` of a (B, K) fleet batch: the inner evaluation of
+    every ``kkt_energy`` bisection step. ``eb = +inf`` rows give
+    ``waterfill_residual``'s bits."""
+    if c2.device.type == "cpu":
+        return ref.waterfill_energy_residual_ref(tau_star, c2, c1, c0, T, e2, e1, e0, eb,
+                                                 d_lo, d_hi, total)
+    return waterfill_energy_residual_cuda(tau_star, c2, c1, c0, T, e2, e1, e0, eb,
+                                          d_lo, d_hi, total)

@@ -12,7 +12,7 @@ import torch
 from repro_torch.models import mlp
 
 __all__ = ["accum_flush_ref", "fed_agg_ref", "sum_in_order", "train_agg_step_ref",
-           "waterfill_residual_ref"]
+           "waterfill_energy_residual_ref", "waterfill_residual_ref"]
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -39,6 +39,23 @@ def waterfill_residual_ref(tau_star, c2, c1, c0, T, d_lo, d_hi, total):
     tau_star/T/total: (B,); c2/c1/c0/d_lo/d_hi: (B, K). Returns (B,)."""
     d = torch.clamp((T[:, None] - c0) / (c2 * tau_star[:, None] + c1), d_lo, d_hi)
     return sum_in_order(d) - total
+
+
+def waterfill_energy_residual_ref(tau_star, c2, c1, c0, T, e2, e1, e0, eb, d_lo, d_hi,
+                                  total):
+    """Energy-budgeted water-filling residual (arXiv 2012.00143): each
+    learner absorbs the tighter of the deadline hyperbola
+    ``(T - c0) / (c2 tau* + c1)`` and the budget hyperbola
+    ``(eb - e0) / (e2 tau* + e1)``, clipped into its box, summed in index
+    order (``repro.kernels.ref.waterfill_energy_residual_ref``). The time
+    branch repeats ``waterfill_residual_ref`` operation for operation, and
+    ``min(d_time, inf)`` is ``d_time``, so ``eb = +inf`` rows give the
+    time-only residual bitwise; ``torch.minimum`` keeps a NaN of either
+    side. tau_star/T/total: (B,); the coefficient rows, ``eb`` and the
+    bounds: (B, K). Returns (B,)."""
+    dt = (T[:, None] - c0) / (c2 * tau_star[:, None] + c1)
+    de = (eb - e0) / (e2 * tau_star[:, None] + e1)
+    return sum_in_order(torch.clamp(torch.minimum(dt, de), d_lo, d_hi)) - total
 
 
 def accum_flush_ref(locals_, weights, acc, server, keep, flush):

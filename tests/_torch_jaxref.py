@@ -41,16 +41,17 @@ def _enable_x64_alias():
 _before = set(sys.modules)
 with _enable_x64_alias():
     from repro import core
-    from repro.core import aggregation, solver_batched, staleness, time_model
+    from repro.core import (aggregation, availability, energy, solver_batched, solver_kkt,
+                            solver_numeric, staleness, time_model)
     from repro.data import pipeline
     from repro.fed import async_engine, orchestrator, simulation
     from repro.kernels import ref as kernels_ref
     from repro.kernels import waterfill as kernels_waterfill
     from repro.models import mlp
 
-__all__ = ["aggregation", "async_engine", "core", "kernels_ref", "kernels_waterfill", "loaded", "mlp",
-           "orchestrator", "pipeline", "simulation", "solver_batched", "staleness",
-           "time_model"]
+__all__ = ["aggregation", "async_engine", "availability", "core", "energy", "kernels_ref",
+           "kernels_waterfill", "loaded", "mlp", "orchestrator", "pipeline", "simulation",
+           "solver_batched", "solver_kkt", "solver_numeric", "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

@@ -38,7 +38,12 @@ from tests._torch_jaxref import staleness as jx_staleness
 import jax
 
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.core import CapacityDrift, QueueDrift, staleness as pt_staleness
+from repro_torch.core import (
+    CapacityDrift,
+    MarkovAvailability,
+    QueueDrift,
+    staleness as pt_staleness,
+)
 from repro_torch.data import pipeline as pt_pipeline
 from repro_torch.fed import async_engine as pt_async
 from repro_torch.fed import orchestrator as pt_orch
@@ -284,11 +289,16 @@ def test_grouped_path_refuses_another_loss(init):
 
 
 def test_an_availability_drift_raises_until_its_slice():
-    avail = jx_core.MarkovAvailability(p_drop=0.2, seed=0)
-    with pytest.raises(TypeError, match="item 9"):
-        pt_async.AsyncFedEngine(pt_async.AsyncConfig(), pt_sim.build_spread_problem(K),
-                                pt_mlp.loss, pt_mlp.init(0, LAYERS, device="cpu"),
-                                drift=avail)
+    """Churn is ported (``tests/test_torch_availability.py``): the event
+    modes take an availability drift; the barrier refuses it, as the
+    reference does (one offline learner would gate every round)."""
+    avail = MarkovAvailability(p_drop=0.2, seed=0)
+    make = lambda cfg: pt_async.AsyncFedEngine(
+        cfg, pt_sim.build_spread_problem(K), pt_mlp.loss,
+        pt_mlp.init(0, LAYERS, device="cpu"), drift=avail)
+    assert make(pt_async.AsyncConfig()).drift is avail
+    with pytest.raises(ValueError, match="no barrier regime"):
+        make(pt_async.AsyncConfig(mode="buffered", barrier=True))
 
 
 def test_async_mode_sweep_rows_equal_the_reference():

@@ -18,7 +18,11 @@ every product rounded, so it is held to 1e-6.
 The water-filling residual kernel sums in the plain version's order and
 rounds every operation as it does, so its tolerance is tight: absolute
 1e-12 * max(1, |total|) in float64, 1e-5 * max(1, |total|) in float32.
-A small ``solve_kkt_batched`` on the card must give the CPU's rows.
+A small ``solve_kkt_batched`` on the card must give the CPU's rows. The
+budgeted water-filling kernel is held the same way; with ``eb = +inf`` it
+must give the time-only kernel's output bitwise, and its NaNs must sit
+where the plain version's do. A small ``solve_energy_batched`` on the card
+must give the CPU's rows too.
 
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
@@ -303,3 +307,131 @@ def test_solve_kkt_batched_on_the_card_gives_the_cpu_rows(dev, x64):
     for name in ("tau", "d", "feasible", "tau_star", "relaxed_d"):
         np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
     assert card.rounds == cpu.rounds
+
+
+def _energy_args(b, k, dtype, dev, seed):
+    """``_waterfill_args`` with the four energy rows (padded slots with
+    zero coefficients and an infinite budget), spliced in as the kernel
+    takes them: tau*, c2, c1, c0, T, e2, e1, e0, eb, lo, hi, total."""
+    tau, c2, c1, c0, T, lo, hi, total = _waterfill_args(b, k, dtype, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    e2 = torch.tensor(rng.uniform(1e-5, 1e-3, (b, k)), dtype=dtype, device=dev)
+    e1 = torch.tensor(rng.uniform(1e-4, 1e-2, (b, k)), dtype=dtype, device=dev)
+    e0 = torch.tensor(rng.uniform(0.05, 0.5, (b, k)), dtype=dtype, device=dev)
+    eb = torch.tensor(rng.uniform(0.5, 8.0, (b, k)), dtype=dtype, device=dev)
+    pad = hi == 0
+    e2[pad], e1[pad], e0[pad], eb[pad] = 0.0, 0.0, 0.0, torch.inf
+    return [tau, c2, c1, c0, T, e2, e1, e0, eb, lo, hi, total]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [3, 10, 37])
+@pytest.mark.parametrize("b", [1, 5, 1000])
+def test_waterfill_energy_kernel_matches_plain(dev, b, k, dtype):
+    args = _energy_args(b, k, dtype, dev, seed=b * 11 + k)
+    waterfill.energy_launches = waterfill.launches = 0
+    got = ops.waterfill_energy_residual(*args)
+    torch.cuda.synchronize()
+    assert waterfill.energy_launches == 1 and waterfill.launches == 0
+    assert got.dtype == dtype and got.shape == (b,)
+    want = ref.waterfill_energy_residual_ref(*args)
+    bound = WATERFILL_TOL[dtype] * torch.clamp_min(args[-1].abs(), 1.0)
+    assert bool(((got - want).abs() <= bound).all())
+    # eb = +inf with zero energy coefficients: the time-only kernel's bits
+    free = [a.clone() for a in args]
+    for i in (5, 6, 7):
+        free[i].zero_()
+    free[8].fill_(torch.inf)
+    assert torch.equal(ops.waterfill_energy_residual(*free),
+                       ops.waterfill_residual(*free[:5], *free[9:]))
+    # e2 = e1 = 0 with eb = e0: 0 / 0 in a few fleets, NaN where the plain version has it
+    nan = [a.clone() for a in args]
+    rows = torch.arange(b, device=dev) % 3 == 0
+    nan[5][rows, 0] = 0.0
+    nan[6][rows, 0] = 0.0
+    nan[8][rows, 0] = nan[7][rows, 0]
+    got = ops.waterfill_energy_residual(*nan)
+    want = ref.waterfill_energy_residual_ref(*nan)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).any())
+
+
+def test_waterfill_energy_kernel_refuses_what_it_does_not_take(dev):
+    args = _energy_args(4, 3, torch.float64, dev, seed=0)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        waterfill.waterfill_energy_residual_cuda(*[a.half() for a in args])
+    with pytest.raises(ValueError, match="eb must be"):
+        waterfill.waterfill_energy_residual_cuda(*args[:8], args[8].float(), *args[9:])
+    with pytest.raises(ValueError, match="contiguous"):
+        waterfill.waterfill_energy_residual_cuda(*args[:5], args[5].t().contiguous().t(),
+                                                 *args[6:])
+    with pytest.raises(ValueError, match="total must be"):
+        waterfill.waterfill_energy_residual_cuda(*args[:-1], args[-1][:3])
+    with pytest.raises(ValueError, match="e1 must be"):
+        waterfill.waterfill_energy_residual_cuda(*args[:6], args[6].cpu(), *args[7:])
+
+
+@pytest.mark.parametrize("x64", [True, False], ids=["f64", "f32"])
+def test_solve_energy_batched_on_the_card_gives_the_cpu_rows(dev, x64):
+    from repro_torch.core import CapacityDrift, solve_kkt_sai
+    from repro_torch.fed.simulation import build_energy_problem
+
+    prob = build_energy_problem(8, 15.0, seed=0)
+    blind = solve_kkt_sai(prob)
+    eb = 0.75 * float(np.median(prob.energy.cycle_energy(blind.tau, blind.d)))
+    c2, c1, c0 = CapacityDrift(seed=0).coefficient_path(prob.time_model, 257)
+    b = c2.shape[0]
+    e2, e1, e0, ebr = (np.broadcast_to(r, c2.shape).copy() for r in prob.energy.rows(eb))
+    bp = solver_batched.BatchedProblems(
+        c2, c1, c0, np.full(b, prob.T), np.full(b, prob.total_samples, np.int64),
+        np.full(c2.shape, float(prob.d_lower)), np.full(c2.shape, float(prob.d_upper)),
+        np.ones(c2.shape, bool), e2, e1, e0, ebr)
+    waterfill.energy_launches = waterfill.launches = 0
+    card = solver_batched.solve_energy_batched(bp, x64=x64, device=dev)
+    assert waterfill.energy_launches == 2 + card.rounds["grow"] + card.rounds["bisection"]
+    assert waterfill.launches == 0
+    cpu = solver_batched.solve_energy_batched(bp, x64=x64, device="cpu")
+    for name in ("tau", "d", "feasible", "tau_star", "relaxed_d"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
+    assert card.rounds == cpu.rounds
+    spent = np.where(card.d > 0, e2 * card.tau * card.d + e1 * card.d + e0, 0.0)
+    assert (spent <= ebr * (1 + 1e-9)).all()
+
+
+def test_budgeted_pgd_on_the_card_goes_through_the_energy_kernel(dev):
+    """Budgeted ``pgd``: one energy water-filling a re-solve on the card.
+    Over 30 steps the policy gives the CPU's rows; the full 600-step solves
+    (the re-solve and the per-problem ``solve_pgd_jax``) are chaotic, so
+    they are held to the sample sum and the budget."""
+    import dataclasses
+
+    from repro_torch.core import solve_kkt_sai
+    from repro_torch.fed.orchestrator import _solver, solve_policy_row
+    from repro_torch.fed.simulation import build_energy_problem
+
+    free = build_energy_problem(4, 15.0, total_samples=1200, seed=0)
+    blind = solve_kkt_sai(free)
+    eb = 0.7 * float(np.median(free.energy.cycle_energy(blind.tau, blind.d)))
+    prob = dataclasses.replace(free, e_budget=eb)
+    bp = solver_batched.BatchedProblems.from_problems([prob, free])
+    rows = (bp.c2, bp.c1, bp.c0, bp.T, bp.total, bp.d_lo, bp.d_hi, bp.valid)
+    policy = solver_batched.batched_policy("pgd", pgd_steps=30)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t = lambda x: torch.as_tensor(np.asarray(x), device=where)
+        waterfill.energy_launches = waterfill.launches = 0
+        out.append([o.cpu().numpy() for o in policy(
+            *map(t, rows), tuple(map(t, bp.energy_rows())))])
+        assert waterfill.energy_launches == int(where.type == "cuda")
+        assert waterfill.launches == 0
+    for g, w in zip(*out):
+        np.testing.assert_array_equal(g, w)
+
+    tm = prob.time_model
+    waterfill.energy_launches = waterfill.launches = 0
+    tau, d = solve_policy_row("pgd", tm.c2, tm.c1, tm.c0, prob, label="x", device=dev)
+    assert (waterfill.energy_launches, waterfill.launches) == (1, 0)
+    one = _solver("pgd", dev)(prob)
+    assert one.method == "pgd_energy_sai"
+    for t_, d_ in ((tau, d), (one.tau, one.d)):
+        assert d_.sum() == prob.total_samples
+        assert (prob.energy.cycle_energy(t_, d_) <= eb * (1 + 1e-9)).all()

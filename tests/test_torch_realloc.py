@@ -33,7 +33,7 @@ from tests._torch_jaxref import simulation as jx_sim
 from tests._torch_jaxref import time_model as jx_tm
 
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.core import CapacityDrift, QueueDrift
+from repro_torch.core import CapacityDrift, MarkovAvailability, QueueDrift
 from repro_torch.data import pipeline as pt_pipeline
 from repro_torch.fed import orchestrator as pt_orch
 from repro_torch.fed import simulation as pt_sim
@@ -198,9 +198,14 @@ def test_drift_without_reallocate_warns_or_refuses():
 
 def test_other_drifts_are_refused():
     prob = pt_sim.build_problem(K, T, total_samples=TOTAL)
-    with pytest.raises(TypeError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(TypeError, match="is not a drift the port runs"):
         pt_orch.Orchestrator(pt_orch.MELConfig(), prob, pt_mlp.loss,
                              pt_mlp.init(0, device="cpu"), drift=object())
+    # the cycle-gated orchestrator has no offline semantics, as in the reference
+    with pytest.raises(TypeError, match="models client availability"):
+        pt_orch.Orchestrator(pt_orch.MELConfig(), prob, pt_mlp.loss,
+                             pt_mlp.init(0, device="cpu"),
+                             drift=MarkovAvailability(seed=0))
     with pytest.raises(TypeError, match="state-coupled"):
         pt_orch.coefficient_rows(prob, QueueDrift(), 3)
 
@@ -240,7 +245,11 @@ def test_staleness_sweep_rows_equal_the_reference():
         got = pt_sim.staleness_sweep((3, 5, 8, 12), t, device="cpu", **kw)
         assert got == want
     assert any("error" in r for r in got)
-    with pytest.raises(KeyError, match="not ported yet"):
-        pt_sim.staleness_sweep((3,), T, schemes=("kkt_sai", "slsqp"), device="cpu")
+    # slsqp (scipy, copied) gives the reference's rows; the default is the
+    # reference's (kkt_sai, slsqp, eta)
+    assert (pt_sim.staleness_sweep((3, 5), T, device="cpu")
+            == jx_sim.staleness_sweep((3, 5), T))
+    with pytest.raises(KeyError, match="unknown scheme"):
+        pt_sim.staleness_sweep((3,), T, schemes=("kkt_sai", "nope"), device="cpu")
     sync = pt_sim.staleness_sweep((3, 5), T, schemes=("sync",), device="cpu")
     assert sync == jx_sim.staleness_sweep((3, 5), T, schemes=("sync",))

@@ -31,6 +31,7 @@ from tests._torch_jaxref import pipeline as jx_pipeline
 from tests._torch_jaxref import simulation as jx_sim
 
 from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.core.staleness import max_staleness
 from repro_torch.data import pipeline as pt_pipeline
 from repro_torch.fed import orchestrator as pt_orch
 from repro_torch.fed import simulation as pt_sim
@@ -39,6 +40,7 @@ from repro_torch.models import mlp as pt_mlp
 K, CYCLES, TOTAL, T = 4, 2, 1000, 15.0
 PARAM_TOL = 2e-2   # of each leaf's max |reference|; see the module docstring
 ACC_TOL = 0.005
+PGD_D_TOL, PGD_STALENESS_TOL = 8, 1   # as tests/test_torch_solver_numeric.py
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -150,17 +152,36 @@ def test_entry_points_need_an_explicit_cpu_device():
 
 @pytest.mark.parametrize("scheme", ["slsqp", "pgd", "kkt_energy"])
 def test_unported_schemes_raise(scheme):
-    with pytest.raises(KeyError, match="not ported yet"):
-        pt_sim.run_experiment(k=K, cycles=1, total_samples=TOTAL, scheme=scheme,
+    """The name dates from when these schemes raised; they are ported now
+    (ROADMAP Queue 1 items 7 and 9). A run's first row is the reference
+    scheme's allocation on the reference's problem: bitwise for slsqp and
+    kkt_energy, and for pgd, whose 600-step relaxed stage is held to a
+    tolerance (``tests/test_torch_solver_numeric.py``), within
+    ``PGD_D_TOL`` samples per learner and ``PGD_STALENESS_TOL`` of max
+    staleness. Only an unknown scheme raises."""
+    out = pt_sim.run_experiment(k=K, cycles=1, total_samples=TOTAL, scheme=scheme,
+                                device="cpu")
+    prob = jx_sim.build_problem(K, T, total_samples=TOTAL)
+    want = jx_orch.SCHEMES[scheme](prob)
+    tau, d = out["history"][0]["tau"], out["history"][0]["d"]
+    if scheme == "pgd":
+        assert d.sum() == want.d.sum() == TOTAL
+        assert np.abs(d - want.d).max() <= PGD_D_TOL
+        assert abs(max_staleness(tau) - max_staleness(want.tau)) <= PGD_STALENESS_TOL
+    else:
+        np.testing.assert_array_equal(d, want.d)
+        np.testing.assert_array_equal(tau, want.tau)
+    with pytest.raises(KeyError, match="unknown scheme"):
+        pt_sim.run_experiment(k=K, cycles=1, total_samples=TOTAL, scheme=scheme + "_x",
                               device="cpu")
 
 
 def test_later_slices_raise_not_implemented():
     """Reallocation under CapacityDrift/QueueDrift is ported
-    (``tests/test_torch_realloc.py``); what is still to come raises: other
-    drifts (availability, battery) and a fused reallocating run of a scheme
-    without a batched policy."""
-    with pytest.raises(TypeError, match="ROADMAP Queue 1"):
+    (``tests/test_torch_realloc.py``), and churn and battery drift run in
+    the async engine; an object that is no drift raises, and so does a
+    fused reallocating run of a scheme without a batched policy."""
+    with pytest.raises(TypeError, match="is not a drift the port runs"):
         pt_sim.run_experiment(k=K, cycles=1, total_samples=TOTAL, drift=object(),
                               device="cpu")
     with pytest.raises(ValueError, match="no batched policy"):
