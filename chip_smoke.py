@@ -65,9 +65,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
         three drifted rows of phase 7c's budgeted fleet (one energy
         water-filling a re-solve, counted) and the per-problem
         ``solve_pgd_jax`` that a run with ``scheme="pgd"`` starts from,
-        each held to its budget and compared with the CPU's.
+        each held to its budget and compared with the CPU's;
+  8. the dense serving path (Llama-3.2-3B at full width):
+     a. ``flash_attention`` kernel vs its plain version at the prefill
+        shapes of Llama-3.2-3B (B 4, S 2048, 24/8 heads, d 128, causal, bf16
+        and float32), a ragged S = 1000, and H2O-Danube-1.8B (B 1, S 8192,
+        32/8 heads, d 80, window 4096, bf16), with kernel, plain, bound and
+        ``scaled_dot_product_attention`` times;
+     b. the serve: ``Model(get_config("llama3.2-3b"))`` with weights drawn
+        from the seed, ``serve.prefill`` of 4 x 2048 tokens and
+        ``serve.decode`` of 31 greedy steps, through the kernel (28 launches
+        in the prefill, none in decode, every other kernel none), init,
+        prefill and decode times and peak memory; the prefill's
+        last-position logits held to the same prefill with
+        ``ops.flash_attention`` bound to the plain chunked scan (in this
+        script only, ``plain_attention``), greedy agreement printed;
+     c. the same width in float32 at 2 layers, kernel vs plain: logits
+        within 1e-4 of their scale, 16 greedy decode steps equal.
 
-Phases 4, 5c, 6c and 7c-e each set the kernels' launch counters to 0 just
+Phases 4, 5c, 6c, 7c-e and 8b each set the kernels' launch counters to 0 just
 before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
@@ -77,6 +93,8 @@ and prints neither.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -120,6 +138,32 @@ ASYNC_MODES = {"fedasync": {}, "buffered": {"buffer_size": 5}}
 BUDGET_FRAC = 0.75
 CHURN_P_DROP = 0.2
 PGD_RESOLVES = 3
+# phase 8: the serve's shapes and the attention kernel's tolerances. The
+# kernel and its plain versions all compute in float32 and add in other
+# orders, so float32 is held to 1e-5 of max(1, max |plain|); in bf16 the
+# only rounding that differs is the output's, one bf16 step (2^-8), so 1e-2.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 2048, 32
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the bf16 serve, kernel vs plain: last-position logits, of max |plain|.
+# Each layer's attention output may round to the neighbouring bf16 value
+# in one and not the other (2^-8 relative), and 28 layers of bf16 compute
+# carry that into the logits
+SERVE_BF16_TOL = 5e-2
+# the float32 gate (2 layers): the attention outputs agree to ~1e-6, and
+# the float32 layers around them carry that into the logits
+E2E_LAYERS, E2E_STEPS, E2E_TOL = 2, 16, 1e-4
+# the dense oracle's (B, Sq, KV, G, Skv) float32 scores up to this size;
+# beyond it the plain version is the chunked scan
+DENSE_REF_BYTES = 4e9
+PEAK_BF16_FLOPS = 989e12
+# phase 8a: name, B, S, heads, kv heads, d, dtype, causal, window, timed
+# calls; the first is the serve's prefill and gives the kernels line its row
+FLASH_CASES = [
+    ("llama3.2-3b prefill", SERVE_BATCH, SERVE_PROMPT, 24, 8, 128, "bfloat16", True, None, 10),
+    ("llama3.2-3b prefill", SERVE_BATCH, SERVE_PROMPT, 24, 8, 128, "float32", True, None, 5),
+    ("ragged", SERVE_BATCH, 1000, 24, 8, 128, "bfloat16", True, None, 10),
+    ("h2o-danube-1.8b prefill", 1, 8192, 32, 8, 80, "bfloat16", True, 4096, 5),
+]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -209,18 +253,20 @@ class CallCounter:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import accum_flush, fed_agg, train_step, waterfill
+    from repro_torch.kernels import accum_flush, fed_agg, flash_attention, train_step, waterfill
 
     waterfill.launches = waterfill.energy_launches = 0
     train_step.launches = fed_agg.launches = accum_flush.launches = 0
+    flash_attention.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import accum_flush, fed_agg, train_step, waterfill
+    from repro_torch.kernels import accum_flush, fed_agg, flash_attention, train_step, waterfill
 
     return {"train_agg_step": train_step.launches, "accum_flush": accum_flush.launches,
             "fed_agg": fed_agg.launches, "waterfill_residual": waterfill.launches,
-            "waterfill_energy_residual": waterfill.energy_launches}
+            "waterfill_energy_residual": waterfill.energy_launches,
+            "flash_attention": flash_attention.launches}
 
 
 def cpu_schedule(train, horizon: float, prob, cfg, drift, counted: str) -> dict:
@@ -426,6 +472,7 @@ def main() -> int:
     wf = realloc_phase(dev, train, test, fed_agg_per_cycle=2 * len(mats))
     async_rows = async_phase(dev, train, test, leaves=2 * len(mats), row_flops=row_flops)
     energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
+    attention_row = serve_phase(dev)
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -443,6 +490,7 @@ def main() -> int:
         wf,
         *async_rows,
         energy_row,
+        attention_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -829,7 +877,8 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
         want_rows = cpu[mode]["rows"]
         n_groups = len(cpu[mode]["groups"])
         n_wf = cpu[mode]["solves"]
-        fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0}
+        fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
+                 "flash_attention": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                             **fixed}}
@@ -1141,7 +1190,8 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
             counts = read_launches()
             key = path.split()[0]
             require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
-                               "waterfill_energy_residual": cpu_s["solves"]},
+                               "waterfill_energy_residual": cpu_s["solves"],
+                               "flash_attention": 0},
                     f"{mode} energy {path}: kernel launches {counts}, CPU solves "
                     f"{cpu_s['solves']}")
             hist = res["history"]
@@ -1221,7 +1271,7 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
     counts = read_launches()
     require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
-                       "waterfill_energy_residual": 0},
+                       "waterfill_energy_residual": 0, "flash_attention": 0},
             f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
     check_rows(res["history"], cpu_s["rows"], "churn run")
     require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
@@ -1276,7 +1326,8 @@ def pgd_step(dev, prob) -> int:
     card, card_ms = resolves(dev)
     counts = read_launches()
     require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
-                       "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES},
+                       "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES,
+                       "flash_attention": 0},
             f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
             f"water-filling each of {PGD_RESOLVES}")
     cpu, cpu_ms = resolves("cpu")
@@ -1313,6 +1364,231 @@ def pgd_step(dev, prob) -> int:
           f"CPU| {int(np.abs(one.d - one_h.d).max())}, max staleness "
           f"{max_staleness(one.tau)} / {max_staleness(one_h.tau)}; 0 budget violations")
     return counts["waterfill_energy_residual"]
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``ops.flash_attention`` bound to its plain version, the chunked scan
+    ``models.layers.flash_attention`` (what the CPU runs), for the duration;
+    restored on leaving. This script's comparison only: the package has no
+    such switch, and on the card it always launches the kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    kernel = ops.flash_attention
+    ops.flash_attention = layers.flash_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through: the work of these inputs."""
+    import numpy as np
+
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict:
+    """Phase 8a, one case: the kernel against its plain version, timed with
+    its plain version, its bound and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import layers
+
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    kw = dict(causal=causal, window=window)
+    score_bytes = 4 * b * s * h * s
+    if score_bytes <= DENSE_REF_BYTES:
+        plain_name, plain = "dense ref.flash_attention_ref", ref.flash_attention_ref
+    else:
+        plain_name, plain = "chunked layers.flash_attention", layers.flash_attention
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    want = plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{name}: the kernel gave non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+    require(err <= tol * scale, f"{name}: the kernel differs from its plain version "
+            f"({plain_name}) by {err:g} > {tol} x {scale:g}")
+    ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, **kw), iters)
+    plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), max(2, iters // 4))
+    # the library call, in its (B, H, S, d) layout; a window goes in as a
+    # boolean mask, with the kv heads repeated (the masked kernels take no
+    # grouped heads)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        kt, vt = (t.repeat_interleave(h // kvh, dim=1) for t in (kt, vt))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
+    library_ms = cuda_ms(library, iters)
+    pairs = attention_pairs(s, s, causal, window)
+    flops = 4 * b * h * d * pairs
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"flash_attention {name}: B {b}, S {s}, {h}/{kvh} heads, d {d}, "
+          f"{str(dtype).removeprefix('torch.')}, causal {causal}, window {window}: "
+          f"max_abs_err {err:.3g} vs {plain_name} (<= {tol} x {scale:.3g}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max_abs_err "
+          f"{lib_err:.3g}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{flops:.4g} FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s")
+    return row
+
+
+def serve_phase(dev) -> dict:
+    """Phase 8; returns the attention kernel's entry of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    # -- 8a. the kernel against its plain version at the path's shapes -------
+    rows = [flash_case(dev, *case) for case in FLASH_CASES]
+    main_case = rows[0]
+    torch.cuda.empty_cache()
+
+    # -- 8b. the serve at full width -------------------------------------------
+    cfg = get_config(SERVE_ARCH)
+    b, s, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = serve.prompt_tokens(cfg, b, s, SEED, dev)
+    with torch.inference_mode():
+        serve.prefill(model, params, tokens, s + gen)       # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, tok = serve.prefill(model, params, tokens, s + gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = read_launches()
+        rest, _ = serve.decode(model, params, cache, tok, s, gen - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after_decode = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        tokens_out = torch.cat([tok, rest], dim=1)
+        nothing = {name: 0 for name in after_decode}
+        require(after_prefill == {**nothing, "flash_attention": cfg.num_layers},
+                f"the prefill's kernel launches were {after_prefill}, want "
+                f"{cfg.num_layers} flash_attention and no other")
+        require(after_decode == after_prefill,
+                f"decode launched kernels: {after_prefill} after the prefill, "
+                f"{after_decode} after decode")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "the prefill's logits are not "
+                f"finite of shape ({b}, 1, {cfg.vocab_size})")
+        require(tuple(tokens_out.shape) == (b, gen) and int(tokens_out.min()) >= 0
+                and int(tokens_out.max()) < cfg.vocab_size, "generated tokens out of range")
+        require(all(bool(torch.isfinite(t).all()) for blk in cache["blocks"]
+                    for t in blk["mixer"].values()), "the KV cache is not finite")
+        # where the time goes: device time by kernel over one prefill and
+        # one decode step (the cache's last free slot), beside their wall time
+        for what, fn, wall_ms in (
+                ("prefill", lambda: serve.prefill(model, params, tokens, s + gen),
+                 1e3 * (t1 - t0)),
+                ("decode step", lambda: serve.decode(model, params, cache, tok, s + gen - 1, 1),
+                 1e3 * (t2 - t1) / (gen - 1))):
+            rows_ = device_time_by_kernel(fn)
+            busy = sum(ms for _, ms, _ in rows_)
+            print(f"serve {what}: device busy {busy:.2f} ms (torch.profiler) of {wall_ms:.2f} "
+                  f"ms wall ({100 * (1 - busy / wall_ms):.0f}% idle) in "
+                  f"{sum(n for *_, n in rows_)} launches" if rows_ else
+                  f"serve {what}: device time not measured (no device events)")
+            for name, ms, calls in rows_[:6]:
+                print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+        with plain_attention():
+            p_logits, p_cache, p_tok = serve.prefill(model, params, tokens, s + gen)
+            p_rest, _ = serve.decode(model, params, p_cache, p_tok, s, gen - 1)
+        del p_cache
+        p_tokens = torch.cat([p_tok, p_rest], dim=1)
+        err = (logits.float() - p_logits.float()).abs().max().item()
+        scale = p_logits.float().abs().max().item()
+        require(err <= SERVE_BF16_TOL * scale, f"the bf16 serve's logits differ from the "
+                f"plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
+    del cache
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
+    agree = float((tokens_out == p_tokens).float().mean().item())
+    first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
+    print(f"serve {SERVE_ARCH} ({model.param_count()} params, {cfg.param_dtype}): init "
+          f"{init_s:.1f} s (drawn on the host, copied to the card); prefill {b}x{s} "
+          f"{prefill_ms:.1f} ms; decode {gen - 1} steps {decode_ms:.2f} ms a step "
+          f"({b * 1e3 / decode_ms:.1f} tok/s); peak memory {peak_gb:.2f} GB; launches "
+          f"prefill {after_prefill['flash_attention']}, decode "
+          f"{after_decode['flash_attention'] - after_prefill['flash_attention']}; "
+          f"last-position logits vs plain attention max_abs_err {err:.3g}, "
+          f"{err / scale:.3g} of their scale {scale:.3g} (<= {SERVE_BF16_TOL}); greedy agreement with plain: first token "
+          f"{first:.2f}, all {gen} tokens {agree:.3f}; sample {tokens_out[0, :8].tolist()}")
+
+    # -- 8c. float32 at 2 layers: kernel vs plain, tight -----------------------
+    cfg32 = dataclasses.replace(cfg, num_layers=E2E_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device=dev)
+    p32 = {name: (leaf.float() if torch.is_tensor(leaf) else leaf)
+           for name, leaf in params.items() if name != "blocks"}
+    p32["blocks"] = [{name: {n: t[:E2E_LAYERS].float() for n, t in sub.items()}
+                      if isinstance(sub, dict) else sub[:E2E_LAYERS].float()
+                      for name, sub in blk.items()} for blk in params["blocks"]]
+    del params
+    torch.cuda.empty_cache()
+    runs = {}
+    with torch.inference_mode():
+        for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_attention())):
+            with ctx:
+                lg, c32, t = serve.prefill(m32, p32, tokens, s + E2E_STEPS + 1)
+                steps, logits_seq = [t], [lg]
+                for i in range(E2E_STEPS):
+                    lg, c32 = m32.decode(p32, c32, t, s + i)
+                    t = torch.argmax(lg[:, -1:], dim=-1)
+                    steps.append(t)
+                    logits_seq.append(lg)
+                runs[name] = (torch.cat(steps, dim=1), logits_seq)
+                del c32
+    e2e_err = max((a - w).abs().max().item() / w.abs().max().item()
+                  for a, w in zip(runs["kernel"][1], runs["plain"][1]))
+    require(e2e_err <= E2E_TOL, f"float32 {E2E_LAYERS}-layer serve: logits differ from "
+            f"plain attention by {e2e_err:g} of their scale > {E2E_TOL}")
+    require(torch.equal(runs["kernel"][0], runs["plain"][0]),
+            f"float32 {E2E_LAYERS}-layer serve: greedy tokens differ from plain attention")
+    print(f"float32 {E2E_LAYERS}-layer {SERVE_ARCH} serve {b}x{s}, kernel vs plain "
+          f"attention: logits max relative error {e2e_err:.3g} (<= {E2E_TOL}) over the "
+          f"prefill and {E2E_STEPS} decode steps; greedy tokens equal "
+          f"({runs['kernel'][0].numel()})")
+    del p32
+    torch.cuda.empty_cache()
+
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:91",
+            "launches": after_decode["flash_attention"], **main_case}
 
 
 if __name__ == "__main__":

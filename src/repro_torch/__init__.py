@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the MEL system in ``repro`` (the JAX reference).
 
-The layer map follows the reference package: ``data/``, ``core/``,
-``models/``, ``kernels/``, ``fed/``. Host-side allocation math is NumPy,
-copied from the reference; model math is torch; the train+aggregate hot
-path runs hand-written CUDA kernels (``kernels/``, sources in ``csrc/``).
+The layer map follows the reference package: ``configs/``, ``data/``,
+``core/``, ``models/``, ``kernels/``, ``fed/``, ``launch/``. Host-side
+allocation math is NumPy, copied from the reference; model math is torch;
+the train+aggregate hot path, the allocator's water-filling and the dense
+serve's prefill attention run hand-written CUDA kernels (``kernels/``,
+sources in ``csrc/``).
 
 Entry points take ``device=None``, which means ``"cuda"``; on a machine
 without a card they raise unless the caller passes ``device="cpu"``.

@@ -1,6 +1,7 @@
 """Dispatch of the port's hot spots by the tensors' device.
 
-A CPU tensor takes the plain torch version in ``ref``. A CUDA tensor
+A CPU tensor takes the plain torch version in ``ref`` (attention: the
+chunked scan in ``models.layers``, as the reference's CPU path does). A CUDA tensor
 launches the hand-written kernel, or the call raises: there is no switch
 and no fallback to the plain version.
 """
@@ -11,13 +12,29 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
 from repro_torch.kernels.waterfill import (
     waterfill_energy_residual_cuda,
     waterfill_residual_cuda,
 )
+from repro_torch.models import layers
 
-__all__ = ["fed_agg", "train_agg_step", "waterfill_energy_residual", "waterfill_residual"]
+__all__ = ["fed_agg", "flash_attention", "train_agg_step", "waterfill_energy_residual",
+           "waterfill_residual"]
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=False,
+                    q_block=0):
+    """GQA attention, q (B, Sq, H, d), k and v (B, Skv, KV, d), positions
+    from 0, causal and an optional sliding window. On the CPU the chunked
+    online-softmax scan ``models.layers.flash_attention`` with its
+    ``chunk``/``p_bf16``/``q_block`` knobs; on the card the kernel, which
+    ignores them, as the TPU kernel does."""
+    if q.device.type == "cpu":
+        return layers.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                                      p_bf16=p_bf16, q_block=q_block)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -3,16 +3,45 @@ the oracle the CUDA kernels are held to on the card.
 
 ``train_agg_step_ref`` takes its gradients from autograd over the loss
 function, so it stays independent of the kernel's hand-derived backward.
+``flash_attention_ref`` is dense O(S^2) attention, not the chunked scan of
+``models.layers.flash_attention``: an independent formulation, so that the
+two and the CUDA kernel cross-check.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import mlp
 
-__all__ = ["accum_flush_ref", "fed_agg_ref", "sum_in_order", "train_agg_step_ref",
-           "waterfill_energy_residual_ref", "waterfill_residual_ref"]
+__all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_ref", "sum_in_order",
+           "train_agg_step_ref", "waterfill_energy_residual_ref", "waterfill_residual_ref"]
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """O(S^2) dense GQA attention with explicit masking
+    (``repro.kernels.ref.flash_attention_ref``). q: (B, Sq, H, D); k, v:
+    (B, Skv, KV, D) with H = KV * G; query and key positions both start at
+    0. Scores, softmax and the PV product in float32, the result in q's
+    dtype."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, d).to(torch.float32)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.to(torch.float32)) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask[None, :, None, None, :], s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

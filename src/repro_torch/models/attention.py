@@ -1,0 +1,127 @@
+"""Attention mixer: GQA + RoPE + optional sliding window, train/prefill/decode
+(``repro/models/attention.py``).
+
+Prefill attends through ``kernels.ops.flash_attention``: the hand-written
+kernel on the card, the chunked scan on the CPU. Decode attends with the
+plain ``layers.decode_attention``, as the reference does, against a
+(possibly rolling) KV cache: for sliding-window models the cache has exactly
+``window`` slots and new KVs overwrite the oldest.
+
+Unlike the reference, which is functional, decode writes the new token's
+K/V into the cache tensors it is given, in place, and returns them: a
+decoder's caches are slices of tensors stacked over its layers, and a copy
+a step would move the whole cache per token.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import decode_attention, rope
+from repro_torch.models.params import ParamSpec
+
+__all__ = ["specs", "apply", "init_cache_specs"]
+
+
+def specs(cfg: ArchConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = cfg.pdtype()
+    return {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"), dtype=dt),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"), dtype=dt),
+    }
+
+
+def cache_seq_len(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    s = cache_seq_len(cfg, seq_len)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, s, kv, hd)
+    axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+    dt = cfg.cdtype()
+    return {
+        "k": ParamSpec(shape, axes, init="zeros", dtype=dt),
+        "v": ParamSpec(shape, axes, init="zeros", dtype=dt),
+    }
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions):
+    cd = cfg.cdtype()
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dke->bske", x, p["wk"].to(cd))
+    v = torch.einsum("bsd,dke->bske", x, p["wv"].to(cd))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _prefill_cache(cfg: ArchConfig, k, v, max_len: int | None, out=None) -> dict:
+    """The cache a prefill of ``k``/``v`` (B, S, KV, hd) leaves, laid out so
+    that token t lives in slot t % s_cache, which decode's rolling write
+    relies on (``repro/models/attention.py:101-115``). With ``out`` (a dict
+    of preallocated (B, s_cache, KV, hd) tensors) it is written there."""
+    s = k.shape[1]
+    s_cache = cache_seq_len(cfg, max(max_len or s, s))
+    if out is None:
+        out = {name: torch.zeros((k.shape[0], s_cache) + tuple(k.shape[2:]), dtype=k.dtype,
+                                 device=k.device) for name in ("k", "v")}
+    for name, t in (("k", k), ("v", v)):
+        if s_cache >= s:
+            out[name][:, :s] = t
+            out[name][:, s:] = 0
+        else:
+            out[name].copy_(torch.roll(t[:, -s_cache:], s % s_cache, dims=1))
+    return out
+
+
+def apply(
+    cfg: ArchConfig,
+    p,
+    x,
+    *,
+    positions,
+    mode: str = "train",
+    cache=None,
+    cache_len=None,
+    max_len: int | None = None,
+):
+    """Run the causal self-attention mixer.
+
+    mode: "train" | "prefill" (returns the cache; written into ``cache``
+    when one is given) | "decode" (``cache`` required; updated in place).
+    The reference's encoder and cross-attention options (``causal``,
+    ``use_rope``, ``kv_override``) come with the encoder-decoder model.
+    """
+    cd = cfg.cdtype()
+    if mode in ("train", "prefill"):
+        q, k, v = _project_qkv(cfg, p, x, positions)
+        out = kops.flash_attention(
+            q, k, v, causal=True, window=cfg.sliding_window, chunk=cfg.attn_chunk,
+            p_bf16=cfg.attn_p_bf16, q_block=cfg.attn_q_block)
+        new_cache = _prefill_cache(cfg, k, v, max_len, out=cache) if mode == "prefill" else None
+        y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
+        return y, new_cache
+
+    # -- decode: single token ------------------------------------------------
+    if mode != "decode":
+        raise ValueError(f"unknown mode {mode!r}")
+    if cache is None or cache_len is None:
+        raise ValueError("decode needs a cache and cache_len")
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    s_cache = cache["k"].shape[1]
+    write_pos = int(cache_len) % s_cache
+    cache["k"][:, write_pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, write_pos] = v_new[:, 0].to(cache["v"].dtype)
+    valid = min(int(cache_len) + 1, s_cache)
+    out = decode_attention(q, cache["k"], cache["v"], valid)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
+    return y, cache

@@ -1,0 +1,245 @@
+"""Decoder trunk of the dense family (``repro/models/decoder.py``).
+
+The reference groups the layer pattern into periods: the ``p`` layers of a
+period have their params stacked over ``n_periods``, and its trunk is one
+``lax.scan`` over periods. The port keeps that tree layout, a leading
+``n_periods`` axis on every leaf of ``params["blocks"]`` and of the caches,
+so that trees compare leaf by leaf, and runs the periods as a Python loop
+over views of the stacked leaves. A prefill allocates each stacked cache
+once and every layer writes its K/V into its slice; a decode step writes
+the new token's K/V into those slices in place (see ``models.attention``).
+
+Params tree:
+  embed            (V, d)
+  prefix           list of layer dicts (the non-periodic leading layers)
+  blocks           list over period positions, each leaf stacked (n_periods, ...)
+  final_norm       (d,)
+  lm_head          (d, V)  (absent when tied)
+
+Only token inputs, attention mixers and dense FFNs run here: a ``mamba``
+or ``rwkv6`` mixer, or a Mixture-of-Experts layer, raises; they come with
+later slices, as do embedding inputs (the vlm), ``lm_loss`` and the train
+mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, ffn
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import ParamSpec
+
+__all__ = [
+    "Layout",
+    "layout_for",
+    "build_specs",
+    "init_cache_specs",
+    "forward",
+    "decode_step",
+    "lm_logits",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Static description of the trunk layer pattern."""
+
+    prefix: tuple[tuple[str, bool], ...]    # (mixer_kind, is_moe) per leading layer
+    period: tuple[tuple[str, bool], ...]    # pattern of one period
+    n_periods: int
+
+    @property
+    def p(self) -> int:
+        return len(self.period)
+
+
+def layout_for(cfg: ArchConfig) -> Layout:
+    kinds = cfg.layer_kinds()
+    moes = cfg.layer_is_moe()
+    layers = list(zip(kinds, moes))
+    n_prefix = cfg.moe_first_dense
+    body = layers[n_prefix:]
+    # smallest period that tiles the body
+    p = 1
+    while p <= len(body):
+        if len(body) % p == 0 and body == body[:p] * (len(body) // p):
+            break
+        p += 1
+    return Layout(
+        prefix=tuple(layers[:n_prefix]),
+        period=tuple(body[:p]),
+        n_periods=len(body) // p,
+    )
+
+
+def _check_layer(kind: str, is_moe: bool) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} is not a mixer the port runs")
+    if is_moe:
+        raise NotImplementedError("a Mixture-of-Experts FFN is not an FFN the port runs")
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def _layer_specs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
+    _check_layer(kind, is_moe)
+    d = cfg.d_model
+    dt = cfg.pdtype()
+    return {
+        "mixer_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
+        "mixer": attention.specs(cfg),
+        "ffn_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
+        "ffn": ffn.dense_specs(cfg),
+    }
+
+
+def _stack(spec_tree, n: int):
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, ParamSpec):
+        s = spec_tree
+        return ParamSpec((n,) + s.shape, ("layers",) + s.axes, init=s.init, scale=s.scale,
+                         dtype=s.dtype)
+    return {key: _stack(sub, n) for key, sub in spec_tree.items()}
+
+
+def build_specs(cfg: ArchConfig) -> dict:
+    lay = layout_for(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    dt = cfg.pdtype()
+    out: dict[str, Any] = {
+        "embed": ParamSpec((v, d), ("vocab", "embed"), dtype=dt, scale=0.02),
+        "prefix": [_layer_specs(cfg, k, m) for (k, m) in lay.prefix],
+        "blocks": [
+            _stack(_layer_specs(cfg, k, m), lay.n_periods) for (k, m) in lay.period
+        ],
+        "final_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), dtype=dt, scale=0.02)
+    return out
+
+
+def _layer_cache_specs(cfg: ArchConfig, kind: str, batch: int, seq_len: int) -> dict:
+    _check_layer(kind, False)
+    return {"mixer": attention.init_cache_specs(cfg, batch, seq_len), "ffn": None}
+
+
+def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    lay = layout_for(cfg)
+    return {
+        "prefix": [
+            _layer_cache_specs(cfg, k, batch, seq_len) for (k, _) in lay.prefix
+        ],
+        "blocks": [
+            _stack(_layer_cache_specs(cfg, k, batch, seq_len), lay.n_periods)
+            for (k, _) in lay.period
+        ],
+    }
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _index(tree, i: int):
+    """Views of period ``i`` of a tree of stacked leaves."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _index(sub, i) for key, sub in tree.items()}
+    return tree[i]
+
+
+def _zero_cache(cfg: ArchConfig, batch: int, seq_len: int, n: int | None, device):
+    """Zeroed layer caches of a prefill; stacked over ``n`` periods unless
+    ``n`` is None."""
+    lead = () if n is None else (n,)
+    s = attention.cache_seq_len(cfg, seq_len)
+    shape = lead + (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"mixer": {name: torch.zeros(shape, dtype=cfg.cdtype(), device=device)
+                      for name in ("k", "v")}, "ffn": None}
+
+
+def _apply_layer(cfg: ArchConfig, p, x, *, kind: str, is_moe: bool, mode: str, positions,
+                 cache, cache_len, max_len: int | None = None):
+    """Pre-norm residual layer; a prefill or decode writes its K/V into
+    ``cache``. Returns x."""
+    _check_layer(kind, is_moe)
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    mc = cache["mixer"] if cache is not None else None
+    y, _ = attention.apply(cfg, p["mixer"], h, positions=positions, mode=mode, cache=mc,
+                           cache_len=cache_len, max_len=max_len)
+    x = x + y
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + ffn.dense_apply(cfg, p["ffn"], h)
+
+
+def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=None,
+            cache_len=None, max_len: int | None = None):
+    """Run the trunk.
+
+    prefill: returns (logits of the last position, cache, aux_loss); the
+             cache holds ``max(max_len, S)`` positions (the window, for a
+             sliding-window model);
+    decode:  tokens (B, 1) at position ``cache_len``; returns (logits,
+             cache), the cache updated in place.
+    """
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} is not a mode the port runs "
+                                  "(prefill, decode)")
+    lay = layout_for(cfg)
+    cd = cfg.cdtype()
+    x = params["embed"][tokens].to(cd)
+    b, s, _ = x.shape
+    dev = x.device
+
+    if mode == "decode":
+        if cache is None or cache_len is None:
+            raise ValueError("decode needs a cache and cache_len")
+        cache_len = int(cache_len)
+        positions = torch.full((b, 1), cache_len, dtype=torch.int32, device=dev)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        seq = max(max_len or s, s)
+        cache = {
+            "prefix": [_zero_cache(cfg, b, seq, None, dev) for _ in lay.prefix],
+            "blocks": [_zero_cache(cfg, b, seq, lay.n_periods, dev) for _ in lay.period],
+        }
+
+    kw = dict(mode=mode, positions=positions, cache_len=cache_len, max_len=max_len)
+    for i, (kind, is_moe) in enumerate(lay.prefix):
+        x = _apply_layer(cfg, params["prefix"][i], x, kind=kind, is_moe=is_moe,
+                         cache=cache["prefix"][i], **kw)
+    for n in range(lay.n_periods):
+        for j, (kind, is_moe) in enumerate(lay.period):
+            x = _apply_layer(cfg, _index(params["blocks"][j], n), x, kind=kind,
+                             is_moe=is_moe, cache=_index(cache["blocks"][j], n), **kw)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "prefill":
+        # only the last position's logits are needed to start decoding
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        return lm_logits(params, cfg, x[:, -1:]), cache, aux
+    return lm_logits(params, cfg, x), cache
+
+
+def lm_logits(params, cfg: ArchConfig, hidden):
+    cd = cfg.cdtype()
+    head = params.get("lm_head")
+    if head is None:
+        return torch.einsum("bsd,vd->bsv", hidden, params["embed"].to(cd))
+    return torch.einsum("bsd,dv->bsv", hidden, head.to(cd))
+
+
+def decode_step(params, cfg: ArchConfig, cache, token, cache_len):
+    """One decode step: token (B, 1) int, cache_len an int (or 0-d tensor)."""
+    return forward(params, cfg, tokens=token, mode="decode", cache=cache,
+                   cache_len=cache_len)

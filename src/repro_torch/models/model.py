@@ -1,0 +1,81 @@
+"""Public model API (``repro/models/model.py``), dense family, serving.
+
+    m = Model(cfg)                                     # on the card
+    params = m.init(seed)
+    logits, cache, aux = m.prefill(params, {"tokens": tokens}, max_len=...)
+    logits, cache = m.decode(params, cache, token, cache_len)
+
+Tokens are int (B, S) tensors on the model's device. On the card the
+prefill's attention runs the hand-written CUDA kernel
+(``kernels/flash_attention.py``), which is what the reference's
+``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU it runs the
+chunked scan, the reference's default. There is no switch between them.
+Decode updates the cache it is given in place and returns it.
+
+Other families (moe, ssm, hybrid, audio, vlm) and ``loss`` come with later
+slices.
+"""
+
+from __future__ import annotations
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import decoder
+from repro_torch.models.params import (
+    abstract_params,
+    init_params,
+    logical_axes,
+    param_count,
+)
+
+__all__ = ["Model"]
+
+FAMILIES = ("dense",)
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"{cfg.family!r} is not a family the port runs "
+                                      f"({', '.join(FAMILIES)})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.specs = decoder.build_specs(cfg)
+
+    # -- params ------------------------------------------------------------
+    def init(self, seed: int):
+        """Weights drawn from ``seed`` on the CPU (the same on every device),
+        then moved to the model's device."""
+        return init_params(self.specs, seed, device=self.device)
+
+    def abstract_params(self):
+        return abstract_params(self.specs)
+
+    def param_axes(self):
+        return logical_axes(self.specs)
+
+    def param_count(self) -> int:
+        return param_count(self.specs)
+
+    # -- caches ------------------------------------------------------------
+    def cache_specs(self, batch: int, seq_len: int):
+        return decoder.init_cache_specs(self.cfg, batch, seq_len)
+
+    def cache_axes(self, batch: int, seq_len: int):
+        return logical_axes(self.cache_specs(batch, seq_len))
+
+    def abstract_cache(self, batch: int, seq_len: int):
+        return abstract_params(self.cache_specs(batch, seq_len))
+
+    def init_cache(self, batch: int, seq_len: int):
+        return init_params(self.cache_specs(batch, seq_len), 0, device=self.device)
+
+    # -- serving -------------------------------------------------------------
+    def prefill(self, params, batch, *, max_len: int | None = None):
+        """Returns (logits of the last position (B, 1, V), cache, aux)."""
+        return decoder.forward(params, self.cfg, tokens=batch["tokens"], mode="prefill",
+                               max_len=max_len)
+
+    def decode(self, params, cache, token, cache_len, extras=None):
+        """token (B, 1) at position ``cache_len``; returns (logits, cache)."""
+        return decoder.decode_step(params, self.cfg, cache, token, cache_len)

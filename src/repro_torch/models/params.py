@@ -6,7 +6,12 @@ seeded from the init seed and ``zlib.crc32`` of the leaf's path (the
 reference's ``keystr`` form, e.g. ``[0]['w']``), so a draw does not depend
 on the process or on the order of the leaves. It cannot reproduce
 ``jax.random``'s threefry bits: to compare the two packages, carry the
-reference's weights across with ``repro_torch.convert.params_from_jax``.
+reference's weights across with ``repro_torch.convert.params_from_jax``
+(an MLP) or ``tree_from_jax`` (any tree, the model zoo's among them).
+
+``abstract_params`` is the twin of the reference's ``ShapeDtypeStruct``
+tree: tensors on the ``meta`` device, which carry shape and dtype and
+allocate nothing.
 """
 
 from __future__ import annotations
@@ -19,14 +24,14 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ParamSpec", "init_params"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"           # normal | zeros
+    init: str = "normal"           # normal | zeros | ones
     scale: float | None = None     # stddev override (default fan-in)
     dtype: torch.dtype = torch.float32
 
@@ -38,6 +43,8 @@ class ParamSpec:
 def _materialize(spec: ParamSpec, path: str, seed: int) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype)
     if spec.init == "normal":
         h = zlib.crc32(path.encode()) % (2**31 - 1)
         gen = torch.Generator().manual_seed(int(seed) * (2**31 - 1) + h)
@@ -48,12 +55,14 @@ def _materialize(spec: ParamSpec, path: str, seed: int) -> torch.Tensor:
 
 
 def init_params(specs, seed: int, *, device=None):
-    """Materialize a spec tree (lists and dicts of ``ParamSpec``) into
-    tensors on ``device``. The draws are made on the CPU, so every device
-    gets the same values."""
+    """Materialize a spec tree (lists and dicts of ``ParamSpec``, ``None``
+    leaves kept) into tensors on ``device``. The draws are made on the
+    CPU, so every device gets the same values."""
     device = resolve_device(device)
 
     def build(tree, path):
+        if tree is None:
+            return None
         if isinstance(tree, ParamSpec):
             return _materialize(tree, path, seed).to(device)
         if isinstance(tree, dict):
@@ -61,3 +70,36 @@ def init_params(specs, seed: int, *, device=None):
         return [build(sub, f"{path}[{i}]") for i, sub in enumerate(tree)]
 
     return build(specs, "")
+
+
+def _map_specs(fn, tree):
+    """``fn`` on every ``ParamSpec`` of a tree of dicts and lists; ``None``
+    leaves stay ``None``."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {key: _map_specs(fn, sub) for key, sub in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_specs(fn, sub) for sub in tree]
+    return tree
+
+
+def abstract_params(specs):
+    """The spec tree as ``meta`` tensors: shapes and dtypes, no storage."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def logical_axes(specs):
+    """The tree of logical-axis tuples matching the params tree."""
+    return _map_specs(lambda s: s.axes, specs)
+
+
+def param_count(specs) -> int:
+    count = 0
+
+    def add(spec):
+        nonlocal count
+        count += int(np.prod(spec.shape))
+
+    _map_specs(add, specs)
+    return count

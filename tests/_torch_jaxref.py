@@ -45,13 +45,18 @@ with _enable_x64_alias():
                             solver_numeric, staleness, time_model)
     from repro.data import pipeline
     from repro.fed import async_engine, orchestrator, simulation
+    from repro import configs
+    from repro.kernels import flash_attention as kernels_flash_attention
+    from repro.kernels import ops as kernels_ops
     from repro.kernels import ref as kernels_ref
     from repro.kernels import waterfill as kernels_waterfill
-    from repro.models import mlp
+    from repro.models import attention, decoder, ffn, layers, mlp, model, params
 
-__all__ = ["aggregation", "async_engine", "availability", "core", "energy", "kernels_ref",
-           "kernels_waterfill", "loaded", "mlp", "orchestrator", "pipeline", "simulation",
-           "solver_batched", "solver_kkt", "solver_numeric", "staleness", "time_model"]
+__all__ = ["aggregation", "async_engine", "attention", "availability", "configs", "core",
+           "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_ops",
+           "kernels_ref", "kernels_waterfill", "layers", "loaded", "mlp", "model",
+           "orchestrator", "params", "pipeline", "simulation", "solver_batched",
+           "solver_kkt", "solver_numeric", "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

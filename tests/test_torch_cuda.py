@@ -24,6 +24,14 @@ must give the time-only kernel's output bitwise, and its NaNs must sit
 where the plain version's do. A small ``solve_energy_batched`` on the card
 must give the CPU's rows too.
 
+The flash-attention kernel is held to the dense oracle
+``ref.flash_attention_ref`` on the card. Both compute in float32 and add in
+other orders (the kernel tile by tile with a running max), so float32 is
+held to 1e-5 of max(1, max |oracle|); in bfloat16 the only rounding that
+differs is the output's, one bf16 step (2^-8 relative), so 1e-2. A
+reduced-width 28-layer dense prefill on the card launches it once a layer
+and decode never, and its logits match the CPU's run of the same weights.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -35,13 +43,26 @@ holds the full paper-width cycle to 1e-4 of each leaf's scale).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
+from repro_torch.convert import tree_to_numpy
 from repro_torch.core import solver_batched
-from repro_torch.kernels import accum_flush, fed_agg, ops, ref, train_step, waterfill
+from repro_torch.kernels import (
+    accum_flush,
+    fed_agg,
+    flash_attention,
+    ops,
+    ref,
+    train_step,
+    waterfill,
+)
 from repro_torch.models import mlp
+from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -435,3 +456,86 @@ def test_budgeted_pgd_on_the_card_goes_through_the_energy_kernel(dev):
     for t_, d_ in ((tau, d), (one.tau, one.d)):
         assert d_.sum() == prob.total_samples
         assert (prob.energy.cycle_energy(t_, d_) <= eb * (1 + 1e-9)).all()
+
+
+# b, sq, skv, heads, kv heads, d, causal, window
+FLASH_CASES = {
+    "llama_gqa3_causal": (2, 256, 256, 6, 2, 128, True, None),
+    "ragged_causal": (2, 100, 100, 4, 2, 64, True, None),
+    "ragged_1000": (1, 1000, 1000, 4, 1, 128, True, None),
+    "danube_window": (1, 300, 300, 4, 1, 80, True, 64),
+    "window_tail": (2, 200, 200, 2, 2, 64, True, 16),
+    "mha_noncausal": (1, 128, 128, 4, 4, 80, False, None),
+    "cross_sq_lt_skv": (2, 70, 130, 4, 2, 128, False, None),
+    "cross_sq_gt_skv": (1, 150, 40, 8, 2, 64, False, None),
+    "one_row": (1, 1, 1, 2, 1, 128, True, None),
+}
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _qkv(b, sq, skv, h, kvh, d, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape) * 0.5, dtype=torch.float32,
+                         device=dev).to(dtype)
+            for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
+    flash_attention.launches = 0
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= FLASH_TOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(1, 8, 8, 4, 2, 64, torch.float32, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                             v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention.flash_attention_cuda(q, k, v, window=0)
+
+
+def test_dense_prefill_launches_the_kernel_once_a_layer(dev):
+    """A 28-layer prefill at the reduced width: 28 launches, none in decode;
+    prefill and decode logits match the CPU's run of the same weights."""
+    cfg = dataclasses.replace(get_reduced("llama3.2-3b"), num_layers=28)
+    card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params = card.init(0)
+    params_cpu = cpu.init(0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    with torch.inference_mode():
+        for name, m, p in (("card", card, params), ("cpu", cpu, params_cpu)):
+            flash_attention.launches = 0
+            logits, cache, _ = m.prefill(p, {"tokens": tokens.to(m.device)}, max_len=44)
+            prefill_launches = flash_attention.launches
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            steps = []
+            flash_attention.launches = 0
+            for i in range(4):
+                step, cache = m.decode(p, cache, tok, 40 + i)
+                tok = torch.argmax(step[:, -1:], dim=-1)
+                steps.append(step.cpu())
+            out[name] = (logits.cpu(), steps, prefill_launches, flash_attention.launches)
+    assert out["card"][2:] == (28, 0) and out["cpu"][2:] == (0, 0)
+    for got, want in zip([out["card"][0], *out["card"][1]], [out["cpu"][0], *out["cpu"][1]]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    assert np.isfinite(tree_to_numpy(cache)["blocks"][0]["mixer"]["k"]).all()

@@ -5,7 +5,8 @@ every name of the reference module's ``__all__`` must be in the port
 module's ``__all__``, unless it is listed below:
 
 * ``DEFERRED``: still to be ported, each with the ROADMAP Queue 1 item
-  that brings it;
+  that brings it (``DEFERRED_METHODS`` likewise for the public methods of
+  a class);
 * ``REPLACED``: ported under another name (a TPU kernel's ``*_pallas``
   entry point is the port's ``*_cuda`` one), which the port module must
   export.
@@ -28,33 +29,43 @@ import repro_torch
 
 ITEM_10 = "ROADMAP Queue 1 item 10 (multi-tenant)"
 ITEM_11 = "ROADMAP Queue 1 item 11 (fleet)"
-ITEM_12 = "ROADMAP Queue 1 item 12 (model zoo)"
+ITEM_12B = "ROADMAP Queue 1 item 12b (RWKV-6 serve)"
+ITEM_12C = "ROADMAP Queue 1 item 12c (Jamba/MoE serve)"
+ITEM_12D = "ROADMAP Queue 1 item 12d (fused SwiGLU)"
+ITEM_12E = "ROADMAP Queue 1 item 12e (training)"
+ITEM_13 = "ROADMAP Queue 1 item 13 (dry-run, roofline)"
 
 DEFERRED = {
-    "repro_torch.core": {"apply_sampling_mask": ITEM_11, "transformer_cost": ITEM_12},
-    "repro_torch.core.complexity": {"transformer_cost": ITEM_12},
+    "repro_torch.core": {"apply_sampling_mask": ITEM_11, "transformer_cost": ITEM_12E},
+    "repro_torch.core.complexity": {"transformer_cost": ITEM_12E},
     "repro_torch.core.solver_batched": {
         "SPLIT_POLICIES": ITEM_10, "cross_model_split": ITEM_10,
         "cross_model_weights": ITEM_10, "multimodel_policy": ITEM_10,
         "apply_sampling_mask": ITEM_11,
     },
-    "repro_torch.data.pipeline": {"token_batches": ITEM_12},
+    "repro_torch.data.pipeline": {"token_batches": ITEM_12E},
     "repro_torch.fed.simulation": {
         "multi_model_sweep": ITEM_10, "laggard_time_to_accuracy": ITEM_10,
         "fleet_scale_sweep": ITEM_11,
     },
-    "repro_torch.kernels.ops": {"flash_attention": ITEM_12, "mamba_scan": ITEM_12,
-                                "swiglu_fused": ITEM_12, "wkv6": ITEM_12},
-    "repro_torch.kernels.ref": {"flash_attention_ref": ITEM_12, "mamba_scan_ref": ITEM_12,
-                                "swiglu_ref": ITEM_12, "wkv6_ref": ITEM_12},
-    "repro_torch.models.params": {"abstract_params": ITEM_12, "logical_axes": ITEM_12,
-                                  "param_count": ITEM_12},
+    "repro_torch.kernels.ops": {"mamba_scan": ITEM_12C, "swiglu_fused": ITEM_12D,
+                                "wkv6": ITEM_12B},
+    "repro_torch.kernels.ref": {"mamba_scan_ref": ITEM_12C, "swiglu_ref": ITEM_12D,
+                                "wkv6_ref": ITEM_12B},
+    "repro_torch.models.decoder": {"lm_loss": ITEM_12E},
+    "repro_torch.models.ffn": {"moe_apply": ITEM_12C, "moe_specs": ITEM_12C},
+}
+
+# public methods of the reference's classes that the port's lack as yet
+DEFERRED_METHODS = {
+    "repro_torch.models.model.Model": {"loss": ITEM_12E, "input_specs": ITEM_13},
 }
 
 REPLACED = {
     "repro_torch.core": {"TRACED_POLICIES": "POLICIES"},
     "repro_torch.core.solver_batched": {"TRACED_POLICIES": "POLICIES"},
     "repro_torch.kernels.fed_agg": {"fed_agg_pallas": "fed_agg_cuda"},
+    "repro_torch.kernels.flash_attention": {"flash_attention_pallas": "flash_attention_cuda"},
     "repro_torch.kernels.train_step": {"train_agg_step_pallas": "train_agg_step_cuda"},
     "repro_torch.kernels.waterfill": {
         "waterfill_residual_pallas": "waterfill_residual_cuda",
@@ -109,3 +120,17 @@ def test_module_exports_every_reference_name(name):
         assert "ROADMAP Queue 1 item" in deferred[old]
     for export in got:
         assert hasattr(port, export), f"{name}.__all__ names {export}, which it lacks"
+
+
+@pytest.mark.parametrize("name", sorted(DEFERRED_METHODS))
+def test_class_has_every_reference_method(name):
+    module, _, cls = name.rpartition(".")
+    ref = getattr(importlib.import_module("repro" + module[len("repro_torch"):]), cls)
+    port = getattr(importlib.import_module(module), cls)
+
+    def public(c):
+        return {n for n in vars(c) if not n.startswith("_") and callable(getattr(c, n))}
+
+    deferred = DEFERRED_METHODS[name]
+    assert public(ref) - public(port) == set(deferred), f"{name} lacks other methods"
+    assert all("ROADMAP Queue 1 item" in item for item in deferred.values())
