@@ -81,10 +81,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
         ``ops.flash_attention`` bound to the plain chunked scan (in this
         script only, ``plain_attention``), greedy agreement printed;
      c. the same width in float32 at 2 layers, kernel vs plain: logits
+        within 1e-4 of their scale, 16 greedy decode steps equal;
+  9. the RWKV-6 serving path (RWKV-6 "Finch" 7B at full width):
+     a. ``wkv6`` kernel vs its plain version, the step loop
+        ``ref.wkv6_ref``, at the prefill shape (B 4, S 2048, 64 heads of 64,
+        bf16 and float32 r/k/v, no starting state), a ragged S = 1000 with a
+        starting state, and the decode shape (S = 1) writing the state over a
+        copy of its own s0, with kernel, plain and bound times (no single
+        PyTorch call computes this function);
+     b. the serve: ``Model(get_config("rwkv6-7b"))`` with weights drawn from
+        the seed (32 layers, d 4096, 7,576,621,056 parameters, bf16),
+        ``serve.prefill`` of 4 x 2048 tokens and ``serve.decode`` of 31
+        greedy steps, through the kernel (32 launches in the prefill, 32 a
+        decode step, every other kernel none), init, prefill and decode
+        times, idle shares and peak memory; the prefill's last-position
+        logits held to the same prefill with ``ops.wkv6`` bound to the step
+        loop (in this script only, ``plain_wkv``), greedy agreement printed;
+     c. the same width in float32 at 2 layers, kernel vs plain: logits
         within 1e-4 of their scale, 16 greedy decode steps equal.
 
-Phases 4, 5c, 6c, 7c-e and 8b each set the kernels' launch counters to 0 just
-before the run they check and read them just after.
+Phases 4, 5c, 6c, 7c-e, 8b and 9b each set the kernels' launch counters to 0
+just before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -163,6 +180,21 @@ FLASH_CASES = [
     ("llama3.2-3b prefill", SERVE_BATCH, SERVE_PROMPT, 24, 8, 128, "float32", True, None, 5),
     ("ragged", SERVE_BATCH, 1000, 24, 8, 128, "bfloat16", True, None, 10),
     ("h2o-danube-1.8b prefill", 1, 8192, 32, 8, 80, "bfloat16", True, 4096, 5),
+]
+# phase 9: the RWKV-6 serve at the dense serve's batch and lengths. The WKV
+# kernel and the step loop take every product in float32 from the same
+# inputs and sum over i in other orders; the output is float32 for bf16
+# inputs too, so both are held to 1e-5 of max(1, max |plain|)
+RWKV_ARCH = "rwkv6-7b"
+WKV_TOL = 1e-5
+# phase 9a: name, B, S, heads, head dim, r/k/v dtype, with s0, state written
+# over s0, timed calls; the first is the serve's prefill and gives the
+# kernels line its row
+WKV_CASES = [
+    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "bfloat16", False, False, 10),
+    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "float32", False, False, 10),
+    ("ragged", SERVE_BATCH, 1000, 64, 64, "bfloat16", True, False, 10),
+    ("rwkv6-7b decode step", SERVE_BATCH, 1, 64, 64, "bfloat16", True, True, 200),
 ]
 
 
@@ -253,20 +285,22 @@ class CallCounter:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import accum_flush, fed_agg, flash_attention, train_step, waterfill
+    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, train_step,
+                                     waterfill, wkv6)
 
     waterfill.launches = waterfill.energy_launches = 0
     train_step.launches = fed_agg.launches = accum_flush.launches = 0
-    flash_attention.launches = 0
+    flash_attention.launches = wkv6.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import accum_flush, fed_agg, flash_attention, train_step, waterfill
+    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, train_step,
+                                     waterfill, wkv6)
 
     return {"train_agg_step": train_step.launches, "accum_flush": accum_flush.launches,
             "fed_agg": fed_agg.launches, "waterfill_residual": waterfill.launches,
             "waterfill_energy_residual": waterfill.energy_launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches, "wkv6": wkv6.launches}
 
 
 def cpu_schedule(train, horizon: float, prob, cfg, drift, counted: str) -> dict:
@@ -473,6 +507,7 @@ def main() -> int:
     async_rows = async_phase(dev, train, test, leaves=2 * len(mats), row_flops=row_flops)
     energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
     attention_row = serve_phase(dev)
+    wkv_row = rwkv_phase(dev)
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -491,6 +526,7 @@ def main() -> int:
         *async_rows,
         energy_row,
         attention_row,
+        wkv_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -878,7 +914,7 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
         n_groups = len(cpu[mode]["groups"])
         n_wf = cpu[mode]["solves"]
         fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
-                 "flash_attention": 0}
+                 "flash_attention": 0, "wkv6": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                             **fixed}}
@@ -1191,7 +1227,7 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
             key = path.split()[0]
             require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
                                "waterfill_energy_residual": cpu_s["solves"],
-                               "flash_attention": 0},
+                               "flash_attention": 0, "wkv6": 0},
                     f"{mode} energy {path}: kernel launches {counts}, CPU solves "
                     f"{cpu_s['solves']}")
             hist = res["history"]
@@ -1271,7 +1307,7 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
     counts = read_launches()
     require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
-                       "waterfill_energy_residual": 0, "flash_attention": 0},
+                       "waterfill_energy_residual": 0, "flash_attention": 0, "wkv6": 0},
             f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
     check_rows(res["history"], cpu_s["rows"], "churn run")
     require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
@@ -1327,7 +1363,7 @@ def pgd_step(dev, prob) -> int:
     counts = read_launches()
     require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
                        "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES,
-                       "flash_attention": 0},
+                       "flash_attention": 0, "wkv6": 0},
             f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
             f"water-filling each of {PGD_RESOLVES}")
     cpu, cpu_ms = resolves("cpu")
@@ -1364,6 +1400,31 @@ def pgd_step(dev, prob) -> int:
           f"CPU| {int(np.abs(one.d - one_h.d).max())}, max staleness "
           f"{max_staleness(one.tau)} / {max_staleness(one_h.tau)}; 0 budget violations")
     return counts["waterfill_energy_residual"]
+
+
+def serve_breakdown(arch, model, params, cache, tokens, tok, t0, t1, t2, gen) -> None:
+    """Device time by kernel (``torch.profiler``) over one more prefill and
+    one more decode step (at the cache's last position), beside the wall
+    time of the timed prefill (t0 to t1) and decode step (t1 to t2, over
+    ``gen - 1`` steps): the device's idle share of each."""
+    from repro_torch.launch import serve
+
+    s = tokens.shape[1]
+    for what, fn, wall_ms in (
+            ("prefill", lambda: serve.prefill(model, params, tokens, s + gen),
+             1e3 * (t1 - t0)),
+            ("decode step", lambda: serve.decode(model, params, cache, tok, s + gen - 1, 1),
+             1e3 * (t2 - t1) / (gen - 1))):
+        rows = device_time_by_kernel(fn)
+        busy = sum(ms for _, ms, _ in rows)
+        print(f"serve {arch} {what}: device busy {busy:.2f} ms (torch.profiler) of "
+              f"{wall_ms:.2f} ms wall ({100 * (1 - busy / wall_ms):.0f}% idle) in "
+              f"{sum(n for *_, n in rows)} launches" if rows else
+              f"serve {arch} {what}: device time not measured (no device events)")
+        # the most time first, and the repository's own kernels wherever they rank
+        for name, ms, calls in rows[:6] + [row for row in rows[6:]
+                                           if "(anonymous namespace)::" in row[0]]:
+            print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
 
 
 @contextlib.contextmanager
@@ -1512,19 +1573,7 @@ def serve_phase(dev) -> dict:
                     for t in blk["mixer"].values()), "the KV cache is not finite")
         # where the time goes: device time by kernel over one prefill and
         # one decode step (the cache's last free slot), beside their wall time
-        for what, fn, wall_ms in (
-                ("prefill", lambda: serve.prefill(model, params, tokens, s + gen),
-                 1e3 * (t1 - t0)),
-                ("decode step", lambda: serve.decode(model, params, cache, tok, s + gen - 1, 1),
-                 1e3 * (t2 - t1) / (gen - 1))):
-            rows_ = device_time_by_kernel(fn)
-            busy = sum(ms for _, ms, _ in rows_)
-            print(f"serve {what}: device busy {busy:.2f} ms (torch.profiler) of {wall_ms:.2f} "
-                  f"ms wall ({100 * (1 - busy / wall_ms):.0f}% idle) in "
-                  f"{sum(n for *_, n in rows_)} launches" if rows_ else
-                  f"serve {what}: device time not measured (no device events)")
-            for name, ms, calls in rows_[:6]:
-                print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+        serve_breakdown(SERVE_ARCH, model, params, cache, tokens, tok, t0, t1, t2, gen)
         with plain_attention():
             p_logits, p_cache, p_tok = serve.prefill(model, params, tokens, s + gen)
             p_rest, _ = serve.decode(model, params, p_cache, p_tok, s, gen - 1)
@@ -1589,6 +1638,210 @@ def serve_phase(dev) -> dict:
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:91",
             "launches": after_decode["flash_attention"], **main_case}
+
+
+@contextlib.contextmanager
+def plain_wkv():
+    """``ops.wkv6`` bound to its plain version, the step loop
+    ``ref.wkv6_ref`` (what the CPU runs), for the duration; restored on
+    leaving. This script's comparison only: the package has no such
+    switch, and on the card it always launches the kernel."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.wkv6
+
+    def plain(r, k, v, w, u, s0=None, *, out_state=None, **_):
+        y, s_last = ref.wkv6_ref(r, k, v, w, u, s0)
+        return y, (s_last if out_state is None else out_state.copy_(s_last))
+
+    ops.wkv6 = plain
+    try:
+        yield
+    finally:
+        ops.wkv6 = kernel
+
+
+def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, iters) -> dict:
+    """Phase 9a, one case: the kernel against the step loop, timed with it
+    and beside its bound. ``in_place``: the kernel writes the state over a
+    copy of s0, as decode writes the cache."""
+    import torch
+
+    from repro_torch.kernels import ref, wkv6
+
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + hd)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (randn(b, s, h, hd).mul_(0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, hd) - 1.0))
+    u = randn(h, hd).mul_(0.1)
+    s0 = randn(b, h, hd, hd).mul_(0.1) if with_state else None
+    state = s0.clone() if in_place else None
+    got_y, got_s = wkv6.wkv6_cuda(r, k, v, w, u, state if in_place else s0, out_state=state)
+    want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    require(not in_place or got_s.data_ptr() == state.data_ptr(),
+            f"wkv6 {name}: the state was not written over s0")
+    err = 0.0
+    for what, got, want in (("y", got_y, want_y), ("s_last", got_s, want_s)):
+        require(bool(torch.isfinite(got).all()), f"wkv6 {name}: non-finite {what}")
+        e = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        require(e <= WKV_TOL * scale, f"wkv6 {name}: the kernel's {what} differs from the "
+                f"step loop's by {e:g} > {WKV_TOL} x {scale:g}")
+        err = max(err, e)
+
+    def kernel():
+        return wkv6.wkv6_cuda(r, k, v, w, u, state if in_place else s0, out_state=state)
+
+    # the least of three timings: CUDA events also count the gaps when the
+    # host stalls between launches (the serve's profile in 9b gives the
+    # device time a launch)
+    ms = min(cuda_ms(kernel, iters) for _ in range(3))
+    plain_ms = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), max(2, iters // 5))
+    # r, k, v read once in their dtype, w read and y written in float32, u
+    # and s0 read once, s_last written once; the least work: y_j = sum_i
+    # r_i S_ij + v_j sum_i r_i u_i k_i and S_ij <- w_i S_ij + k_i v_j, 5
+    # float32 operations per (b, h, t, i, j) and 5 per (b, h, t, j)
+    n = b * s * h * hd
+    nbytes = (3 * r.element_size() * n + 4 * 2 * n + 4 * h * hd
+              + 4 * b * h * hd * hd * (2 if with_state else 1))
+    flops = 5 * b * h * s * (hd * hd + hd)
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"wkv6 {name}: B {b}, S {s}, {h} heads of {hd}, {str(dtype).removeprefix('torch.')} "
+          f"r/k/v, s0 {'given' if with_state else 'none'}{', state in place' if in_place else ''}: "
+          f"max_abs_err {err:.3g} (<= {WKV_TOL} x max(1, scale)); kernel {ms:.4f} ms "
+          f"(CUDA events, the least of 3 timings), plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} FP32 FLOPs at "
+          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s, "
+          f"{row['bound_ms'] / ms:.3f} of the bound")
+    return row
+
+
+def rwkv_phase(dev) -> dict:
+    """Phase 9; returns the WKV kernel's entry of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    # -- 9a. the kernel against the step loop at the path's shapes -----------
+    rows = [wkv_case(dev, *case) for case in WKV_CASES]
+    main_case = rows[0]
+    torch.cuda.empty_cache()
+
+    # -- 9b. the serve at full width -------------------------------------------
+    cfg = get_config(RWKV_ARCH)
+    b, s, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = serve.prompt_tokens(cfg, b, s, SEED, dev)
+    with torch.inference_mode():
+        serve.prefill(model, params, tokens, s + gen)       # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, tok = serve.prefill(model, params, tokens, s + gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = read_launches()
+        rest, _ = serve.decode(model, params, cache, tok, s, gen - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after_decode = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        tokens_out = torch.cat([tok, rest], dim=1)
+        nothing = {name: 0 for name in after_decode}
+        layers = cfg.num_layers
+        require(after_prefill == {**nothing, "wkv6": layers},
+                f"the prefill's kernel launches were {after_prefill}, want {layers} wkv6 "
+                "and no other")
+        require(after_decode == {**nothing, "wkv6": layers * gen},
+                f"the serve's kernel launches were {after_decode} after {gen - 1} decode "
+                f"steps, want {layers} wkv6 a step and no other")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "the prefill's logits are not "
+                f"finite of shape ({b}, 1, {cfg.vocab_size})")
+        require(tuple(tokens_out.shape) == (b, gen) and int(tokens_out.min()) >= 0
+                and int(tokens_out.max()) < cfg.vocab_size, "generated tokens out of range")
+        require(all(bool(torch.isfinite(t).all()) for blk in cache["blocks"]
+                    for part in blk.values() for t in part.values()),
+                "the RWKV state cache is not finite")
+        serve_breakdown(RWKV_ARCH, model, params, cache, tokens, tok, t0, t1, t2, gen)
+        with plain_wkv():
+            p_logits, p_cache, p_tok = serve.prefill(model, params, tokens, s + gen)
+            p_rest, _ = serve.decode(model, params, p_cache, p_tok, s, gen - 1)
+        del p_cache
+        p_tokens = torch.cat([p_tok, p_rest], dim=1)
+        err = (logits.float() - p_logits.float()).abs().max().item()
+        scale = p_logits.float().abs().max().item()
+        require(err <= SERVE_BF16_TOL * scale, f"the bf16 RWKV-6 serve's logits differ from "
+                f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
+    del cache
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
+    agree = float((tokens_out == p_tokens).float().mean().item())
+    first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
+    print(f"serve {RWKV_ARCH} ({model.param_count()} params, {cfg.param_dtype}): init "
+          f"{init_s:.1f} s (drawn on the host, copied to the card); prefill {b}x{s} "
+          f"{prefill_ms:.1f} ms; decode {gen - 1} steps {decode_ms:.2f} ms a step "
+          f"({b * 1e3 / decode_ms:.1f} tok/s); peak memory {peak_gb:.2f} GB; wkv6 launches "
+          f"prefill {after_prefill['wkv6']}, decode "
+          f"{after_decode['wkv6'] - after_prefill['wkv6']}; last-position logits vs the "
+          f"step loop max_abs_err {err:.3g}, {err / scale:.3g} of their scale {scale:.3g} "
+          f"(<= {SERVE_BF16_TOL}); greedy agreement with the step loop: first token "
+          f"{first:.2f}, all {gen} tokens {agree:.3f}; sample {tokens_out[0, :8].tolist()}")
+
+    # -- 9c. float32 at 2 layers: kernel vs plain, tight -----------------------
+    cfg32 = dataclasses.replace(cfg, num_layers=E2E_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device=dev)
+    p32 = {name: (leaf.float() if torch.is_tensor(leaf) else leaf)
+           for name, leaf in params.items() if name != "blocks"}
+    p32["blocks"] = [{name: {n: t[:E2E_LAYERS].float() for n, t in sub.items()}
+                      if isinstance(sub, dict) else sub[:E2E_LAYERS].float()
+                      for name, sub in blk.items()} for blk in params["blocks"]]
+    del params
+    torch.cuda.empty_cache()
+    runs = {}
+    with torch.inference_mode():
+        for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_wkv())):
+            with ctx:
+                lg, c32, t = serve.prefill(m32, p32, tokens, s + E2E_STEPS + 1)
+                steps, logits_seq = [t], [lg]
+                for i in range(E2E_STEPS):
+                    lg, c32 = m32.decode(p32, c32, t, s + i)
+                    t = torch.argmax(lg[:, -1:], dim=-1)
+                    steps.append(t)
+                    logits_seq.append(lg)
+                runs[name] = (torch.cat(steps, dim=1), logits_seq)
+                del c32
+    e2e_err = max((a - w).abs().max().item() / w.abs().max().item()
+                  for a, w in zip(runs["kernel"][1], runs["plain"][1]))
+    require(e2e_err <= E2E_TOL, f"float32 {E2E_LAYERS}-layer RWKV-6 serve: logits differ "
+            f"from the step loop by {e2e_err:g} of their scale > {E2E_TOL}")
+    require(torch.equal(runs["kernel"][0], runs["plain"][0]),
+            f"float32 {E2E_LAYERS}-layer RWKV-6 serve: greedy tokens differ from the step loop")
+    print(f"float32 {E2E_LAYERS}-layer {RWKV_ARCH} serve {b}x{s}, kernel vs the step loop: "
+          f"logits max relative error {e2e_err:.3g} (<= {E2E_TOL}) over the prefill and "
+          f"{E2E_STEPS} decode steps; greedy tokens equal ({runs['kernel'][0].numel()})")
+    del p32
+    torch.cuda.empty_cache()
+
+    return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:58",
+            "launches": after_decode["wkv6"], **main_case}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """Dispatch of the port's hot spots by the tensors' device.
 
 A CPU tensor takes the plain torch version in ``ref`` (attention: the
-chunked scan in ``models.layers``, as the reference's CPU path does). A CUDA tensor
+chunked scan in ``models.layers``, as the reference's CPU path does; the
+WKV recurrence: the step loop, or its chunked matmul form in
+``models.rwkv6`` when asked for). A CUDA tensor
 launches the hand-written kernel, or the call raises: there is no switch
 and no fallback to the plain version.
 """
@@ -18,10 +20,11 @@ from repro_torch.kernels.waterfill import (
     waterfill_energy_residual_cuda,
     waterfill_residual_cuda,
 )
+from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models import layers
 
 __all__ = ["fed_agg", "flash_attention", "train_agg_step", "waterfill_energy_residual",
-           "waterfill_residual"]
+           "waterfill_residual", "wkv6"]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=False,
@@ -35,6 +38,26 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=Fals
         return layers.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                                       p_bf16=p_bf16, q_block=q_block)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
+    """The RWKV-6 WKV recurrence: r, k, v, w (B, S, H, hd), u (H, hd), s0
+    (B, H, hd, hd) float32 or None; returns (y float32 (B, S, H, hd),
+    s_last float32 (B, H, hd, hd)). On the CPU the chunked matmul form
+    ``models.rwkv6.wkv_chunked`` (with ``chunk``) when ``backend ==
+    "chunked"``, else the step loop ``ref.wkv6_ref``; on the card the
+    kernel, whatever the backend, as the TPU kernel ran. ``out_state``, a
+    float32 (B, H, hd, hd) tensor, receives s_last and is returned as it; it
+    may be ``s0`` itself, which then holds the new state."""
+    if r.device.type == "cpu":
+        if backend == "chunked":
+            from repro_torch.models.rwkv6 import wkv_chunked
+
+            y, s_last = wkv_chunked(r, k, v, w, u, s0, chunk=chunk)
+        else:
+            y, s_last = ref.wkv6_ref(r, k, v, w, u, s0)
+        return y, (s_last if out_state is None else out_state.copy_(s_last))
+    return wkv6_cuda(r, k, v, w, u, s0, out_state=out_state)
 
 
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ the oracle the CUDA kernels are held to on the card.
 function, so it stays independent of the kernel's hand-derived backward.
 ``flash_attention_ref`` is dense O(S^2) attention, not the chunked scan of
 ``models.layers.flash_attention``: an independent formulation, so that the
-two and the CUDA kernel cross-check.
+two and the CUDA kernel cross-check. ``wkv6_ref`` is the RWKV-6 recurrence
+step by step, and ``models.rwkv6.wkv_chunked`` its matmul form.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from repro_torch.models import mlp
 
 __all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_ref", "sum_in_order",
-           "train_agg_step_ref", "waterfill_energy_residual_ref", "waterfill_residual_ref"]
+           "train_agg_step_ref", "waterfill_energy_residual_ref", "waterfill_residual_ref",
+           "wkv6_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None):
@@ -42,6 +44,29 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(torch.float32))
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0=None):
+    """The RWKV-6 WKV recurrence, one step at a time
+    (``repro.models.rwkv6.wkv_scan``). Per (batch, head), with the state
+    S (hd, hd):
+
+        y_t = r_t^T (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T.
+
+    r, k, v, w: (B, S, H, hd); u: (H, hd); s0: (B, H, hd, hd) float32, or
+    None for zeros. All arithmetic in float32. Returns (y float32
+    (B, S, H, hd), s_last float32 (B, H, hd, hd))."""
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf = (t.to(torch.float32) for t in (r, k, v, w))
+    uf = u.to(torch.float32)[..., :, None]
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+             if s0 is None else s0.to(torch.float32))
+    y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t], state + uf * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return y, state
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

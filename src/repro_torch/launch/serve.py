@@ -5,6 +5,8 @@
         --batch 4 --prompt-len 2048 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --batch 4 --prompt-len 2048 --gen 32            # RWKV-6, on the card
 
 Weights are drawn from ``--seed`` (nothing is downloaded) and the prompt is
 ``--batch`` rows of random tokens from the same seed. It prints the prefill

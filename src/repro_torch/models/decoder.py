@@ -1,4 +1,4 @@
-"""Decoder trunk of the dense family (``repro/models/decoder.py``).
+"""Decoder trunk of the dense and RWKV-6 families (``repro/models/decoder.py``).
 
 The reference groups the layer pattern into periods: the ``p`` layers of a
 period have their params stacked over ``n_periods``, and its trunk is one
@@ -6,8 +6,11 @@ period have their params stacked over ``n_periods``, and its trunk is one
 ``n_periods`` axis on every leaf of ``params["blocks"]`` and of the caches,
 so that trees compare leaf by leaf, and runs the periods as a Python loop
 over views of the stacked leaves. A prefill allocates each stacked cache
-once and every layer writes its K/V into its slice; a decode step writes
-the new token's K/V into those slices in place (see ``models.attention``).
+once and every layer writes its state into its slice: K/V for an attention
+layer; for an RWKV-6 layer the mixer's token shift and wkv state and the
+channel-mix's token shift. A decode step updates those slices in place
+(see ``models.attention`` and ``models.rwkv6``), where the reference's scan
+stacks new ones.
 
 Params tree:
   embed            (V, d)
@@ -16,10 +19,10 @@ Params tree:
   final_norm       (d,)
   lm_head          (d, V)  (absent when tied)
 
-Only token inputs, attention mixers and dense FFNs run here: a ``mamba``
-or ``rwkv6`` mixer, or a Mixture-of-Experts layer, raises; they come with
-later slices, as do embedding inputs (the vlm), ``lm_loss`` and the train
-mode.
+Token inputs, attention and RWKV-6 mixers, dense FFNs and the RWKV-6
+channel-mix run here. A ``mamba`` mixer or a Mixture-of-Experts layer
+raises: they come with the Jamba/MoE serve (ROADMAP item 12c). Embedding
+inputs (the vlm), ``lm_loss`` and the train mode come with later slices.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, ffn
+from repro_torch.models import attention, ffn, rwkv6
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec
 
@@ -78,9 +81,11 @@ def layout_for(cfg: ArchConfig) -> Layout:
 
 
 def _check_layer(kind: str, is_moe: bool) -> None:
-    if kind != "attn":
+    if kind not in ("attn", "rwkv6"):
         raise NotImplementedError(f"{kind!r} is not a mixer the port runs")
-    if is_moe:
+    # an RWKV-6 layer runs its channel-mix whatever the MoE pattern says,
+    # as the reference's does
+    if is_moe and kind != "rwkv6":
         raise NotImplementedError("a Mixture-of-Experts FFN is not an FFN the port runs")
 
 
@@ -92,11 +97,15 @@ def _layer_specs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
     _check_layer(kind, is_moe)
     d = cfg.d_model
     dt = cfg.pdtype()
+    if kind == "rwkv6":
+        mixer, ffn_specs = rwkv6.specs(cfg), rwkv6.cmix_specs(cfg)
+    else:
+        mixer, ffn_specs = attention.specs(cfg), ffn.dense_specs(cfg)
     return {
         "mixer_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
-        "mixer": attention.specs(cfg),
+        "mixer": mixer,
         "ffn_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
-        "ffn": ffn.dense_specs(cfg),
+        "ffn": ffn_specs,
     }
 
 
@@ -129,6 +138,9 @@ def build_specs(cfg: ArchConfig) -> dict:
 
 def _layer_cache_specs(cfg: ArchConfig, kind: str, batch: int, seq_len: int) -> dict:
     _check_layer(kind, False)
+    if kind == "rwkv6":
+        return {"mixer": rwkv6.init_cache_specs(cfg, batch, seq_len),
+                "ffn": rwkv6.cmix_cache_specs(cfg, batch, seq_len)}
     return {"mixer": attention.init_cache_specs(cfg, batch, seq_len), "ffn": None}
 
 
@@ -158,27 +170,41 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _zero_cache(cfg: ArchConfig, batch: int, seq_len: int, n: int | None, device):
-    """Zeroed layer caches of a prefill; stacked over ``n`` periods unless
-    ``n`` is None."""
-    lead = () if n is None else (n,)
-    s = attention.cache_seq_len(cfg, seq_len)
-    shape = lead + (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"mixer": {name: torch.zeros(shape, dtype=cfg.cdtype(), device=device)
-                      for name in ("k", "v")}, "ffn": None}
+def _zeros(spec_tree, device):
+    """Zeros of a spec tree's shapes and dtypes, made on ``device``."""
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, ParamSpec):
+        return torch.zeros(spec_tree.shape, dtype=spec_tree.dtype, device=device)
+    return {key: _zeros(sub, device) for key, sub in spec_tree.items()}
+
+
+def _zero_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, n: int | None,
+                device):
+    """Zeroed caches of a prefill for a layer of ``kind``; stacked over
+    ``n`` periods unless ``n`` is None."""
+    specs = _layer_cache_specs(cfg, kind, batch, seq_len)
+    return _zeros(specs if n is None else _stack(specs, n), device)
 
 
 def _apply_layer(cfg: ArchConfig, p, x, *, kind: str, is_moe: bool, mode: str, positions,
                  cache, cache_len, max_len: int | None = None):
-    """Pre-norm residual layer; a prefill or decode writes its K/V into
+    """Pre-norm residual layer; a prefill or decode writes its state into
     ``cache``. Returns x."""
     _check_layer(kind, is_moe)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     mc = cache["mixer"] if cache is not None else None
-    y, _ = attention.apply(cfg, p["mixer"], h, positions=positions, mode=mode, cache=mc,
-                           cache_len=cache_len, max_len=max_len)
+    if kind == "attn":
+        y, _ = attention.apply(cfg, p["mixer"], h, positions=positions, mode=mode,
+                               cache=mc, cache_len=cache_len, max_len=max_len)
+    else:
+        y, _ = rwkv6.apply(cfg, p["mixer"], h, mode=mode, cache=mc)
     x = x + y
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if kind == "rwkv6":
+        fc = cache["ffn"] if cache is not None else None
+        y, _ = rwkv6.cmix_apply(cfg, p["ffn"], h, mode=mode, cache=fc)
+        return x + y
     return x + ffn.dense_apply(cfg, p["ffn"], h)
 
 
@@ -210,8 +236,9 @@ def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=Non
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
         seq = max(max_len or s, s)
         cache = {
-            "prefix": [_zero_cache(cfg, b, seq, None, dev) for _ in lay.prefix],
-            "blocks": [_zero_cache(cfg, b, seq, lay.n_periods, dev) for _ in lay.period],
+            "prefix": [_zero_cache(cfg, k, b, seq, None, dev) for (k, _) in lay.prefix],
+            "blocks": [_zero_cache(cfg, k, b, seq, lay.n_periods, dev)
+                       for (k, _) in lay.period],
         }
 
     kw = dict(mode=mode, positions=positions, cache_len=cache_len, max_len=max_len)

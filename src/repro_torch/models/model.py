@@ -1,4 +1,5 @@
-"""Public model API (``repro/models/model.py``), dense family, serving.
+"""Public model API (``repro/models/model.py``), serving: the dense family
+and the ssm family's RWKV-6.
 
     m = Model(cfg)                                     # on the card
     params = m.init(seed)
@@ -7,13 +8,14 @@
 
 Tokens are int (B, S) tensors on the model's device. On the card the
 prefill's attention runs the hand-written CUDA kernel
-(``kernels/flash_attention.py``), which is what the reference's
-``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU it runs the
-chunked scan, the reference's default. There is no switch between them.
+(``kernels/flash_attention.py``) and RWKV-6's recurrence runs its kernel
+(``kernels/wkv6.py``) in prefill and decode, which is what the reference's
+``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU they run the
+plain versions, the reference's default. There is no switch between them.
 Decode updates the cache it is given in place and returns it.
 
-Other families (moe, ssm, hybrid, audio, vlm) and ``loss`` come with later
-slices.
+Other families (moe, hybrid, audio, vlm), the ssm family's mamba mixer and
+``loss`` come with later slices.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.models.params import (
 
 __all__ = ["Model"]
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm")
 
 
 class Model:
@@ -38,6 +40,9 @@ class Model:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"{cfg.family!r} is not a family the port runs "
                                       f"({', '.join(FAMILIES)})")
+        if cfg.family == "ssm" and cfg.ssm_kind != "rwkv6":
+            raise NotImplementedError(f"'ssm' with {cfg.ssm_kind!r} mixers is not a family "
+                                      "the port runs (its ssm mixer is rwkv6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.specs = decoder.build_specs(cfg)

@@ -31,7 +31,7 @@ __all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes", "param
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | decay
     scale: float | None = None     # stddev override (default fan-in)
     dtype: torch.dtype = torch.float32
 
@@ -45,6 +45,9 @@ def _materialize(spec: ParamSpec, path: str, seed: int) -> torch.Tensor:
         return torch.zeros(spec.shape, dtype=spec.dtype)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype)
+    if spec.init == "decay":
+        # small negative values -> exp(-exp(w)) decay close to 1
+        return torch.full(spec.shape, -2.0, dtype=spec.dtype)
     if spec.init == "normal":
         h = zlib.crc32(path.encode()) % (2**31 - 1)
         gen = torch.Generator().manual_seed(int(seed) * (2**31 - 1) + h)

@@ -50,13 +50,14 @@ with _enable_x64_alias():
     from repro.kernels import ops as kernels_ops
     from repro.kernels import ref as kernels_ref
     from repro.kernels import waterfill as kernels_waterfill
-    from repro.models import attention, decoder, ffn, layers, mlp, model, params
+    from repro.kernels import wkv6 as kernels_wkv6
+    from repro.models import attention, decoder, ffn, layers, mlp, model, params, rwkv6
 
 __all__ = ["aggregation", "async_engine", "attention", "availability", "configs", "core",
            "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_ops",
-           "kernels_ref", "kernels_waterfill", "layers", "loaded", "mlp", "model",
-           "orchestrator", "params", "pipeline", "simulation", "solver_batched",
-           "solver_kkt", "solver_numeric", "staleness", "time_model"]
+           "kernels_ref", "kernels_waterfill", "kernels_wkv6", "layers", "loaded", "mlp",
+           "model", "orchestrator", "params", "pipeline", "rwkv6", "simulation",
+           "solver_batched", "solver_kkt", "solver_numeric", "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

@@ -32,6 +32,14 @@ differs is the output's, one bf16 step (2^-8 relative), so 1e-2. A
 reduced-width 28-layer dense prefill on the card launches it once a layer
 and decode never, and its logits match the CPU's run of the same weights.
 
+The WKV-6 kernel is held to the step loop ``ref.wkv6_ref`` on the card:
+both take every product in float32 from the same inputs and sum over i in
+other orders (the kernel with fused multiply-adds), and the output is
+float32 for bf16 inputs too, so y and s_last are held to 1e-5 of
+max(1, max |plain|) in both dtypes. The decode form writes the state over
+its own s0. A reduced-width 4-layer RWKV-6 prefill launches it once a
+layer, and decode once a layer a step, with logits matching the CPU's.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -60,6 +68,7 @@ from repro_torch.kernels import (
     ref,
     train_step,
     waterfill,
+    wkv6,
 )
 from repro_torch.models import mlp
 from repro_torch.models.model import Model
@@ -539,3 +548,129 @@ def test_dense_prefill_launches_the_kernel_once_a_layer(dev):
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
     assert np.isfinite(tree_to_numpy(cache)["blocks"][0]["mixer"]["k"]).all()
+
+
+# b, s, heads, hd, dtype, with s0
+WKV_CASES = {
+    "rwkv_head64": (2, 200, 4, 64, True),
+    "ragged_no_state": (3, 37, 2, 64, False),
+    "one_step": (4, 1, 3, 64, True),
+    "head32": (2, 65, 3, 32, True),
+    "head128": (1, 70, 2, 128, False),
+    "empty_seq": (2, 0, 2, 64, True),
+}
+WKV_TOL = 1e-5
+
+
+def _wkv_args(b, s, h, hd, dtype, with_state, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    r, k, v = (t(rng.standard_normal((b, s, h, hd)) * 0.5).to(dtype) for _ in range(3))
+    w = t(np.exp(-np.exp(rng.standard_normal((b, s, h, hd)) - 1.0)))
+    u = t(rng.standard_normal((h, hd)) * 0.1)
+    s0 = t(rng.standard_normal((b, h, hd, hd)) * 0.1) if with_state else None
+    return r, k, v, w, u, s0
+
+
+def _wkv_close(got, want) -> None:
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    scale = want.abs().max().item() if want.numel() else 0.0
+    assert err <= WKV_TOL * max(1.0, scale), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_wkv6_kernel_matches_plain(dev, case, dtype):
+    b, s, h, hd, with_state = WKV_CASES[case]
+    args = _wkv_args(b, s, h, hd, dtype, with_state, seed=s + hd, dev=dev)
+    wkv6.launches = 0
+    y, s_last = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == 1
+    assert y.dtype == s_last.dtype == torch.float32
+    assert y.shape == (b, s, h, hd) and s_last.shape == (b, h, hd, hd)
+    want_y, want_s = ref.wkv6_ref(*args)
+    _wkv_close(y, want_y)
+    _wkv_close(s_last, want_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv6_kernel_updates_the_state_in_place(dev, dtype):
+    """The decode form: S = 1, s_last written over s0 (a slice of a stacked
+    cache), as ``models.rwkv6.apply`` calls it; the slice's neighbours stay."""
+    r, k, v, w, u, s0 = _wkv_args(4, 1, 64, 64, dtype, True, seed=7, dev=dev)
+    stacked = torch.stack([s0 + 1.0, s0, s0 - 1.0])
+    before = stacked.clone()
+    want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    y, s_last = wkv6.wkv6_cuda(r, k, v, w, u, stacked[1], out_state=stacked[1])
+    torch.cuda.synchronize()
+    assert s_last.data_ptr() == stacked[1].data_ptr()
+    _wkv_close(y, want_y)
+    _wkv_close(stacked[1], want_s)
+    assert torch.equal(stacked[0], before[0]) and torch.equal(stacked[2], before[2])
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(dev):
+    r, k, v, w, u, s0 = _wkv_args(2, 5, 2, 64, torch.float32, True, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        wkv6.wkv6_cuda(r.double(), k.double(), v.double(), w, u, s0)
+    with pytest.raises(ValueError, match="one dtype"):
+        wkv6.wkv6_cuda(r, k.bfloat16(), v, w, u, s0)
+    with pytest.raises(ValueError, match="w must be"):
+        wkv6.wkv6_cuda(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6.wkv6_cuda(*(t[..., :48].contiguous() for t in (r, k, v, w)), u[:, :48], None)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6.wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="u must be"):
+        wkv6.wkv6_cuda(r, k, v, w, u[:1], s0)
+    with pytest.raises(ValueError, match="s0 must be"):
+        wkv6.wkv6_cuda(r, k, v, w, u, s0[:1])
+    with pytest.raises(ValueError, match="one device"):
+        wkv6.wkv6_cuda(r, k, v, w.cpu(), u, s0)
+    shifted = torch.empty(s0.numel() + 1, device=dev)[1:].view(s0.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6.wkv6_cuda(r, k, v, w, u, s0, out_state=shifted)
+
+
+def test_wkv6_kernel_counts_no_launch_for_an_empty_batch(dev):
+    args = _wkv_args(0, 5, 2, 64, torch.float32, True, seed=0, dev=dev)
+    wkv6.launches = 0
+    y, s_last = wkv6.wkv6_cuda(*args)
+    assert wkv6.launches == 0
+    assert y.shape == (0, 5, 2, 64) and s_last.shape == (0, 2, 64, 64)
+
+
+def test_rwkv6_prefill_and_decode_launch_the_kernel_once_a_layer(dev):
+    """A 4-layer RWKV-6 prefill at the reduced width: 4 launches, and 4 a
+    decode step; prefill and decode logits match the CPU's run of the same
+    weights."""
+    cfg = dataclasses.replace(get_reduced("rwkv6-7b"), num_layers=4)
+    card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params = card.init(0)
+    params_cpu = cpu.init(0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    with torch.inference_mode():
+        for name, m, p in (("card", card, params), ("cpu", cpu, params_cpu)):
+            wkv6.launches = 0
+            logits, cache, _ = m.prefill(p, {"tokens": tokens.to(m.device)}, max_len=44)
+            prefill_launches = wkv6.launches
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            steps = []
+            wkv6.launches = 0
+            for i in range(4):
+                step, cache = m.decode(p, cache, tok, 40 + i)
+                tok = torch.argmax(step[:, -1:], dim=-1)
+                steps.append(step.cpu())
+            out[name] = (logits.cpu(), steps, prefill_launches, wkv6.launches,
+                         tree_to_numpy(cache))
+    assert out["card"][2:4] == (4, 16) and out["cpu"][2:4] == (0, 0)
+    for got, want in zip([out["card"][0], *out["card"][1]], [out["cpu"][0], *out["cpu"][1]]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    got, want = (out[name][4]["blocks"][0]["mixer"]["wkv"] for name in ("card", "cpu"))
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
