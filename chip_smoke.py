@@ -98,10 +98,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
         logits held to the same prefill with ``ops.wkv6`` bound to the step
         loop (in this script only, ``plain_wkv``), greedy agreement printed;
      c. the same width in float32 at 2 layers, kernel vs plain: logits
-        within 1e-4 of their scale, 16 greedy decode steps equal.
+        within 1e-4 of their scale, 16 greedy decode steps equal;
+ 10. the hybrid serving path (Jamba v0.1 at full width, one period):
+     a. ``mamba_scan`` kernel vs its plain version, the step loop
+        ``ref.mamba_scan_ref``, at the prefill shape (B 4, S 2048, d_inner
+        8192, 16 states, bf16 and float32 x, no starting state), a ragged
+        S = 1000 with a starting state, and S = 1000 writing the state over
+        a copy of its own h0, with kernel, plain and bound times (no single
+        PyTorch call computes this function);
+     b. the serve: ``Model`` of ``jamba-v0.1-52b`` cut to one 8-layer period
+        (7 Mamba layers, attention at layer 4, MoE every other layer, all
+        at full width, 13,295,235,072 parameters, bf16; the published 32
+        layers need 103 GB), ``serve.prefill`` of 4 x 2048 tokens and
+        ``serve.decode`` of 31 greedy steps, through the kernels (7
+        ``mamba_scan`` and 1 ``flash_attention`` launches in the prefill,
+        none in decode, every other kernel none), init, prefill and decode
+        times, idle shares and peak memory; the prefill's last-position
+        logits held to the same prefill with ``ops.mamba_scan`` bound to the
+        step loop (in this script only, ``plain_mamba``);
+     c. a Mamba+MoE and a Mamba+dense layer at full width in float32,
+        kernel vs plain: logits within 1e-4 of their scale, 16 greedy
+        decode steps equal;
+ 11. ``swiglu_fused``, the entry point of the fused SwiGLU kernel (no model
+     path calls it): the kernel vs ``ref.swiglu_ref`` on the inputs
+     widened to float32 at the Jamba dense-FFN prefill shape (m 8192, d
+     4096, f 14336) in bf16 and float32 and at a ragged m and f, with
+     kernel, plain, bound and library (``layers.swiglu``'s three cuBLAS
+     products) times; then ``ops.swiglu_fused`` once at that shape.
 
-Phases 4, 5c, 6c, 7c-e, 8b and 9b each set the kernels' launch counters to 0
-just before the run they check and read them just after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b and 11 each set the kernels' launch
+counters to 0 just before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -196,6 +222,34 @@ WKV_CASES = [
     ("ragged", SERVE_BATCH, 1000, 64, 64, "bfloat16", True, False, 10),
     ("rwkv6-7b decode step", SERVE_BATCH, 1, 64, 64, "bfloat16", True, True, 200),
 ]
+# phase 10: the Jamba serve, one 8-layer period of jamba-v0.1-52b at full
+# width (the published 32 layers need 103 GB in bf16, more than the card's
+# 80), at the dense serve's batch and lengths. The scan kernel and the step
+# loop take every product in float32 from the same inputs and sum over n in
+# other orders, so both are held to 1e-5 of max(1, max |plain|)
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+MAMBA_TOL = 1e-5
+# phase 10a: name, B, S, d_inner, d_state, x dtype, with h0, state written
+# over h0, timed calls; the first is the serve's prefill and gives the
+# kernels line its row
+MAMBA_CASES = [
+    ("jamba prefill", SERVE_BATCH, SERVE_PROMPT, 8192, 16, "bfloat16", False, False, 10),
+    ("jamba prefill", SERVE_BATCH, SERVE_PROMPT, 8192, 16, "float32", False, False, 10),
+    ("ragged", SERVE_BATCH, 1000, 8192, 16, "bfloat16", True, False, 10),
+    ("ragged, state in place", SERVE_BATCH, 1000, 8192, 16, "float32", True, True, 10),
+]
+# phase 11: the fused SwiGLU at Jamba's dense-FFN prefill shape (m = 4 x
+# 2048 tokens, d 4096, f 14336). The kernel takes its products in float32
+# from the widened inputs and returns x's dtype; it is held to
+# ref.swiglu_ref on the widened inputs: float32 to 1e-5 of max(1, max
+# |plain|) (sums over 4096 and 14336 terms in another order), a bf16 output
+# to one bf16 step (2^-8) of it. Name, m, d, f, dtype, timed calls
+SWIGLU_TOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
+SWIGLU_CASES = [
+    ("jamba dense ffn prefill", SERVE_BATCH * SERVE_PROMPT, 4096, 14336, "bfloat16", 3),
+    ("jamba dense ffn prefill", SERVE_BATCH * SERVE_PROMPT, 4096, 14336, "float32", 2),
+    ("ragged", 1000, 4096, 14000, "bfloat16", 3),
+]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -285,22 +339,24 @@ class CallCounter:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, train_step,
-                                     waterfill, wkv6)
+    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, mamba_scan,
+                                     swiglu, train_step, waterfill, wkv6)
 
     waterfill.launches = waterfill.energy_launches = 0
     train_step.launches = fed_agg.launches = accum_flush.launches = 0
     flash_attention.launches = wkv6.launches = 0
+    mamba_scan.launches = swiglu.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, train_step,
-                                     waterfill, wkv6)
+    from repro_torch.kernels import (accum_flush, fed_agg, flash_attention, mamba_scan,
+                                     swiglu, train_step, waterfill, wkv6)
 
     return {"train_agg_step": train_step.launches, "accum_flush": accum_flush.launches,
             "fed_agg": fed_agg.launches, "waterfill_residual": waterfill.launches,
             "waterfill_energy_residual": waterfill.energy_launches,
-            "flash_attention": flash_attention.launches, "wkv6": wkv6.launches}
+            "flash_attention": flash_attention.launches, "wkv6": wkv6.launches,
+            "mamba_scan": mamba_scan.launches, "swiglu": swiglu.launches}
 
 
 def cpu_schedule(train, horizon: float, prob, cfg, drift, counted: str) -> dict:
@@ -508,6 +564,8 @@ def main() -> int:
     energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
     attention_row = serve_phase(dev)
     wkv_row = rwkv_phase(dev)
+    mamba_row = jamba_phase(dev)
+    swiglu_row = swiglu_phase(dev)
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -527,6 +585,8 @@ def main() -> int:
         energy_row,
         attention_row,
         wkv_row,
+        mamba_row,
+        swiglu_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -914,7 +974,7 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
         n_groups = len(cpu[mode]["groups"])
         n_wf = cpu[mode]["solves"]
         fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
-                 "flash_attention": 0, "wkv6": 0}
+                 "flash_attention": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                             **fixed}}
@@ -1227,7 +1287,8 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
             key = path.split()[0]
             require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
                                "waterfill_energy_residual": cpu_s["solves"],
-                               "flash_attention": 0, "wkv6": 0},
+                               "flash_attention": 0, "wkv6": 0, "mamba_scan": 0,
+                               "swiglu": 0},
                     f"{mode} energy {path}: kernel launches {counts}, CPU solves "
                     f"{cpu_s['solves']}")
             hist = res["history"]
@@ -1307,7 +1368,8 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
     counts = read_launches()
     require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
-                       "waterfill_energy_residual": 0, "flash_attention": 0, "wkv6": 0},
+                       "waterfill_energy_residual": 0, "flash_attention": 0, "wkv6": 0,
+                       "mamba_scan": 0, "swiglu": 0},
             f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
     check_rows(res["history"], cpu_s["rows"], "churn run")
     require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
@@ -1363,7 +1425,7 @@ def pgd_step(dev, prob) -> int:
     counts = read_launches()
     require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
                        "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES,
-                       "flash_attention": 0, "wkv6": 0},
+                       "flash_attention": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0},
             f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
             f"water-filling each of {PGD_RESOLVES}")
     cpu, cpu_ms = resolves("cpu")
@@ -1422,7 +1484,7 @@ def serve_breakdown(arch, model, params, cache, tokens, tok, t0, t1, t2, gen) ->
               f"{sum(n for *_, n in rows)} launches" if rows else
               f"serve {arch} {what}: device time not measured (no device events)")
         # the most time first, and the repository's own kernels wherever they rank
-        for name, ms, calls in rows[:6] + [row for row in rows[6:]
+        for name, ms, calls in rows[:10] + [row for row in rows[10:]
                                            if "(anonymous namespace)::" in row[0]]:
             print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
 
@@ -1842,6 +1904,316 @@ def rwkv_phase(dev) -> dict:
     return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:58",
             "launches": after_decode["wkv6"], **main_case}
+
+
+
+@contextlib.contextmanager
+def plain_mamba():
+    """``ops.mamba_scan`` bound to its plain version, the step loop
+    ``ref.mamba_scan_ref`` (what the CPU runs), for the duration; restored
+    on leaving. This script's comparison only: the package has no such
+    switch, and on the card it always launches the kernel."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.mamba_scan
+
+    def plain(dt, x, b, c, a, h0=None, *, out_state=None):
+        y, h_last = ref.mamba_scan_ref(dt, x, b, c, a, h0)
+        return y, (h_last if out_state is None else out_state.copy_(h_last))
+
+    ops.mamba_scan = plain
+    try:
+        yield
+    finally:
+        ops.mamba_scan = kernel
+
+
+def mamba_case(dev, name, b, s, d, n, dtype, with_state, in_place, iters) -> dict:
+    """Phase 10a, one case: the kernel against the step loop, timed with it
+    and beside its bound. ``in_place``: the kernel writes the state over a
+    copy of h0, as a caller updating its state would."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan, ref
+
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # dt around softplus(-4.6), a near the S4D init -(n + 1), as the layer makes them
+    dt = torch.nn.functional.softplus(randn(b, s, d).mul_(2.0).sub_(4.6))
+    x = randn(b, s, d).to(dtype)
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    a = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32))
+                   + randn(d, n).mul_(0.1))
+    h0 = randn(b, d, n) if with_state else None
+    state = h0.clone() if in_place else None
+    got_y, got_h = mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a, state if in_place else h0,
+                                              out_state=state)
+    want_y, want_h = ref.mamba_scan_ref(dt, x, bm, cm, a, h0)
+    torch.cuda.synchronize()
+    require(not in_place or got_h.data_ptr() == state.data_ptr(),
+            f"mamba_scan {name}: the state was not written over h0")
+    err = 0.0
+    for what, got, want in (("y", got_y, want_y), ("h_last", got_h, want_h)):
+        require(bool(torch.isfinite(got).all()), f"mamba_scan {name}: non-finite {what}")
+        e = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        require(e <= MAMBA_TOL * scale, f"mamba_scan {name}: the kernel's {what} differs "
+                f"from the step loop's by {e:g} > {MAMBA_TOL} x {scale:g}")
+        err = max(err, e)
+
+    def kernel():
+        return mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a, state if in_place else h0,
+                                          out_state=state)
+
+    # the least of three timings, as phase 9a takes them
+    ms = min(cuda_ms(kernel, iters) for _ in range(3))
+    plain_ms = cuda_ms(lambda: ref.mamba_scan_ref(dt, x, bm, cm, a, h0), 2)
+    # dt read and y written in float32, x read once in its dtype, b, c and a
+    # read once, h0 read and h_last written once; the least work: dt a, its
+    # exponential, h da + (dt x) B and the y sum, 6 float32 operations per
+    # (b, t, d, n) counting the exponential as one, and dt x per (b, t, d)
+    nbytes = ((8 + x.element_size()) * b * s * d + 4 * 2 * b * s * n + 4 * d * n
+              + 4 * b * d * n * (2 if with_state else 1))
+    flops = 6 * b * s * d * n + b * s * d
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"mamba_scan {name}: B {b}, S {s}, D {d}, N {n}, "
+          f"{str(dtype).removeprefix('torch.')} x, h0 {'given' if with_state else 'none'}"
+          f"{', state in place' if in_place else ''}: max_abs_err {err:.3g} (<= {MAMBA_TOL} "
+          f"x max(1, scale)); kernel {ms:.4f} ms (CUDA events, the least of 3 timings), "
+          f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{nbytes:.4g} bytes, {flops:.4g} FP32 operations at {PEAK_FP32_FLOPS / 1e12:g} "
+          f"TFLOP/s); {row['bound_ms'] / ms:.3f} of the bound, "
+          f"{b * s * d * n / (ms * 1e9):.1f} G state updates/s")
+    return row
+
+
+def _widened(tree, layers: int):
+    """A float32 copy of a params tree, its stacked blocks cut to their
+    first ``layers`` period positions."""
+    def widen(t):
+        if isinstance(t, dict):
+            return {k: widen(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [widen(v) for v in t]
+        return None if t is None else t.float()
+
+    out = {k: widen(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = widen(tree["blocks"][:layers])
+    return out
+
+
+def jamba_phase(dev) -> dict:
+    """Phase 10; returns the scan kernel's entry of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    # -- 10a. the kernel against the step loop at the path's shapes ----------
+    rows = [mamba_case(dev, *case) for case in MAMBA_CASES]
+    main_case = rows[0]
+    torch.cuda.empty_cache()
+
+    # -- 10b. the serve at full width, one period ------------------------------
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=JAMBA_LAYERS)
+    kinds = cfg.layer_kinds()
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    b, s, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = serve.prompt_tokens(cfg, b, s, SEED, dev)
+    with torch.inference_mode():
+        serve.prefill(model, params, tokens, s + gen)       # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, tok = serve.prefill(model, params, tokens, s + gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = read_launches()
+        rest, _ = serve.decode(model, params, cache, tok, s, gen - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after_decode = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        tokens_out = torch.cat([tok, rest], dim=1)
+        nothing = {name: 0 for name in after_decode}
+        want = {**nothing, "mamba_scan": n_mamba, "flash_attention": n_attn}
+        require((n_mamba, n_attn) == (7, 1) and after_prefill == want,
+                f"the prefill's kernel launches were {after_prefill}, want {want}")
+        require(after_decode == after_prefill,
+                f"decode launched kernels: {after_prefill} after the prefill, "
+                f"{after_decode} after decode")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "the prefill's logits are not "
+                f"finite of shape ({b}, 1, {cfg.vocab_size})")
+        require(tuple(tokens_out.shape) == (b, gen) and int(tokens_out.min()) >= 0
+                and int(tokens_out.max()) < cfg.vocab_size, "generated tokens out of range")
+        require(all(bool(torch.isfinite(t).all()) for blk in cache["blocks"]
+                    for t in blk["mixer"].values()), "the Jamba cache is not finite")
+        serve_breakdown(JAMBA_ARCH, model, params, cache, tokens, tok, t0, t1, t2, gen)
+        with plain_mamba():
+            p_logits, p_cache, p_tok = serve.prefill(model, params, tokens, s + gen)
+            p_rest, _ = serve.decode(model, params, p_cache, p_tok, s, gen - 1)
+        del p_cache
+        p_tokens = torch.cat([p_tok, p_rest], dim=1)
+        err = (logits.float() - p_logits.float()).abs().max().item()
+        scale = p_logits.float().abs().max().item()
+        require(err <= SERVE_BF16_TOL * scale, f"the bf16 Jamba serve's logits differ from "
+                f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
+    del cache
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
+    agree = float((tokens_out == p_tokens).float().mean().item())
+    first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
+    print(f"serve {JAMBA_ARCH}, {JAMBA_LAYERS} of its 32 layers ({model.param_count()} "
+          f"params, {cfg.param_dtype}): init {init_s:.1f} s (drawn on the host, copied to "
+          f"the card); prefill {b}x{s} {prefill_ms:.1f} ms; decode {gen - 1} steps "
+          f"{decode_ms:.2f} ms a step ({b * 1e3 / decode_ms:.1f} tok/s); peak memory "
+          f"{peak_gb:.2f} GB; launches prefill mamba_scan {after_prefill['mamba_scan']}, "
+          f"flash_attention {after_prefill['flash_attention']}, decode none; last-position "
+          f"logits vs the step loop max_abs_err {err:.3g}, {err / scale:.3g} of their scale "
+          f"{scale:.3g} (<= {SERVE_BF16_TOL}); greedy agreement with the step loop: first "
+          f"token {first:.2f}, all {gen} tokens {agree:.3f}; sample "
+          f"{tokens_out[0, :8].tolist()}")
+
+    # -- 10c. float32 at 2 layers (Mamba+MoE, Mamba+dense): kernel vs plain ------
+    cfg32 = dataclasses.replace(cfg, num_layers=E2E_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device=dev)
+    require([(k, moe) for k, moe in zip(cfg32.layer_kinds(), cfg32.layer_is_moe())]
+            == [("mamba", True), ("mamba", False)], "the float32 gate's layers are not "
+            "a Mamba+MoE and a Mamba+dense layer")
+    p32 = _widened(params, E2E_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    runs = {}
+    with torch.inference_mode():
+        for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_mamba())):
+            with ctx:
+                reset_launches()
+                lg, c32, t = serve.prefill(m32, p32, tokens, s + E2E_STEPS + 1)
+                launched = read_launches()["mamba_scan"]
+                steps, logits_seq = [t], [lg]
+                for i in range(E2E_STEPS):
+                    lg, c32 = m32.decode(p32, c32, t, s + i)
+                    t = torch.argmax(lg[:, -1:], dim=-1)
+                    steps.append(t)
+                    logits_seq.append(lg)
+                runs[name] = (torch.cat(steps, dim=1), logits_seq, launched)
+                del c32
+    require((runs["kernel"][2], runs["plain"][2]) == (E2E_LAYERS, 0),
+            f"float32 gate: scan launches {runs['kernel'][2]} (kernel) and "
+            f"{runs['plain'][2]} (plain), want {E2E_LAYERS} and 0")
+    e2e_err = max((a - w).abs().max().item() / w.abs().max().item()
+                  for a, w in zip(runs["kernel"][1], runs["plain"][1]))
+    require(e2e_err <= E2E_TOL, f"float32 {E2E_LAYERS}-layer Jamba serve: logits differ "
+            f"from the step loop by {e2e_err:g} of their scale > {E2E_TOL}")
+    require(torch.equal(runs["kernel"][0], runs["plain"][0]),
+            f"float32 {E2E_LAYERS}-layer Jamba serve: greedy tokens differ from the step loop")
+    print(f"float32 {E2E_LAYERS}-layer {JAMBA_ARCH} serve (Mamba+MoE, Mamba+dense) {b}x{s}, "
+          f"kernel vs the step loop: logits max relative error {e2e_err:.3g} (<= {E2E_TOL}) "
+          f"over the prefill and {E2E_STEPS} decode steps; greedy tokens equal "
+          f"({runs['kernel'][0].numel()})")
+    del p32
+    torch.cuda.empty_cache()
+
+    return {"name": "mamba_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:61",
+            "launches": after_decode["mamba_scan"], **main_case}
+
+
+def swiglu_case(dev, name, m, d, f, dtype, iters) -> dict:
+    """Phase 11, one case: the kernel against its plain version on the
+    widened inputs, timed with it, its bound and the library call (the
+    three cuBLAS products of ``layers.swiglu`` in the inputs' dtype)."""
+    import torch
+
+    from repro_torch.kernels import ref, swiglu
+    from repro_torch.models import layers
+
+    name_dtype = dtype
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + m + f)
+    x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+    wg, wu = (torch.randn((d, f), generator=gen, device=dev).div_(math.sqrt(d)).to(dtype)
+              for _ in range(2))
+    wd = torch.randn((f, d), generator=gen, device=dev).div_(math.sqrt(f)).to(dtype)
+    wide = [t.float() for t in (x, wg, wu, wd)]
+    got = swiglu.swiglu_cuda(x, wg, wu, wd)
+    want = ref.swiglu_ref(*wide)
+    torch.cuda.synchronize()
+    require(got.dtype == dtype and bool(torch.isfinite(got).all()),
+            f"swiglu {name}: the kernel gave non-finite values or the wrong dtype")
+    err = (got.float() - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    tol = SWIGLU_TOL[name_dtype]
+    require(err <= tol * scale, f"swiglu {name}: the kernel differs from its plain version "
+            f"by {err:g} > {tol} x {scale:g}")
+    ms = min(cuda_ms(lambda: swiglu.swiglu_cuda(x, wg, wu, wd), iters) for _ in range(3))
+    plain_ms = cuda_ms(lambda: ref.swiglu_ref(*wide), iters)
+    library_ms = cuda_ms(lambda: layers.swiglu(x, wg, wu, wd), iters)
+    lib_err = (layers.swiglu(x, wg, wu, wd).float() - want).abs().max().item()
+    del wide
+    flops = 6 * m * d * f
+    nbytes = x.element_size() * (2 * m * d + 3 * d * f)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"swiglu {name}: m {m}, d {d}, f {f}, {name_dtype}: max_abs_err {err:.3g} vs the "
+          f"float32 plain version (<= {tol:.3g} x {scale:.3g}); kernel {ms:.3f} ms (CUDA "
+          f"events, the least of 3 timings), plain (float32 cuBLAS) {plain_ms:.3f} ms, "
+          f"library (layers.swiglu in {name_dtype}, cuBLAS) {library_ms:.3f} ms (max_abs_err "
+          f"{lib_err:.3g}), bound {row['bound_ms']:.3f} ms ({row['bound_by']}: {flops:.4g} "
+          f"FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s")
+    return row
+
+
+def swiglu_phase(dev) -> dict:
+    """Phase 11; returns the SwiGLU kernel's entry of the kernels line. No
+    model path calls the kernel (the reference's dense FFN calls the plain
+    ``layers.swiglu``), so its launches are this phase's own: the entry
+    point ``ops.swiglu_fused`` once at the Jamba dense-FFN shape, with the
+    counters set to 0 just before."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rows = [swiglu_case(dev, *case) for case in SWIGLU_CASES]
+    torch.cuda.empty_cache()
+    _, m, d, f, dtype, _ = SWIGLU_CASES[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((SERVE_BATCH, m // SERVE_BATCH, d), generator=gen, device=dev)
+    w = [torch.randn(shape, generator=gen, device=dev).div_(math.sqrt(shape[0]))
+         for shape in ((d, f), (d, f), (f, d))]
+    x, *w = (t.to(getattr(torch, dtype)) for t in (x, *w))
+    reset_launches()
+    out = ops.swiglu_fused(x, *w)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    require(counts == {**{k: 0 for k in counts}, "swiglu": 1},
+            f"ops.swiglu_fused on the card: kernel launches {counts}, want one swiglu")
+    require(out.shape == x.shape and bool(torch.isfinite(out).all()),
+            "ops.swiglu_fused gave non-finite values or the wrong shape")
+    del x, w, out
+    torch.cuda.empty_cache()
+    return {"name": "swiglu", "route": "cuda", "source": "src/repro_torch/csrc/swiglu.cu",
+            "replaces": "src/repro/kernels/swiglu.py:48", "launches": counts["swiglu"],
+            **rows[0]}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 A CPU tensor takes the plain torch version in ``ref`` (attention: the
 chunked scan in ``models.layers``, as the reference's CPU path does; the
 WKV recurrence: the step loop, or its chunked matmul form in
-``models.rwkv6`` when asked for). A CUDA tensor
+``models.rwkv6`` when asked for; the Mamba scan: the step loop; the fused
+SwiGLU: ``layers.swiglu``). A CUDA tensor
 launches the hand-written kernel, or the call raises: there is no switch
 and no fallback to the plain version.
 """
@@ -15,6 +16,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.swiglu import swiglu_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
 from repro_torch.kernels.waterfill import (
     waterfill_energy_residual_cuda,
@@ -23,8 +26,8 @@ from repro_torch.kernels.waterfill import (
 from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models import layers
 
-__all__ = ["fed_agg", "flash_attention", "train_agg_step", "waterfill_energy_residual",
-           "waterfill_residual", "wkv6"]
+__all__ = ["fed_agg", "flash_attention", "mamba_scan", "swiglu_fused", "train_agg_step",
+           "waterfill_energy_residual", "waterfill_residual", "wkv6"]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=False,
@@ -58,6 +61,30 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
             y, s_last = ref.wkv6_ref(r, k, v, w, u, s0)
         return y, (s_last if out_state is None else out_state.copy_(s_last))
     return wkv6_cuda(r, k, v, w, u, s0, out_state=out_state)
+
+
+def mamba_scan(dt, x, b, c, a, h0=None, *, out_state=None):
+    """The Mamba (S6) selective scan: dt, x (B, S, D), b, c (B, S, N), a
+    (D, N), h0 (B, D, N) float32 or None; returns (y float32 (B, S, D),
+    h_last float32 (B, D, N)). On the CPU the step loop
+    ``ref.mamba_scan_ref``; on the card the kernel. ``out_state``, a
+    float32 (B, D, N) tensor, receives h_last and is returned as it; it may
+    be ``h0`` itself, which then holds the new state."""
+    if dt.device.type == "cpu":
+        y, h_last = ref.mamba_scan_ref(dt, x, b, c, a, h0)
+        return y, (h_last if out_state is None else out_state.copy_(h_last))
+    return mamba_scan_cuda(dt, x, b, c, a, h0, out_state=out_state)
+
+
+def swiglu_fused(x, w_gate, w_up, w_down):
+    """The fused SwiGLU FFN ``down(silu(x Wg) * (x Wu))``: x (..., d),
+    w_gate and w_up (d, f), w_down (f, d). On the CPU ``layers.swiglu`` in
+    x's dtype, as the reference's ``ops.swiglu`` runs without its kernel;
+    on the card the kernel, which takes every product in float32 from the
+    widened inputs and returns x's dtype, as the TPU kernel does."""
+    if x.device.type == "cpu":
+        return ref.swiglu_ref(x, w_gate, w_up, w_down)
+    return swiglu_cuda(x, w_gate, w_up, w_down)
 
 
 def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

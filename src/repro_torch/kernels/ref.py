@@ -6,7 +6,9 @@ function, so it stays independent of the kernel's hand-derived backward.
 ``flash_attention_ref`` is dense O(S^2) attention, not the chunked scan of
 ``models.layers.flash_attention``: an independent formulation, so that the
 two and the CUDA kernel cross-check. ``wkv6_ref`` is the RWKV-6 recurrence
-step by step, and ``models.rwkv6.wkv_chunked`` its matmul form.
+step by step, and ``models.rwkv6.wkv_chunked`` its matmul form;
+``mamba_scan_ref`` the Mamba (S6) selective scan step by step.
+``swiglu_ref`` is ``models.layers.swiglu``, in its inputs' dtype.
 """
 
 from __future__ import annotations
@@ -15,11 +17,11 @@ import math
 
 import torch
 
-from repro_torch.models import mlp
+from repro_torch.models import layers, mlp
 
-__all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_ref", "sum_in_order",
-           "train_agg_step_ref", "waterfill_energy_residual_ref", "waterfill_residual_ref",
-           "wkv6_ref"]
+__all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_ref", "mamba_scan_ref",
+           "sum_in_order", "swiglu_ref", "train_agg_step_ref",
+           "waterfill_energy_residual_ref", "waterfill_residual_ref", "wkv6_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None):
@@ -67,6 +69,39 @@ def wkv6_ref(r, k, v, w, u, s0=None):
         y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t], state + uf * kv)
         state = wf[:, t, :, :, None] * state + kv
     return y, state
+
+
+def mamba_scan_ref(dt, x, b, c, a, h0=None):
+    """The Mamba (S6) selective scan, one step at a time
+    (``repro.kernels.ref.mamba_scan_ref``). Per batch row and channel d,
+    with the state h (D, N):
+
+        h_t = exp(dt_t a) * h_{t-1} + (dt_t x_t) b_t,   y_t = h_t . c_t.
+
+    dt, x: (B, S, D); b, c: (B, S, N); a: (D, N); h0: (B, D, N) float32,
+    or None for zeros. All arithmetic in float32. Returns (y float32
+    (B, S, D), h_last float32 (B, D, N))."""
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    dtf, xf, bf, cf = (t.to(torch.float32) for t in (dt, x, b, c))
+    af = a.to(torch.float32)
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.to(torch.float32))
+    y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * af)
+        h = h * da + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t])
+    return y, h
+
+
+def swiglu_ref(x, w_gate, w_up, w_down):
+    """The SwiGLU FFN ``down(silu(x Wg) * (x Wu))`` in x's dtype
+    (``repro.kernels.ref.swiglu_ref``, which is ``layers.swiglu``). The TPU
+    kernel and the CUDA kernel compute it in float32 from the inputs
+    widened, and return x's dtype: give this version float32 inputs to
+    compute theirs."""
+    return layers.swiglu(x, w_gate, w_up, w_down)
 
 
 def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

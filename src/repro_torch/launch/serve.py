@@ -7,6 +7,13 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --batch 4 --prompt-len 2048 --gen 32            # RWKV-6, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+        --reduced --device cpu                          # Jamba, Mamba + MoE
+
+Jamba v0.1 at its published depth (32 layers, 51.6 B parameters) needs
+103 GB in bf16, more than one 80 GB card holds; ``chip_smoke.py`` serves
+one 8-layer period of it at full width (13.3 B parameters). The MoE
+models (``qwen2-moe-a2.7b``, ``deepseek-moe-16b``) serve the same way.
 
 Weights are drawn from ``--seed`` (nothing is downloaded) and the prompt is
 ``--batch`` rows of random tokens from the same seed. It prints the prefill

@@ -1,4 +1,5 @@
-"""Decoder trunk of the dense and RWKV-6 families (``repro/models/decoder.py``).
+"""Decoder trunk of the dense, MoE, RWKV-6 and hybrid (Jamba) families
+(``repro/models/decoder.py``).
 
 The reference groups the layer pattern into periods: the ``p`` layers of a
 period have their params stacked over ``n_periods``, and its trunk is one
@@ -8,9 +9,10 @@ so that trees compare leaf by leaf, and runs the periods as a Python loop
 over views of the stacked leaves. A prefill allocates each stacked cache
 once and every layer writes its state into its slice: K/V for an attention
 layer; for an RWKV-6 layer the mixer's token shift and wkv state and the
-channel-mix's token shift. A decode step updates those slices in place
-(see ``models.attention`` and ``models.rwkv6``), where the reference's scan
-stacks new ones.
+channel-mix's token shift; for a Mamba layer the conv window and the SSM
+state. A decode step updates those slices in place (see
+``models.attention``, ``models.rwkv6`` and ``models.mamba``), where the
+reference's scan stacks new ones.
 
 Params tree:
   embed            (V, d)
@@ -19,10 +21,11 @@ Params tree:
   final_norm       (d,)
   lm_head          (d, V)  (absent when tied)
 
-Token inputs, attention and RWKV-6 mixers, dense FFNs and the RWKV-6
-channel-mix run here. A ``mamba`` mixer or a Mixture-of-Experts layer
-raises: they come with the Jamba/MoE serve (ROADMAP item 12c). Embedding
-inputs (the vlm), ``lm_loss`` and the train mode come with later slices.
+Token inputs, the attention, Mamba and RWKV-6 mixers, dense and
+Mixture-of-Experts FFNs and the RWKV-6 channel-mix run here; a prefill
+returns the MoE load-balance loss summed over layers, as the reference's
+does. Embedding inputs (the vlm), ``lm_loss`` and the train mode come
+with later slices.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, ffn, rwkv6
+from repro_torch.models import attention, ffn, mamba, rwkv6
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec
 
@@ -80,13 +83,9 @@ def layout_for(cfg: ArchConfig) -> Layout:
     )
 
 
-def _check_layer(kind: str, is_moe: bool) -> None:
-    if kind not in ("attn", "rwkv6"):
+def _check_layer(kind: str) -> None:
+    if kind not in ("attn", "mamba", "rwkv6"):
         raise NotImplementedError(f"{kind!r} is not a mixer the port runs")
-    # an RWKV-6 layer runs its channel-mix whatever the MoE pattern says,
-    # as the reference's does
-    if is_moe and kind != "rwkv6":
-        raise NotImplementedError("a Mixture-of-Experts FFN is not an FFN the port runs")
 
 
 # ---------------------------------------------------------------------------
@@ -94,13 +93,23 @@ def _check_layer(kind: str, is_moe: bool) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_specs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
-    _check_layer(kind, is_moe)
+    _check_layer(kind)
     d = cfg.d_model
     dt = cfg.pdtype()
-    if kind == "rwkv6":
-        mixer, ffn_specs = rwkv6.specs(cfg), rwkv6.cmix_specs(cfg)
+    if kind == "attn":
+        mixer = attention.specs(cfg)
+    elif kind == "mamba":
+        mixer = mamba.specs(cfg)
     else:
-        mixer, ffn_specs = attention.specs(cfg), ffn.dense_specs(cfg)
+        mixer = rwkv6.specs(cfg)
+    # an RWKV-6 layer runs its channel-mix whatever the MoE pattern says,
+    # as the reference's does
+    if kind == "rwkv6":
+        ffn_specs = rwkv6.cmix_specs(cfg)
+    elif is_moe:
+        ffn_specs = ffn.moe_specs(cfg)
+    else:
+        ffn_specs = ffn.dense_specs(cfg)
     return {
         "mixer_norm": ParamSpec((d,), ("embed",), init="ones", dtype=dt),
         "mixer": mixer,
@@ -137,10 +146,12 @@ def build_specs(cfg: ArchConfig) -> dict:
 
 
 def _layer_cache_specs(cfg: ArchConfig, kind: str, batch: int, seq_len: int) -> dict:
-    _check_layer(kind, False)
+    _check_layer(kind)
     if kind == "rwkv6":
         return {"mixer": rwkv6.init_cache_specs(cfg, batch, seq_len),
                 "ffn": rwkv6.cmix_cache_specs(cfg, batch, seq_len)}
+    if kind == "mamba":
+        return {"mixer": mamba.init_cache_specs(cfg, batch, seq_len), "ffn": None}
     return {"mixer": attention.init_cache_specs(cfg, batch, seq_len), "ffn": None}
 
 
@@ -190,30 +201,37 @@ def _zero_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, n: int | N
 def _apply_layer(cfg: ArchConfig, p, x, *, kind: str, is_moe: bool, mode: str, positions,
                  cache, cache_len, max_len: int | None = None):
     """Pre-norm residual layer; a prefill or decode writes its state into
-    ``cache``. Returns x."""
-    _check_layer(kind, is_moe)
+    ``cache``. Returns (x, the MoE load-balance loss or None)."""
+    _check_layer(kind)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     mc = cache["mixer"] if cache is not None else None
     if kind == "attn":
         y, _ = attention.apply(cfg, p["mixer"], h, positions=positions, mode=mode,
                                cache=mc, cache_len=cache_len, max_len=max_len)
+    elif kind == "mamba":
+        y, _ = mamba.apply(cfg, p["mixer"], h, mode=mode, cache=mc)
     else:
         y, _ = rwkv6.apply(cfg, p["mixer"], h, mode=mode, cache=mc)
     x = x + y
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    aux = None
     if kind == "rwkv6":
         fc = cache["ffn"] if cache is not None else None
         y, _ = rwkv6.cmix_apply(cfg, p["ffn"], h, mode=mode, cache=fc)
-        return x + y
-    return x + ffn.dense_apply(cfg, p["ffn"], h)
+    elif is_moe:
+        y, aux = ffn.moe_apply(cfg, p["ffn"], h)
+    else:
+        y = ffn.dense_apply(cfg, p["ffn"], h)
+    return x + y, aux
 
 
 def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=None,
             cache_len=None, max_len: int | None = None):
     """Run the trunk.
 
-    prefill: returns (logits of the last position, cache, aux_loss); the
-             cache holds ``max(max_len, S)`` positions (the window, for a
+    prefill: returns (logits of the last position, cache, aux_loss), the
+             aux_loss the MoE load-balance loss summed over layers (0
+             without MoE); the cache holds ``max(max_len, S)`` positions (the window, for a
              sliding-window model);
     decode:  tokens (B, 1) at position ``cache_len``; returns (logits,
              cache), the cache updated in place.
@@ -242,19 +260,24 @@ def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=Non
         }
 
     kw = dict(mode=mode, positions=positions, cache_len=cache_len, max_len=max_len)
+    # the load-balance losses summed in layer order, as the reference's scan does
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (kind, is_moe) in enumerate(lay.prefix):
-        x = _apply_layer(cfg, params["prefix"][i], x, kind=kind, is_moe=is_moe,
-                         cache=cache["prefix"][i], **kw)
+        x, aux = _apply_layer(cfg, params["prefix"][i], x, kind=kind, is_moe=is_moe,
+                              cache=cache["prefix"][i], **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
     for n in range(lay.n_periods):
         for j, (kind, is_moe) in enumerate(lay.period):
-            x = _apply_layer(cfg, _index(params["blocks"][j], n), x, kind=kind,
-                             is_moe=is_moe, cache=_index(cache["blocks"][j], n), **kw)
+            x, aux = _apply_layer(cfg, _index(params["blocks"][j], n), x, kind=kind,
+                                  is_moe=is_moe, cache=_index(cache["blocks"][j], n), **kw)
+            if aux is not None:
+                aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         # only the last position's logits are needed to start decoding
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        return lm_logits(params, cfg, x[:, -1:]), cache, aux
+        return lm_logits(params, cfg, x[:, -1:]), cache, aux_total
     return lm_logits(params, cfg, x), cache
 
 

@@ -1,5 +1,5 @@
-"""Public model API (``repro/models/model.py``), serving: the dense family
-and the ssm family's RWKV-6.
+"""Public model API (``repro/models/model.py``), serving: the dense, MoE,
+ssm (RWKV-6 and Mamba) and hybrid (Jamba) families.
 
     m = Model(cfg)                                     # on the card
     params = m.init(seed)
@@ -8,14 +8,15 @@ and the ssm family's RWKV-6.
 
 Tokens are int (B, S) tensors on the model's device. On the card the
 prefill's attention runs the hand-written CUDA kernel
-(``kernels/flash_attention.py``) and RWKV-6's recurrence runs its kernel
-(``kernels/wkv6.py``) in prefill and decode, which is what the reference's
+(``kernels/flash_attention.py``), RWKV-6's recurrence runs its kernel
+(``kernels/wkv6.py``) in prefill and decode, and the Mamba scan its kernel
+(``kernels/mamba_scan.py``) in the prefill, which is what the reference's
 ``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU they run the
 plain versions, the reference's default. There is no switch between them.
-Decode updates the cache it is given in place and returns it.
+Decode updates the cache it is given in place and returns it. The prefill's
+``aux`` is the MoE load-balance loss summed over layers.
 
-Other families (moe, hybrid, audio, vlm), the ssm family's mamba mixer and
-``loss`` come with later slices.
+The audio and vlm families and ``loss`` come with later slices.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from repro_torch.models.params import (
 
 __all__ = ["Model"]
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SSM_KINDS = ("rwkv6", "mamba")
 
 
 class Model:
@@ -40,9 +42,9 @@ class Model:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"{cfg.family!r} is not a family the port runs "
                                       f"({', '.join(FAMILIES)})")
-        if cfg.family == "ssm" and cfg.ssm_kind != "rwkv6":
+        if cfg.family == "ssm" and cfg.ssm_kind not in SSM_KINDS:
             raise NotImplementedError(f"'ssm' with {cfg.ssm_kind!r} mixers is not a family "
-                                      "the port runs (its ssm mixer is rwkv6)")
+                                      f"the port runs (its ssm mixers: {', '.join(SSM_KINDS)})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.specs = decoder.build_specs(cfg)

@@ -31,7 +31,7 @@ __all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes", "param
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"           # normal | zeros | ones | decay
+    init: str = "normal"           # normal | zeros | ones | decay | s4d | dt_bias
     scale: float | None = None     # stddev override (default fan-in)
     dtype: torch.dtype = torch.float32
 
@@ -48,13 +48,21 @@ def _materialize(spec: ParamSpec, path: str, seed: int) -> torch.Tensor:
     if spec.init == "decay":
         # small negative values -> exp(-exp(w)) decay close to 1
         return torch.full(spec.shape, -2.0, dtype=spec.dtype)
+    if spec.init == "s4d":
+        # S4D-real: A_log[d, n] = log(n + 1) per state column, in float32
+        n = spec.shape[-1]
+        col = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+        return col.expand(spec.shape).to(spec.dtype, copy=True)
+    if spec.init == "dt_bias":
+        # softplus^-1(dt) for dt ~ 0.001..0.1, around -4.6
+        return torch.full(spec.shape, -4.6, dtype=spec.dtype)
     if spec.init == "normal":
         h = zlib.crc32(path.encode()) % (2**31 - 1)
         gen = torch.Generator().manual_seed(int(seed) * (2**31 - 1) + h)
         fan_in = spec.shape[0] if len(spec.shape) == 1 else int(np.prod(spec.shape[:-1]))
         scale = spec.scale if spec.scale is not None else 1.0 / max(np.sqrt(fan_in), 1.0)
         return (torch.randn(spec.shape, generator=gen) * scale).to(spec.dtype)
-    raise ValueError(f"init {spec.init!r} is not ported yet")
+    raise ValueError(f"unknown init {spec.init!r}")
 
 
 def init_params(specs, seed: int, *, device=None):

@@ -47,17 +47,21 @@ with _enable_x64_alias():
     from repro.fed import async_engine, orchestrator, simulation
     from repro import configs
     from repro.kernels import flash_attention as kernels_flash_attention
+    from repro.kernels import mamba_scan as kernels_mamba_scan
     from repro.kernels import ops as kernels_ops
     from repro.kernels import ref as kernels_ref
+    from repro.kernels import swiglu as kernels_swiglu
     from repro.kernels import waterfill as kernels_waterfill
     from repro.kernels import wkv6 as kernels_wkv6
-    from repro.models import attention, decoder, ffn, layers, mlp, model, params, rwkv6
+    from repro.models import (attention, decoder, ffn, layers, mamba, mlp, model, params,
+                              rwkv6)
 
 __all__ = ["aggregation", "async_engine", "attention", "availability", "configs", "core",
-           "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_ops",
-           "kernels_ref", "kernels_waterfill", "kernels_wkv6", "layers", "loaded", "mlp",
-           "model", "orchestrator", "params", "pipeline", "rwkv6", "simulation",
-           "solver_batched", "solver_kkt", "solver_numeric", "staleness", "time_model"]
+           "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_mamba_scan",
+           "kernels_ops", "kernels_ref", "kernels_swiglu", "kernels_waterfill",
+           "kernels_wkv6", "layers", "loaded", "mamba", "mlp", "model", "orchestrator",
+           "params", "pipeline", "rwkv6", "simulation", "solver_batched", "solver_kkt",
+           "solver_numeric", "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

@@ -40,6 +40,18 @@ max(1, max |plain|) in both dtypes. The decode form writes the state over
 its own s0. A reduced-width 4-layer RWKV-6 prefill launches it once a
 layer, and decode once a layer a step, with logits matching the CPU's.
 
+The Mamba scan kernel is held to the step loop ``ref.mamba_scan_ref``: both
+take every product in float32 (a bf16 x widened exactly) and sum over n in
+other orders (the kernel with fused multiply-adds), so y and h_last are
+held to 1e-5 of max(1, max |plain|). The state may be written over its own
+h0. A reduced-width 8-layer Jamba prefill launches it once a Mamba layer
+(7) and decode never, with logits matching the CPU's.
+
+The fused SwiGLU kernel takes its three products in float32 from the
+widened inputs and returns x's dtype; it is held to ``ref.swiglu_ref`` on
+the inputs widened to float32, summed in another order: 1e-5 of
+max(1, max |plain|) for float32, one bf16 step (2^-8) for bf16 output.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -64,8 +76,10 @@ from repro_torch.kernels import (
     accum_flush,
     fed_agg,
     flash_attention,
+    mamba_scan,
     ops,
     ref,
+    swiglu,
     train_step,
     waterfill,
     wkv6,
@@ -674,3 +688,192 @@ def test_rwkv6_prefill_and_decode_launch_the_kernel_once_a_layer(dev):
         assert err <= 1e-4 * want.abs().max().item(), err
     got, want = (out[name][4]["blocks"][0]["mixer"]["wkv"] for name in ("card", "cpu"))
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# b, s, d, n, x dtype, with h0
+MAMBA_CASES = {
+    "jamba_like": (2, 100, 300, 16, torch.bfloat16, False),
+    "ragged_state": (3, 37, 129, 16, torch.float32, True),
+    "state8": (2, 50, 64, 8, torch.float32, True),
+    "state8_bf16": (1, 33, 200, 8, torch.bfloat16, True),
+    "one_step": (4, 1, 256, 16, torch.bfloat16, True),
+    "empty_seq": (2, 0, 96, 16, torch.float32, True),
+    "empty_seq_no_state": (2, 0, 96, 8, torch.float32, False),
+}
+MAMBA_TOL = 1e-5
+
+
+def _mamba_args(b, s, d, n, xdtype, with_state, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    dt = t(np.log1p(np.exp(-4.6 + 2.0 * rng.standard_normal((b, s, d)))))
+    x = t(rng.standard_normal((b, s, d))).to(xdtype)
+    bm, cm = (t(rng.standard_normal((b, s, n))) for _ in range(2))
+    a = t(-np.exp(np.log(np.arange(1, n + 1))[None, :] + 0.1 * rng.standard_normal((d, n))))
+    h0 = t(rng.standard_normal((b, d, n))) if with_state else None
+    return dt, x, bm, cm, a, h0
+
+
+@pytest.mark.parametrize("case", sorted(MAMBA_CASES))
+def test_mamba_scan_kernel_matches_plain(dev, case):
+    b, s, d, n, xdtype, with_state = MAMBA_CASES[case]
+    args = _mamba_args(b, s, d, n, xdtype, with_state, seed=s + d, dev=dev)
+    mamba_scan.launches = 0
+    y, h_last = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == 1
+    assert y.dtype == h_last.dtype == torch.float32
+    assert y.shape == (b, s, d) and h_last.shape == (b, d, n)
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    _wkv_close(y, want_y)
+    _wkv_close(h_last, want_h)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_scan_kernel_updates_the_state_in_place(dev, xdtype):
+    """h_last written over h0, a slice of a stacked cache; the slice's
+    neighbours stay."""
+    dt, x, bm, cm, a, h0 = _mamba_args(2, 20, 160, 16, xdtype, True, seed=11, dev=dev)
+    stacked = torch.stack([h0 + 1.0, h0, h0 - 1.0])
+    before = stacked.clone()
+    want_y, want_h = ref.mamba_scan_ref(dt, x, bm, cm, a, h0)
+    y, h_last = mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a, stacked[1], out_state=stacked[1])
+    torch.cuda.synchronize()
+    assert h_last.data_ptr() == stacked[1].data_ptr()
+    _wkv_close(y, want_y)
+    _wkv_close(stacked[1], want_h)
+    assert torch.equal(stacked[0], before[0]) and torch.equal(stacked[2], before[2])
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take(dev):
+    dt, x, bm, cm, a, h0 = _mamba_args(2, 5, 64, 16, torch.float32, True, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="x must be"):
+        mamba_scan.mamba_scan_cuda(dt, x.double(), bm, cm, a, h0)
+    with pytest.raises(ValueError, match="dt must be"):
+        mamba_scan.mamba_scan_cuda(dt.bfloat16(), x, bm, cm, a, h0)
+    with pytest.raises(ValueError, match="state dim"):
+        mamba_scan.mamba_scan_cuda(dt, x, bm[..., :12].contiguous(), cm[..., :12].contiguous(),
+                                   a[:, :12].contiguous(), None)
+    with pytest.raises(ValueError, match="a must be"):
+        mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a[:1], h0)
+    with pytest.raises(ValueError, match="h0 must be"):
+        mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a, h0[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan.mamba_scan_cuda(dt.transpose(1, 2).contiguous().transpose(1, 2), x, bm, cm,
+                                   a, h0)
+    with pytest.raises(ValueError, match="one device"):
+        mamba_scan.mamba_scan_cuda(dt, x, bm.cpu(), cm, a, h0)
+    shifted = torch.empty(h0.numel() + 1, device=dev)[1:].view(h0.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        mamba_scan.mamba_scan_cuda(dt, x, bm, cm, a, h0, out_state=shifted)
+
+
+def test_mamba_scan_kernel_counts_no_launch_for_an_empty_batch(dev):
+    args = _mamba_args(0, 5, 64, 16, torch.float32, True, seed=0, dev=dev)
+    mamba_scan.launches = 0
+    y, h_last = mamba_scan.mamba_scan_cuda(*args)
+    assert mamba_scan.launches == 0
+    assert y.shape == (0, 5, 64) and h_last.shape == (0, 64, 16)
+
+
+def test_jamba_prefill_launches_the_scan_once_a_mamba_layer(dev):
+    """An 8-layer Jamba (one period: 7 Mamba layers and attention at layer
+    4, MoE every other layer) at the reduced width: 7 scan and 1 attention
+    launches a prefill, none in decode; prefill and decode logits, the
+    load-balance loss and the SSM states match the CPU's run of the same
+    weights."""
+    cfg = dataclasses.replace(get_reduced("jamba-v0.1-52b"), num_layers=8, attn_every=8)
+    card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params = card.init(0)
+    params_cpu = cpu.init(0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    with torch.inference_mode():
+        for name, m, p in (("card", card, params), ("cpu", cpu, params_cpu)):
+            mamba_scan.launches = flash_attention.launches = 0
+            logits, cache, aux = m.prefill(p, {"tokens": tokens.to(m.device)}, max_len=44)
+            prefill_launches = (mamba_scan.launches, flash_attention.launches)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            steps = []
+            mamba_scan.launches = flash_attention.launches = 0
+            for i in range(4):
+                step, cache = m.decode(p, cache, tok, 40 + i)
+                tok = torch.argmax(step[:, -1:], dim=-1)
+                steps.append(step.cpu())
+            out[name] = (logits.cpu(), steps, prefill_launches,
+                         (mamba_scan.launches, flash_attention.launches), float(aux),
+                         tree_to_numpy(cache))
+    assert out["card"][2:4] == ((7, 1), (0, 0)) and out["cpu"][2:4] == ((0, 0), (0, 0))
+    for got, want in zip([out["card"][0], *out["card"][1]], [out["cpu"][0], *out["cpu"][1]]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    assert abs(out["card"][4] - out["cpu"][4]) <= 1e-4 * out["cpu"][4]
+    got, want = (out[name][5]["blocks"][0]["mixer"]["ssm"] for name in ("card", "cpu"))
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# m, d, f, dtype
+SWIGLU_CASES = {
+    "ragged_f32": (100, 96, 300, torch.float32),
+    "ragged_bf16": (70, 128, 520, torch.bfloat16),
+    "one_row": (1, 64, 256, torch.float32),
+    "many_splits_bf16": (64, 64, 1100, torch.bfloat16),
+    "odd_d": (33, 70, 130, torch.float32),
+}
+SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
+
+
+def _swiglu_args(m, d, f, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+    return (t(rng.standard_normal((m, d))), t(rng.standard_normal((d, f)) / np.sqrt(d)),
+            t(rng.standard_normal((d, f)) / np.sqrt(d)),
+            t(rng.standard_normal((f, d)) / np.sqrt(f)))
+
+
+@pytest.mark.parametrize("case", sorted(SWIGLU_CASES))
+def test_swiglu_kernel_matches_plain(dev, case):
+    m, d, f, dtype = SWIGLU_CASES[case]
+    args = _swiglu_args(m, d, f, dtype, seed=m + f, dev=dev)
+    swiglu.launches = 0
+    got = ops.swiglu_fused(*args)
+    torch.cuda.synchronize()
+    assert swiglu.launches == 1
+    assert got.dtype == dtype and got.shape == (m, d)
+    want = ref.swiglu_ref(*(a.float() for a in args))
+    err = (got.float() - want).abs().max().item()
+    assert err <= SWIGLU_TOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+def test_swiglu_kernel_takes_leading_axes(dev):
+    x, wg, wu, wd = _swiglu_args(24, 64, 256, torch.bfloat16, seed=3, dev=dev)
+    got = swiglu.swiglu_cuda(x.reshape(2, 3, 4, 64), wg, wu, wd)
+    assert got.shape == (2, 3, 4, 64)
+    assert torch.equal(got.reshape(24, 64), swiglu.swiglu_cuda(x, wg, wu, wd))
+
+
+def test_swiglu_kernel_refuses_what_it_does_not_take(dev):
+    x, wg, wu, wd = _swiglu_args(8, 64, 128, torch.float32, seed=0, dev=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        swiglu.swiglu_cuda(x.double(), wg, wu, wd)
+    with pytest.raises(ValueError, match="dtype"):
+        swiglu.swiglu_cuda(x, wg.bfloat16(), wu, wd)
+    with pytest.raises(ValueError, match="w_down must be"):
+        swiglu.swiglu_cuda(x, wg, wu, wd[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        swiglu.swiglu_cuda(x, wg.t().contiguous().t(), wu, wd)
+    with pytest.raises(ValueError, match="one device"):
+        swiglu.swiglu_cuda(x, wg, wu.cpu(), wd)
+
+
+def test_swiglu_kernel_counts_no_launch_for_no_rows(dev):
+    x, wg, wu, wd = _swiglu_args(0, 64, 128, torch.float32, seed=0, dev=dev)
+    swiglu.launches = 0
+    got = swiglu.swiglu_cuda(x, wg, wu, wd)
+    assert swiglu.launches == 0 and got.shape == (0, 64)

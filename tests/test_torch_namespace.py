@@ -29,8 +29,6 @@ import repro_torch
 
 ITEM_10 = "ROADMAP Queue 1 item 10 (multi-tenant)"
 ITEM_11 = "ROADMAP Queue 1 item 11 (fleet)"
-ITEM_12C = "ROADMAP Queue 1 item 12c (Jamba/MoE serve)"
-ITEM_12D = "ROADMAP Queue 1 item 12d (fused SwiGLU)"
 ITEM_12E = "ROADMAP Queue 1 item 12e (training)"
 ITEM_13 = "ROADMAP Queue 1 item 13 (dry-run, roofline)"
 
@@ -47,10 +45,7 @@ DEFERRED = {
         "multi_model_sweep": ITEM_10, "laggard_time_to_accuracy": ITEM_10,
         "fleet_scale_sweep": ITEM_11,
     },
-    "repro_torch.kernels.ops": {"mamba_scan": ITEM_12C, "swiglu_fused": ITEM_12D},
-    "repro_torch.kernels.ref": {"mamba_scan_ref": ITEM_12C, "swiglu_ref": ITEM_12D},
     "repro_torch.models.decoder": {"lm_loss": ITEM_12E},
-    "repro_torch.models.ffn": {"moe_apply": ITEM_12C, "moe_specs": ITEM_12C},
 }
 
 # public methods of the reference's classes that the port's lack as yet
@@ -63,6 +58,8 @@ REPLACED = {
     "repro_torch.core.solver_batched": {"TRACED_POLICIES": "POLICIES"},
     "repro_torch.kernels.fed_agg": {"fed_agg_pallas": "fed_agg_cuda"},
     "repro_torch.kernels.flash_attention": {"flash_attention_pallas": "flash_attention_cuda"},
+    "repro_torch.kernels.mamba_scan": {"mamba_scan_pallas": "mamba_scan_cuda"},
+    "repro_torch.kernels.swiglu": {"swiglu_pallas": "swiglu_cuda"},
     "repro_torch.kernels.train_step": {"train_agg_step_pallas": "train_agg_step_cuda"},
     "repro_torch.kernels.wkv6": {"wkv6_pallas": "wkv6_cuda"},
     "repro_torch.kernels.waterfill": {

@@ -13,6 +13,10 @@ projected-gradient ``pgd``) against the JAX reference, on the CPU.
   max staleness within ``STALENESS_TOL``, on the energy-blind fleets
   below. The integer tail is held bitwise on its own: from the
   reference's relaxed ``d`` the port gives the reference's ``(tau, d)``.
+  On the (3, 0) fleet the reference's float64 policy row is itself
+  chaotic: one ulp of its deadline moves its max staleness by 2, and its
+  row follows the CPU ISA that XLA compiles for
+  (``test_reference_pgd_row_is_chaotic``).
 * Budgeted ``pgd`` (energy rows): over short runs its relaxed stage (the
   affordability-tightened box, the budget-capped relaxed tau) is held at
   ``SHORT_RTOL``, and the integer allocations and the policy's
@@ -284,6 +288,27 @@ def test_reference_pgd_is_chaotic():
         _, d_b = run(d0 * (1.0 + 1e-15), *args)
     spread = float(np.abs(np.asarray(d_a) - np.asarray(d_b)).max())
     assert 0.1 < spread <= D_TOL
+
+
+def test_reference_pgd_row_is_chaotic():
+    """The reference's own float64 ``pgd`` policy row on the (3, 0) fleet,
+    with the deadline T moved by up to three float64 ulps either way: its
+    max staleness spans more than ``STALENESS_TOL`` (0 to 2 on the machines
+    measured). Its row at T itself also follows the CPU's vector ISA, which
+    XLA compiles for: 1 where XLA may not fuse multiply-adds (AVX), 0 where
+    it does (AVX2, AVX-512), while the port's row does not move with
+    torch's CPU kernels (2 under each). So
+    ``test_full_pgd_runs_stay_within_tolerance[3-0]`` passes or fails with
+    the machine, and no tolerance on max staleness can hold there."""
+    pj, _ = _pair(3, 0)
+    tm = pj.time_model
+    ts = [float(pj.T)]
+    for _ in range(3):
+        ts = [float(np.nextafter(ts[0], -np.inf))] + ts + [float(np.nextafter(ts[-1], np.inf))]
+    stale = [max_staleness(jx_orch.solve_policy_row(
+        "pgd", tm.c2, tm.c1, tm.c0, dataclasses.replace(pj, T=t), label="x")[0])
+        for t in ts]
+    assert max(stale) - min(stale) > STALENESS_TOL
 
 
 @pytest.mark.parametrize("k,seed", [(3, 0), (4, 1), (6, 2)])
