@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. print the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
   2. ``fed_agg`` kernel vs its plain version at the paper model's leaf
-     shapes (K = 10), with kernel, plain and ``torch.tensordot`` times;
+     shapes (K = 10): all 8 leaves in one launch, each bitwise the
+     single-leaf launch's, timed against one launch a leaf, the plain
+     version and the 8 ``torch.tensordot`` calls;
   3. ``train_agg_step`` kernel vs its plain version (autograd) for one
      cycle at full width: the [784, 300, 124, 60, 10] MLP, K = 10 learners
      with the allocation ``solve_kkt_sai`` gives the paper's fleet;
@@ -71,7 +73,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
         shapes of Llama-3.2-3B (B 4, S 2048, 24/8 heads, d 128, causal, bf16
         and float32), a ragged S = 1000, and H2O-Danube-1.8B (B 1, S 8192,
         32/8 heads, d 80, window 4096, bf16), with kernel, plain, bound and
-        ``scaled_dot_product_attention`` times;
+        ``scaled_dot_product_attention`` times and TFLOP/s; each bf16 case
+        also against the float32 kernel on the widened inputs (within one
+        bf16 step of the output's scale);
      b. the serve: ``Model(get_config("llama3.2-3b"))`` with weights drawn
         from the seed, ``serve.prefill`` of 4 x 2048 tokens and
         ``serve.decode`` of 31 greedy steps, through the kernel (28 launches
@@ -440,15 +444,21 @@ def main() -> int:
         shapes += [(K, fi, fo), (K, fo)]
     leaves = [torch.randn(s, generator=gen, device=dev) for s in shapes]
     wts = torch.softmax(torch.randn(K, generator=gen, device=dev), 0)
+    # every leaf in one launch: each leaf bitwise the single-leaf launch's,
+    # and within FED_AGG_TOL of the plain version
     fa_err = 0.0
-    for leaf in leaves:
-        got = fed_agg.fed_agg_cuda(leaf, wts)
+    for leaf, got in zip(leaves, fed_agg.fed_agg_leaves_cuda(leaves, wts)):
+        require(torch.equal(got, fed_agg.fed_agg_cuda(leaf, wts)),
+                "the all-leaf fed_agg launch differs from the single-leaf launch")
         want = ref.fed_agg_ref(leaf, wts)
         err = (got - want).abs().max().item()
         require(err <= FED_AGG_TOL * max(1.0, want.abs().max().item()),
                 f"fed_agg kernel differs from its plain version by {err:g}")
         fa_err = max(fa_err, err)
-    fa_ms = cuda_ms(lambda: [fed_agg.fed_agg_cuda(x, wts) for x in leaves], 200)
+    fa_ms = cuda_ms(lambda: fed_agg.fed_agg_leaves_cuda(leaves, wts), 200)
+    fa_dev_ms = kernel_device_ms(lambda: fed_agg.fed_agg_leaves_cuda(leaves, wts),
+                                 "fed_agg_kernel", 20)
+    fa_leaf_ms = cuda_ms(lambda: [fed_agg.fed_agg_cuda(x, wts) for x in leaves], 200)
     fa_plain_ms = cuda_ms(lambda: [ref.fed_agg_ref(x, wts) for x in leaves], 200)
     fa_lib_ms = cuda_ms(lambda: [torch.tensordot(wts, x, dims=1) for x in leaves], 200)
     n_params = sum(math.prod(s[1:]) for s in shapes)
@@ -456,8 +466,11 @@ def main() -> int:
     fa_flops = 2 * K * n_params
     fa_bound_ms = 1e3 * max(fa_bytes / PEAK_BYTES_PER_S, fa_flops / PEAK_FP32_FLOPS)
     print(f"fed_agg: {len(shapes)} leaves, {n_params} params, max_abs_err "
-          f"{fa_err:.3g}; kernel {fa_ms:.4f} ms, plain {fa_plain_ms:.4f} ms, "
-          f"tensordot {fa_lib_ms:.4f} ms, bound {fa_bound_ms:.4f} ms (bytes)")
+          f"{fa_err:.3g}; one launch for all leaves {fa_ms:.4f} ms ({fa_dev_ms:.4f} ms of "
+          f"device time, torch.profiler), one launch a leaf {fa_leaf_ms:.4f} ms, plain "
+          f"{fa_plain_ms:.4f} ms, {len(shapes)} tensordot {fa_lib_ms:.4f} ms, bound "
+          f"{fa_bound_ms:.4f} ms (bytes); all-leaf launch "
+          f"{'below' if fa_ms < fa_lib_ms else 'NOT below'} the tensordots")
 
     # -- 3. train_agg_step for one cycle at full width --------------------------
     prob = build_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
@@ -530,7 +543,7 @@ def main() -> int:
         runs[mode]["ms_per_cycle"] = 1e3 * (time.perf_counter() - t0) / CYCLES
         if mode == "fused":
             launches = {"train_agg_step": train_step.launches, "fed_agg": fed_agg.launches}
-    require(launches == {"train_agg_step": CYCLES, "fed_agg": CYCLES * 2 * len(mats)},
+    require(launches == {"train_agg_step": CYCLES, "fed_agg": CYCLES},
             f"the fused run's kernel launches were {launches}")
     fused_h, eager_h = runs["fused"]["history"], runs["eager"]["history"]
     acc_f = [h["accuracy"] for h in fused_h]
@@ -559,7 +572,7 @@ def main() -> int:
           f"{runs['fused']['ms_per_cycle']:.1f} (first run), {warm_ms:.1f} (warm), eager "
           f"{runs['eager']['ms_per_cycle']:.1f}")
 
-    wf = realloc_phase(dev, train, test, fed_agg_per_cycle=2 * len(mats))
+    wf = realloc_phase(dev, train, test)
     async_rows = async_phase(dev, train, test, leaves=2 * len(mats), row_flops=row_flops)
     energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
     attention_row = serve_phase(dev)
@@ -595,7 +608,7 @@ def main() -> int:
     return 0
 
 
-def realloc_phase(dev, train, test, *, fed_agg_per_cycle: int) -> dict:
+def realloc_phase(dev, train, test) -> dict:
     """Phase 5; returns the waterfill kernel's entry of the kernels line."""
     import numpy as np
     import torch
@@ -756,7 +769,7 @@ def realloc_phase(dev, train, test, *, fed_agg_per_cycle: int) -> dict:
         # a re-solve launches the kernel at tau = 0 (feasibility) and at the
         # first bracket tau = 1, then once a grow and once a bisection step
         n_wf = sum(2 + s.rounds["grow"] + s.rounds["bisection"] for s in solves)
-        want = {"fused": {"train_agg_step": CYCLES, "fed_agg": CYCLES * fed_agg_per_cycle,
+        want = {"fused": {"train_agg_step": CYCLES, "fed_agg": CYCLES,
                           "waterfill_residual": n_wf},
                 "eager": {"train_agg_step": 0, "fed_agg": 0, "waterfill_residual": n_wf}}
         runs = {}
@@ -1517,8 +1530,9 @@ def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
 
 
 def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict:
-    """Phase 8a, one case: the kernel against its plain version, timed with
-    its plain version, its bound and ``scaled_dot_product_attention``."""
+    """Phase 8a, one case: the kernel against its plain version (in bf16
+    also against the float32 kernel), timed with its plain version, its
+    bound and ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
@@ -1544,6 +1558,17 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
     tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
     require(err <= tol * scale, f"{name}: the kernel differs from its plain version "
             f"({plain_name}) by {err:g} > {tol} x {scale:g}")
+    f32_step_err = None
+    if dtype == torch.bfloat16:
+        # the tensor-core kernel against the float32 (CUDA-core) kernel on the
+        # same inputs widened: within one bf16 step of the output's scale
+        f32 = flash_attention.flash_attention_cuda(q.float(), k.float(), v.float(), **kw)
+        f32 = f32.to(torch.bfloat16).float()
+        f32_step_err = (got.float() - f32).abs().max().item()
+        step = 2.0 ** (math.floor(math.log2(f32.abs().max().item())) - 7)
+        del f32
+        require(f32_step_err <= step, f"{name}: the bf16 kernel differs from the float32 "
+                f"kernel by {f32_step_err:g}, more than one bf16 step ({step:g})")
     ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, **kw), iters)
     plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), max(2, iters // 4))
     # the library call, in its (B, H, S, d) layout; a window goes in as a
@@ -1577,7 +1602,9 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max_abs_err "
           f"{lib_err:.3g}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
           f"{flops:.4g} FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
-          f"{flops / (ms * 1e9):.1f} TFLOP/s")
+          f"{flops / (ms * 1e9):.1f} TFLOP/s, sdpa at {flops / (library_ms * 1e9):.1f}"
+          + ("" if f32_step_err is None else
+             f"; vs the float32 kernel {f32_step_err:.3g} (<= one bf16 step)"))
     return row
 
 

@@ -1,4 +1,5 @@
-// Staleness-weighted federated aggregation: out[i] = sum_k w[k] * x[k][i].
+// Staleness-weighted federated aggregation: out[i] = sum_k w[k] * x[k][i],
+// for every leaf of a model in one launch.
 //
 // Replaces the Pallas TPU kernel `fed_agg_pallas`
 // (src/repro/kernels/fed_agg.py:30), which streams (K, block_n) tiles of
@@ -6,14 +7,18 @@
 //
 // Bound: memory. The pass reads K * n floats and writes n; it does 2 FLOPs
 // per element read, far below the card's ~20 FLOP/byte FP32 balance point.
-// For the paper's model (280,934 parameters, K = 10) that is 12.4 MB, about
-// 3.7 us at 3.35 TB/s, so at these sizes the launch costs more than the
-// bytes.
+// For the paper's model (280,934 parameters in 8 leaves, K = 10) that is
+// 12.4 MB, about 3.7 us at 3.35 TB/s, so at these sizes the launch costs
+// more than the bytes: one launch takes every leaf of an aggregation.
 //
-// Design: one thread per output element in a grid-stride loop, so each of
-// the K rows is read once, coalesced across the warp. The sum runs over k in
-// order 0..K-1 in float32 with every product rounded before it is added
-// (no fused multiply-add), which is the reference's arithmetic.
+// Design: the leaves' pointers and sizes travel in one by-value kernel
+// parameter (at most MAX_LEAVES leaves). The threads walk the leaves'
+// concatenated index space in one grid-stride pass, one thread per output
+// element, so each of the K rows of a leaf is read once, coalesced across
+// the warp. The sum runs over k in order 0..K-1 in float32 with every
+// product rounded before it is added (no fused multiply-add), which is the
+// reference's arithmetic; a leaf's result is therefore the same bits
+// whether it is aggregated alone or with others.
 //
 // C interface for ctypes; returns a cudaError_t code (0 on success).
 
@@ -21,30 +26,61 @@
 
 namespace {
 
-__global__ void fed_agg_kernel(const float* __restrict__ x,
-                               const float* __restrict__ w,
-                               float* __restrict__ out, int k, long long n) {
+constexpr int MAX_LEAVES = 32;
+
+struct Leaves {
+  const float* x[MAX_LEAVES];  // (K, n[l]) each
+  float* out[MAX_LEAVES];      // (n[l]) each
+  long long start[MAX_LEAVES]; // offset of leaf l in the concatenated index space
+  long long n[MAX_LEAVES];
+  int count;
+};
+
+__global__ void fed_agg_kernel(const __grid_constant__ Leaves lv, const float* __restrict__ w,
+                               int k) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(w[j], x[(long long)j * n + i]));
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int l = 0; l < lv.count; ++l) {
+    const float* __restrict__ x = lv.x[l];
+    float* __restrict__ out = lv.out[l];
+    const long long n = lv.n[l];
+    // this thread's first index in leaf l of the grid-stride walk over the
+    // concatenated space: (start + i) = t (mod stride)
+    long long i = (t - lv.start[l]) % stride;
+    if (i < 0) i += stride;
+    for (; i < n; i += stride) {
+      float acc = 0.0f;
+      for (int j = 0; j < k; ++j) {
+        acc = __fadd_rn(acc, __fmul_rn(w[j], x[(long long)j * n + i]));
+      }
+      out[i] = acc;
     }
-    out[i] = acc;
   }
 }
 
 }  // namespace
 
-extern "C" int fed_agg_f32(const float* x, const float* w, float* out, int k,
-                           long long n, void* stream) {
-  if (n <= 0) return 0;
+// xs[l]: (k, ns[l]) float32, outs[l]: (ns[l]) float32, w: (k) float32, all
+// on the card; 1 <= count <= MAX_LEAVES (32, kernels/fed_agg.py's too).
+extern "C" int fed_agg_leaves_f32(const float* const* xs, float* const* outs,
+                                  const long long* ns, int count, const float* w, int k,
+                                  void* stream) {
+  if (count < 1 || count > MAX_LEAVES) return (int)cudaErrorInvalidValue;
+  Leaves lv;
+  long long total = 0;
+  for (int l = 0; l < count; ++l) {
+    lv.x[l] = xs[l];
+    lv.out[l] = outs[l];
+    lv.start[l] = total;
+    lv.n[l] = ns[l];
+    total += ns[l];
+  }
+  lv.count = count;
+  if (total <= 0) return 0;
   const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
+  long long blocks = (total + threads - 1) / threads;
   if (blocks > 132LL * 16) blocks = 132LL * 16;
-  fed_agg_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      x, w, out, k, n);
+  fed_agg_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(lv, w, k);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 
 Replaces the Pallas TPU kernel ``fed_agg_pallas``
 (``repro/kernels/fed_agg.py:30``); the source, with its bound and design,
-is ``csrc/fed_agg.cu``. The plain torch version is
+is ``csrc/fed_agg.cu``. One launch aggregates every leaf it is given
+(``fed_agg_leaves_cuda``, at most ``MAX_LEAVES``); ``fed_agg_cuda`` is one
+leaf through the same launch. The plain torch version is
 ``repro_torch.kernels.ref.fed_agg_ref``; ``ops.fed_agg`` picks between the
 two by the tensors' device.
 
@@ -14,47 +16,78 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["fed_agg_cuda", "launches"]
+__all__ = ["MAX_LEAVES", "fed_agg_cuda", "fed_agg_leaves_cuda", "launches"]
 
 launches = 0
+MAX_LEAVES = 32  # the kernel parameter's capacity (csrc/fed_agg.cu)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("fed_agg")
-    lib.fed_agg_f32.restype = ctypes.c_int
-    lib.fed_agg_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.fed_agg_leaves_f32.restype = ctypes.c_int
+    lib.fed_agg_leaves_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p]
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def fed_agg_cuda(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """``sum_k weights[k] * stacked[k]`` on the card. ``stacked`` is a
-    contiguous float32 (K, ...) CUDA tensor, ``weights`` a contiguous
-    float32 (K,) tensor on the same device."""
-    global launches
-    if not (stacked.is_cuda and weights.device == stacked.device):
+def _check(x: torch.Tensor, weights: torch.Tensor) -> None:
+    if not (x.is_cuda and weights.device == x.device):
         raise ValueError("fed_agg_cuda takes CUDA tensors on one device")
-    if stacked.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise ValueError(f"fed_agg_cuda takes float32, got {stacked.dtype}, {weights.dtype}")
-    if stacked.dim() < 1 or weights.shape != stacked.shape[:1]:
+    if x.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise ValueError(f"fed_agg_cuda takes float32, got {x.dtype}, {weights.dtype}")
+    if x.dim() < 1 or weights.shape != x.shape[:1]:
         raise ValueError(f"weights {tuple(weights.shape)} do not match the learner "
-                         f"axis of {tuple(stacked.shape)}")
-    if not (stacked.is_contiguous() and weights.is_contiguous()):
+                         f"axis of {tuple(x.shape)}")
+    if not (x.is_contiguous() and weights.is_contiguous()):
         raise ValueError("fed_agg_cuda takes contiguous tensors")
-    out = torch.empty(stacked.shape[1:], dtype=stacked.dtype, device=stacked.device)
+
+
+def fed_agg_leaves_cuda(leaves: list[torch.Tensor], weights: torch.Tensor) -> list[torch.Tensor]:
+    """``[sum_k weights[k] * x[k] for x in leaves]`` on the card, in one
+    launch. Each leaf is a contiguous float32 (K, ...) CUDA tensor with one
+    K, ``weights`` a contiguous float32 (K,) tensor on the same device; at
+    most ``MAX_LEAVES`` leaves. The outputs are contiguous views of one
+    buffer."""
+    global launches
+    if not 1 <= len(leaves) <= MAX_LEAVES:
+        raise ValueError(f"fed_agg_leaves_cuda takes 1 to {MAX_LEAVES} leaves a launch, "
+                         f"got {len(leaves)}")
+    for x in leaves:
+        _check(x, weights)
+    # the outputs are views of one buffer (one allocation, not one a leaf),
+    # each starting on a 16-byte boundary
+    sizes = [math.prod(x.shape[1:]) for x in leaves]
+    starts = list(itertools.accumulate(((n + 3) // 4 * 4 for n in sizes), initial=0))
+    flat = torch.empty(starts[-1], dtype=torch.float32, device=weights.device)
+    outs = [flat[a:a + n].view(x.shape[1:]) for a, n, x in zip(starts, sizes, leaves)]
+    if starts[-1] == 0:
+        return outs
+    n = len(leaves)
     lib = _lib()
-    with torch.cuda.device(stacked.device):
+    with torch.cuda.device(weights.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fed_agg_f32(stacked.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                               stacked.shape[0], out.numel(), stream)
+        code = lib.fed_agg_leaves_f32(
+            (ctypes.c_void_p * n)(*[x.data_ptr() for x in leaves]),
+            (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
+            (ctypes.c_longlong * n)(*sizes), n, weights.data_ptr(), weights.shape[0], stream)
     _build.check(lib, code, "fed_agg kernel launch")
     launches += 1
-    return out
+    return outs
+
+
+def fed_agg_cuda(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``sum_k weights[k] * stacked[k]`` on the card, one launch of the
+    all-leaf kernel. ``stacked`` is a contiguous float32 (K, ...) CUDA
+    tensor, ``weights`` a contiguous float32 (K,) tensor on the same device."""
+    return fed_agg_leaves_cuda([stacked], weights)[0]

@@ -1,8 +1,12 @@
-"""CUDA kernel for GQA flash attention (forward, causal, optional window).
+"""CUDA kernels for GQA flash attention (forward, causal, optional window).
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas``
 (``repro/kernels/flash_attention.py:91``); the source, with its bound and
-design, is ``csrc/flash_attention.cu``. The plain torch versions are the
+design, is ``csrc/flash_attention.cu``: bf16 operands run on the tensor
+cores (wgmma, TMA loads), float32 operands on the CUDA cores. The
+tensor-core kernel's TMA maps need a 16-byte-aligned base and row
+strides, which every contiguous input with d in ``HEAD_DIMS`` has. The
+plain torch versions are the
 dense ``repro_torch.kernels.ref.flash_attention_ref`` (the oracle) and the
 chunked scan ``repro_torch.models.layers.flash_attention``, which
 ``ops.flash_attention`` runs for a CPU tensor.

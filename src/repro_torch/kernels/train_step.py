@@ -5,8 +5,8 @@ Replaces the Pallas TPU megakernel ``train_agg_step_pallas``
 ``tau_k`` masked gradient steps of the MLP's masked mean NLL from its own
 parameters, then
 
-* cycle form: the trained learners are aggregated with weights ``w``, the
-  ``fed_agg`` kernel once per leaf;
+* cycle form: the trained learners are aggregated with weights ``w``, one
+  ``fed_agg`` launch for every leaf;
 * async form (``server``, ``acc``, ``keep``, ``flush`` given): they are
   folded into the accumulator and the flush applied, the ``accum_flush``
   kernel once per leaf.
@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.accum_flush import accum_flush_cuda
-from repro_torch.kernels.fed_agg import fed_agg_cuda
+from repro_torch.kernels.fed_agg import fed_agg_leaves_cuda
 
 __all__ = ["train_agg_step_cuda", "launches"]
 
@@ -128,8 +128,9 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
     _build.check(lib, code, "train_agg_step kernel launch")
     launches += 1
     if acc is None:
-        return [{name: fed_agg_cuda(leaf, weights) for name, leaf in layer.items()}
-                for layer in work], None
+        agg = iter(fed_agg_leaves_cuda([leaf for layer in work for leaf in layer.values()],
+                                       weights))
+        return [{name: next(agg) for name in layer} for layer in work], None
     pairs = [{name: accum_flush_cuda(leaf, weights, acc[l][name], server[l][name],
                                      keep, flush)
               for name, leaf in layer.items()} for l, layer in enumerate(work)]

@@ -28,9 +28,18 @@ The flash-attention kernel is held to the dense oracle
 ``ref.flash_attention_ref`` on the card. Both compute in float32 and add in
 other orders (the kernel tile by tile with a running max), so float32 is
 held to 1e-5 of max(1, max |oracle|); in bfloat16 the only rounding that
-differs is the output's, one bf16 step (2^-8 relative), so 1e-2. A
-reduced-width 28-layer dense prefill on the card launches it once a layer
-and decode never, and its logits match the CPU's run of the same weights.
+differs is the output's, one bf16 step (2^-8 relative), so 1e-2. The bf16
+kernel (tensor cores, p split into two bf16 parts) is also held to the
+float32 kernel on the same inputs widened: the float32 kernel's output
+rounded to bf16 may differ from it by one bf16 step of the output's scale
+and no more, which a p rounded to bf16 once would not hold. Two launches
+on the same inputs give the same bits. A reduced-width 28-layer dense
+prefill on the card launches it once a layer and decode never, and its
+logits match the CPU's run of the same weights.
+
+The all-leaf ``fed_agg`` launch sums over k in order with every product
+rounded, so each leaf is bitwise the in-order per-leaf sum, and the
+single-leaf launch; a fused cycle aggregates every leaf in one launch.
 
 The WKV-6 kernel is held to the step loop ``ref.wkv6_ref`` on the card:
 both take every product in float32 from the same inputs and sum over i in
@@ -64,6 +73,7 @@ holds the full paper-width cycle to 1e-4 of each leaf's scale).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -85,6 +95,7 @@ from repro_torch.kernels import (
     wkv6,
 )
 from repro_torch.models import mlp
+from repro_torch.models.layers import flash_attention as chunked_attention
 from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
@@ -128,6 +139,46 @@ def test_fed_agg_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(got, ref.fed_agg_ref(x, w), rtol=1e-6, atol=1e-6)
 
 
+# the paper MLP's 8 leaves, and ragged sizes with an empty leaf
+FED_AGG_LEAVES = {
+    "paper_mlp": [(784, 300), (300,), (300, 124), (124,), (124, 60), (60,), (60, 10), (10,)],
+    "ragged": [(1,), (257,), (3, 5, 7), (0, 4), (1000, 3), (33,)],
+}
+
+
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("case", sorted(FED_AGG_LEAVES))
+def test_fed_agg_all_leaf_launch_is_the_per_leaf_sum_bitwise(dev, case, k):
+    gen = torch.Generator(device=dev).manual_seed(k + len(case))
+    leaves = [torch.randn((k, *shape), generator=gen, device=dev)
+              for shape in FED_AGG_LEAVES[case]]
+    w = torch.softmax(torch.randn(k, generator=gen, device=dev), 0)
+    fed_agg.launches = 0
+    got = fed_agg.fed_agg_leaves_cuda(leaves, w)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == 1
+    for g, x in zip(got, leaves):
+        want = torch.zeros(x.shape[1:], device=dev)
+        for j in range(k):  # in order, each product rounded before the add
+            want = want + w[j] * x[j]
+        assert g.shape == x.shape[1:] and torch.equal(g, want)
+        assert torch.equal(g, fed_agg.fed_agg_cuda(x, w))
+        torch.testing.assert_close(g, ref.fed_agg_ref(x, w), rtol=1e-6, atol=1e-6)
+
+
+def test_fed_agg_all_leaf_launch_refuses_what_it_does_not_take(dev):
+    w = torch.ones(2, device=dev) / 2
+    leaf = torch.randn(2, 3, device=dev)
+    with pytest.raises(ValueError, match=f"1 to {fed_agg.MAX_LEAVES} leaves"):
+        fed_agg.fed_agg_leaves_cuda([leaf] * (fed_agg.MAX_LEAVES + 1), w)
+    with pytest.raises(ValueError, match="learner axis"):
+        fed_agg.fed_agg_leaves_cuda([leaf, torch.randn(3, 3, device=dev)], w)
+    fed_agg.launches = 0
+    got = fed_agg.fed_agg_leaves_cuda([leaf] * fed_agg.MAX_LEAVES, w)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == 1 and all(torch.equal(g, got[0]) for g in got)
+
+
 def test_fed_agg_kernel_refuses_what_it_does_not_take(dev):
     x = torch.randn(3, 8, device=dev)
     w = torch.ones(3, device=dev) / 3
@@ -168,7 +219,7 @@ def test_train_agg_step_kernel_matches_plain(dev, case):
     got, none = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
     torch.cuda.synchronize()
     assert train_step.launches == 1
-    assert fed_agg.launches == 2 * (len(layers) - 1)
+    assert fed_agg.launches == 1  # every leaf in one launch
     want, _ = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, max_tau=max_tau)
     assert none is None
     for g_layer, w_layer in zip(got, want):
@@ -492,6 +543,11 @@ FLASH_CASES = {
     "cross_sq_lt_skv": (2, 70, 130, 4, 2, 128, False, None),
     "cross_sq_gt_skv": (1, 150, 40, 8, 2, 64, False, None),
     "one_row": (1, 1, 1, 2, 1, 128, True, None),
+    "one_row_long_kv": (2, 1, 500, 4, 4, 80, False, None),
+    "gqa3_d64_past_a_block": (1, 129, 129, 3, 1, 64, True, None),
+    "causal_skv_gt_sq": (2, 70, 300, 6, 2, 80, True, None),
+    "window_narrower_than_a_tile": (1, 260, 260, 8, 2, 128, True, 5),
+    "fully_masked_rows": (2, 300, 100, 4, 1, 64, True, 8),
 }
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -513,9 +569,42 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    # the dense oracle's softmax of a row with no allowed key is NaN; the
+    # chunked scan (the CPU's path) gives 0 there, as the kernels do
+    plain = chunked_attention if case == "fully_masked_rows" else ref.flash_attention_ref
+    want = plain(q, k, v, causal=causal, window=window).float()
     err = (got.float() - want).abs().max().item()
     assert err <= FLASH_TOL[dtype] * max(1.0, want.abs().max().item()), err
+
+
+def _bf16_step(scale: float) -> float:
+    """The gap between neighbouring bf16 values at ``scale``."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_bf16_kernel_is_the_f32_kernel_within_a_bf16_step(dev, case):
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(b, sq, skv, h, kvh, d, torch.bfloat16, seed=sq + skv + d, dev=dev)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window).float()
+    f32 = ops.flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                              window=window).to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    err = (got - f32).abs().max().item()
+    assert err <= _bf16_step(f32.abs().max().item()), err
+    if case == "fully_masked_rows":
+        assert bool((got[:, 107:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_repeats_itself_bitwise(dev, case, dtype):
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
+    first = ops.flash_attention(q, k, v, causal=causal, window=window)
+    second = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(dev):

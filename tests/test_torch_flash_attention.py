@@ -120,3 +120,49 @@ def test_fully_masked_rows_give_zero():
                                  window=8).numpy()
     assert np.all(got[:, 23:] == 0) and np.all(pallas[:, 23:] == 0)
     np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+
+
+def _oracle_probs(q, k, causal, window):
+    """The float32 probabilities (B, Sq, KV, G, Skv) of the dense oracle
+    ``ref.flash_attention_ref``, computed as it computes them."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    qg = q.reshape(b, sq, kv, h // kv, d).float()
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.float()) / d**0.5
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return torch.softmax(torch.where(mask[None, :, None, None, :], s, -torch.inf), dim=-1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_probabilities_keep_pv_float32_exact(case):
+    """The bf16 CUDA kernel multiplies V by p_hi = bf16(p) and p_lo =
+    bf16(p - p_hi) in two tensor-core products. With bf16 operands that
+    split keeps P V within 1e-5 of the float32 product's scale (the
+    residual is below 2^-18 of p); rounding p to bf16 once does not, which
+    is why the kernel pays for the second product."""
+    b, sq, skv, h, kvh, d, causal, window, _ = CASES[case]
+    rng = np.random.default_rng(sq * skv + d)
+    q, k, v = (torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))
+               .to(torch.bfloat16)
+               for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    p = _oracle_probs(q, k, causal, window)
+
+    def pv(probs):
+        return torch.einsum("bqkgc,bckd->bqkgd", probs, v.float()).reshape(b, sq, h, d)
+
+    want = pv(p)
+    oracle = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+    assert torch.equal(want, oracle)
+    p_hi = p.to(torch.bfloat16).float()
+    p_lo = (p - p_hi).to(torch.bfloat16).float()
+    scale = want.abs().max().item()
+    split_err = (pv(p_hi) + pv(p_lo) - want).abs().max().item()
+    once_err = (pv(p_hi) - want).abs().max().item()
+    assert split_err <= 1e-5 * scale, split_err / scale
+    assert once_err > 1e-5 * scale, once_err / scale

@@ -58,11 +58,11 @@ def _jax_params(seed: int, layers=LAYERS):
             for layer in jx_mlp.init(jax.random.key(seed), layers)]
 
 
-def _stacked_jax_params(k: int, seed: int):
+def _stacked_jax_params(k: int, seed: int, layers=LAYERS):
     """K distinct learner models, stacked on a leading axis."""
-    models = [_jax_params(seed + i) for i in range(k)]
+    models = [_jax_params(seed + i, layers) for i in range(k)]
     return [{name: np.stack([m[l][name] for m in models]) for name in models[0][l]}
-            for l in range(len(LAYERS) - 1)]
+            for l in range(len(layers) - 1)]
 
 
 def _batch(rng, k: int, n: int):
@@ -304,6 +304,52 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                      torch.zeros(3), 1.0, 0.0)
     assert fed_agg.launches == 0 and train_step.launches == 0
     assert accum_flush.launches == 0
+
+
+PAPER_LAYERS = [784, 300, 124, 60, 10]
+
+
+@pytest.mark.parametrize("k,tau", [(1, [2]), (3, [2, 0, 1])])
+def test_cycle_plain_route_aggregates_every_leaf_as_the_reference(k, tau):
+    """``ops.train_agg_step`` on the CPU at the paper MLP's widths (8
+    leaves): the card aggregates them in one ``fed_agg`` launch, the CPU
+    route stays the plain per-leaf ``fed_agg_ref`` of the trained learners,
+    bitwise, and matches the reference's unfused step."""
+    rng = np.random.default_rng(k)
+    disp_jax = _stacked_jax_params(k, 70, PAPER_LAYERS)
+    x = rng.standard_normal((k, 12, PAPER_LAYERS[0])).astype(np.float32)
+    y = rng.integers(0, PAPER_LAYERS[-1], (k, 12)).astype(np.int32)
+    m = (rng.random((k, 12)) < 0.8).astype(np.float32)
+    tau = np.asarray(tau, np.int32)
+    w = rng.dirichlet(np.ones(k)).astype(np.float32)
+    disp = params_from_jax(disp_jax, "cpu")
+    fed_agg.launches = train_step.launches = 0
+    got, none = ops.train_agg_step(disp, _t(x), _t(y), _t(m), _t(tau), _t(w), LR, max_tau=2)
+    assert none is None and fed_agg.launches == 0 and train_step.launches == 0
+    trained = local_train_stacked(disp, _t(x), _t(y), _t(m), _t(tau), LR, max_tau=2,
+                                  loss_fn=pt_mlp.loss)
+    assert sum(len(layer) for layer in got) == 2 * (len(PAPER_LAYERS) - 1)
+    for g_layer, t_layer in zip(got, trained):
+        for name, leaf in t_layer.items():
+            assert torch.equal(g_layer[name], ref.fed_agg_ref(leaf, _t(w)))
+    want, _ = jx_ref.train_agg_step_ref(
+        disp_jax, jnp.asarray(x), jnp.asarray(y), jnp.asarray(m), jnp.asarray(tau),
+        jnp.asarray(w), jnp.float32(LR), loss_fn=jx_mlp.loss, max_tau=2)
+    _assert_trees_close(params_to_numpy(got), want, rtol=RTOL, atol=ATOL)
+
+
+def test_fed_agg_all_leaf_launch_refuses_more_leaves_than_its_cap():
+    """The all-leaf launch takes 1 to ``MAX_LEAVES`` leaves (the kernel
+    parameter's capacity) and raises beyond, before touching a device."""
+    fed_agg.launches = 0
+    w = torch.ones(2) / 2
+    with pytest.raises(ValueError, match=f"1 to {fed_agg.MAX_LEAVES} leaves"):
+        fed_agg.fed_agg_leaves_cuda([torch.zeros(2, 3)] * (fed_agg.MAX_LEAVES + 1), w)
+    with pytest.raises(ValueError, match="leaves"):
+        fed_agg.fed_agg_leaves_cuda([], w)
+    with pytest.raises(ValueError, match="CUDA"):
+        fed_agg.fed_agg_leaves_cuda([torch.zeros(2, 3)] * fed_agg.MAX_LEAVES, w)
+    assert fed_agg.launches == 0
 
 
 def _energy_args(b: int, k: int, dtype: str, seed: int):
