@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      version and the 8 ``torch.tensordot`` calls;
   3. ``train_agg_step`` kernel vs its plain version (autograd) for one
      cycle at full width: the [784, 300, 124, 60, 10] MLP, K = 10 learners
-     with the allocation ``solve_kkt_sai`` gives the paper's fleet;
+     with the allocation ``solve_kkt_sai`` gives the paper's fleet; the
+     cycle's device kernels by ``torch.profiler``, with exactly one launch of
+     the persistent training kernel;
   4. the main path, ``run_experiment(k=10, T=15, cycles=3)``, fused (through
      the kernels, launch counts checked) and eager (plain torch), compared,
      and the fused run again, warm;
@@ -34,7 +36,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
         buffered flush, a fedasync mix), with kernel, plain, bound and
         ``torch.tensordot`` (the accumulate's contraction) times;
      b. one async group step (training + ``accum_flush``) at full width vs
-        its plain version: the buffered run's widest flush group, and the
+        its plain version: the buffered run's widest flush group (one
+        training-kernel launch a call, by ``torch.profiler``), and the
         fedasync shape (one learner trains, nine sit at tau = 0) dense
         against the same step over one slot;
      c. ``run_async_experiment(k=10, T=15, cycles=3, CapacityDrift(seed=0),
@@ -128,7 +131,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      widened to float32 at the Jamba dense-FFN prefill shape (m 8192, d
      4096, f 14336) in bf16 and float32 and at a ragged m and f, with
      kernel, plain, bound and library (``layers.swiglu``'s three cuBLAS
-     products) times; then ``ops.swiglu_fused`` once at that shape.
+     products) times and TFLOP/s, and the bound of the work the design
+     executes on the tensor cores (two bf16 pieces of h, or 3xTF32); then
+     ``ops.swiglu_fused`` once at that shape.
 
 Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b and 11 each set the kernels' launch
 counters to 0 just before the run they check and read them just after.
@@ -203,6 +208,7 @@ E2E_LAYERS, E2E_STEPS, E2E_TOL = 2, 16, 1e-4
 # beyond it the plain version is the chunked scan
 DENSE_REF_BYTES = 4e9
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 # phase 8a: name, B, S, heads, kv heads, d, dtype, causal, window, timed
 # calls; the first is the serve's prefill and gives the kernels line its row
 FLASH_CASES = [
@@ -299,6 +305,12 @@ def kernel_device_ms(fn, name: str, calls: int) -> float:
     hits = [(ms, n) for key, ms, n in rows if name in key]
     require(bool(hits), f"torch.profiler saw no {name} launches")
     return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+
+
+def training_launches(breakdown) -> int:
+    """Launches of the persistent training kernel in a ``device_time_by_kernel``
+    breakdown."""
+    return sum(calls for name, _, calls in breakdown if "train_steps_kernel" in name)
 
 
 def leaf_errors(got, want) -> tuple[float, float]:
@@ -518,6 +530,9 @@ def main() -> int:
           "train_agg_step device time by kernel: not measured (no device events)")
     for name, ms, calls in breakdown[:10]:
         print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+    ts_launches = training_launches(breakdown)
+    print(f"train_agg_step: {ts_launches} training-kernel launch(es) a cycle (torch.profiler)")
+    require(ts_launches == 1, f"a cycle made {ts_launches} training-kernel launches, not 1")
     mats = list(zip(widths[:-1], widths[1:]))
     row_flops = 2 * (2 * sum(a * b for a, b in mats) + sum(a * b for a, b in mats[1:]))
     ts_flops = int((tau * d).sum()) * row_flops
@@ -958,6 +973,10 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
              "device time by kernel not measured (no device events)"))
     for name, ms, calls in breakdown[:8]:
         print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+    gs_launches = training_launches(breakdown)
+    print(f"async group step: {gs_launches} training-kernel launch(es) a call (torch.profiler)")
+    require(gs_launches == 1, f"an async group step made {gs_launches} training-kernel "
+            f"launches, not 1")
     # fedasync: one learner trains, nine sit at tau = 0 with an all-zero
     # mask; every kernel should stop at once for them
     fa_groups = cpu["fedasync"]["groups"]
@@ -2197,6 +2216,16 @@ def swiglu_case(dev, name, m, d, f, dtype, iters) -> dict:
     nbytes = x.element_size() * (2 * m * d + 3 * d * f)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    # the work the design executes on the tensor cores: in bf16 the gate and
+    # up products and the down product once a piece of h; in float32 every
+    # product three times (3xTF32)
+    if dtype == torch.bfloat16:
+        done, done_peak = (4 + 2 * swiglu.H_PIECES) * m * d * f, PEAK_BF16_FLOPS
+        how = f"{swiglu.H_PIECES} bf16 pieces of h"
+    else:
+        done, done_peak = 3 * flops, PEAK_TF32_FLOPS
+        how = "3xTF32"
+    done_ms = 1e3 * done / done_peak
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
@@ -2206,7 +2235,10 @@ def swiglu_case(dev, name, m, d, f, dtype, iters) -> dict:
           f"library (layers.swiglu in {name_dtype}, cuBLAS) {library_ms:.3f} ms (max_abs_err "
           f"{lib_err:.3g}), bound {row['bound_ms']:.3f} ms ({row['bound_by']}: {flops:.4g} "
           f"FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
-          f"{flops / (ms * 1e9):.1f} TFLOP/s")
+          f"{flops / (ms * 1e9):.1f} TFLOP/s of the function's work, library at "
+          f"{flops / (library_ms * 1e9):.1f}; the design's tensor-core work ({how}) "
+          f"{done:.4g} FLOPs, bound {done_ms:.3f} ms at {done_peak / 1e12:g} TFLOP/s, "
+          f"executed at {done / (ms * 1e9):.1f} TFLOP/s")
     return row
 
 

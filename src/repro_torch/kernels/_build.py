@@ -4,8 +4,8 @@ libraries with a plain C interface, loaded through ``ctypes``.
 The first use of any kernel compiles every source that is not built yet,
 one ``nvcc`` process per source, all started together, into
 ``<repo>/build/repro_torch/``. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale one is never
-loaded. Nothing is compiled or loaded when the package is imported.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing is compiled or loaded when the package is imported.
 """
 
 from __future__ import annotations
@@ -41,7 +41,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

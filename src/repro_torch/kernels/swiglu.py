@@ -8,36 +8,37 @@ version of that function is ``repro_torch.kernels.ref.swiglu_ref`` on the
 inputs widened to float32 (on the CPU, ``ops.swiglu_fused`` runs it in x's
 own dtype, as the reference's does without its kernel).
 
-A call launches the split-f kernel and its reduction pass (the second
-pass of one design, see the source); ``launches`` counts such calls in
-this process. Set it to 0 to start a count.
+A call launches the packing pass where the operands need it, the gate/up
+GEMM and the down GEMM (one design, see the source); ``launches`` counts
+such calls in this process. Set it to 0 to start a count. ``H_PIECES`` is
+the number of bf16 pieces h is split into for the down product
+(``tests/test_torch_swiglu_split.py`` shows why two).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["launches", "swiglu_cuda"]
+__all__ = ["H_PIECES", "launches", "swiglu_cuda"]
 
 launches = 0
+H_PIECES = 2        # csrc/swiglu.cu H_PIECES
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_M = 64        # rows of x a CTA (csrc/swiglu.cu, BM)
-_GROUP = 256         # f columns of an h tile (csrc/swiglu.cu, FG)
-_CTAS_PER_SM = 2     # the split-f kernel's occupancy
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("swiglu")
     lib.swiglu_fwd.restype = ctypes.c_int
-    lib.swiglu_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    lib.swiglu_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
+    lib.swiglu_workspace_bytes.restype = ctypes.c_longlong
+    lib.swiglu_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -65,16 +66,6 @@ def _check(x, w_gate, w_up, w_down) -> None:
         raise ValueError("swiglu_cuda takes fewer than 2**31 rows and columns")
 
 
-def _splits(m: int, f: int, sms: int) -> int:
-    """Splits of the f axis: enough CTAs for every SM's slots, each split
-    owning at least one group of f columns (the kernel refuses others)."""
-    groups = math.ceil(f / _GROUP)
-    splits = max(1, min(groups, math.ceil(_CTAS_PER_SM * sms / math.ceil(m / _BLOCK_M))))
-    while splits > 1 and math.ceil(groups / splits) * (splits - 1) >= groups:
-        splits -= 1
-    return splits
-
-
 def swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                 w_down: torch.Tensor) -> torch.Tensor:
     """The fused SwiGLU on the card. x: (..., d); w_gate, w_up: (d, f);
@@ -87,16 +78,19 @@ def swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     m = x.numel() // d if d else 0
     if m == 0 or d == 0 or f == 0:  # nothing to compute, and no launch
         return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    # TMA reads from 16-byte aligned addresses: a view that starts elsewhere is copied
+    x, w_gate, w_up, w_down = (t if t.data_ptr() % 16 == 0 else t.clone()
+                               for t in (x, w_gate, w_up, w_down))
     lib = _lib()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = _splits(m, f, sms)
+    bf16 = _DTYPES[x.dtype]
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    ws = torch.empty((splits, m, d), dtype=torch.float32, device=x.device)
+    ws = torch.empty(lib.swiglu_workspace_bytes(bf16, m, d, f), dtype=torch.uint8,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.swiglu_fwd(_DTYPES[x.dtype], x.data_ptr(), w_gate.data_ptr(),
-                              w_up.data_ptr(), w_down.data_ptr(), ws.data_ptr(),
-                              out.data_ptr(), m, d, f, splits, stream)
+        code = lib.swiglu_fwd(bf16, x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                              w_down.data_ptr(), ws.data_ptr(), out.data_ptr(), m, d, f,
+                              stream)
     _build.check(lib, code, "swiglu kernel launch")
     launches += 1
     return out

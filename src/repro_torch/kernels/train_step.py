@@ -11,9 +11,10 @@ parameters, then
   folded into the accumulator and the flush applied, the ``accum_flush``
   kernel once per leaf.
 
-The training source, with its bound and design, is ``csrc/train_step.cu``;
-one C call runs every step on the current stream. The plain torch version
-is ``repro_torch.kernels.ref.train_agg_step_ref``; ``ops.train_agg_step``
+The training source, with its bound and design, is ``csrc/train_step.cu``:
+one cooperative launch runs every step of every learner, walking the phase
+plan ``_phase_plan`` builds here. The plain torch version is
+``repro_torch.kernels.ref.train_agg_step_ref``; ``ops.train_agg_step``
 picks between the two by the tensors' device.
 
 ``launches`` counts the training entry point's calls in this process (both
@@ -34,7 +35,51 @@ from repro_torch.kernels.fed_agg import fed_agg_leaves_cuda
 __all__ = ["train_agg_step_cuda", "launches"]
 
 launches = 0
-_MAX_CLASSES = 64   # the loss-gradient kernel keeps no more logits a row
+_MAX_LAYERS = 16    # csrc/train_step.cu MAX_LAYERS: the kernel's layer tables
+_MAX_CLASSES = 64   # the loss gradient needs a row's logits in one 64-column tile
+# the plan's op codes (csrc/train_step.cu, enum Op) and its ops a phase
+_OPS = {"fwd": 1, "fwd_xent": 2, "gin": 3, "wgrad": 4, "bias": 5}
+_MAX_OPS = _MAX_LAYERS + 1
+
+
+def _phase_plan(n_layers: int) -> list[list[tuple[str, int]]]:
+    """The phases of one GD step of an ``n_layers`` MLP, in order; each a
+    list of ``(op, layer)`` items that run together between two grid syncs
+    (layers count from 1; H_0 is x):
+
+    * ``("fwd", l)``: H_l = relu(H_{l-1} W_l + b_l);
+    * ``("fwd_xent", L)``: the logits H_{L-1} W_L + b_L and, in the same
+      tile, the loss gradient G_L;
+    * ``("gin", l)``: G_{l-1} = (G_l W_l^T) * [H_{l-1} > 0], from the old W_l;
+    * ``("wgrad", l)``: W_l -= lr H_{l-1}^T G_l;
+    * ``("bias", l)``: b_l -= lr colsum(G_l).
+
+    L forward phases, L - 1 phases that carry the gradient down (G_{l-1}
+    from the old W_l, with b_l's update), and one last phase that updates
+    every W_l and b_1. Each weight gradient sums over the learner's rows,
+    a chain as long as its shard whatever the layer's width, so the chains
+    of all layers run side by side there instead of one phase each. No
+    item reads what another item of its phase writes
+    (``tests/test_torch_kernels.py`` runs the plan with torch ops and checks
+    that)."""
+    if not 1 <= n_layers <= _MAX_LAYERS:
+        raise ValueError(f"the kernel takes 1 to {_MAX_LAYERS} layers, got {n_layers}")
+    top = n_layers
+    plan = [[("fwd", l)] for l in range(1, top)] + [[("fwd_xent", top)]]
+    plan += [[("gin", l), ("bias", l)] for l in range(top, 1, -1)]
+    plan.append([("wgrad", l) for l in range(1, top + 1)] + [("bias", 1)])
+    return plan
+
+
+def _plan_table(plan) -> "ctypes.Array":
+    """The plan as the kernel's table: ``_MAX_OPS`` (op code, layer) int
+    pairs a phase, (0, 0) where a phase has fewer ops."""
+    flat = []
+    for phase in plan:
+        pairs = [(_OPS[op], layer) for op, layer in phase]
+        pairs += [(0, 0)] * (_MAX_OPS - len(pairs))
+        flat += [v for pair in pairs for v in pair]
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 @functools.cache
@@ -43,8 +88,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.train_cycle_f32.restype = i32
     lib.train_cycle_f32.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_float, i32, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_float, i32, ptr, i32, ptr,
     ]
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [i32]
@@ -84,7 +129,9 @@ def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
         if w.device != dev or b.device != dev:
             raise ValueError(f"layer {i} must be on {dev}")
         widths.append(int(w.shape[2]))
-    if not disp or widths[-1] > _MAX_CLASSES:
+    if not 1 <= len(disp) <= _MAX_LAYERS:
+        raise ValueError(f"the kernel takes 1 to {_MAX_LAYERS} layers, got {len(disp)}")
+    if widths[-1] > _MAX_CLASSES:
         raise ValueError(f"the kernel takes 1 to {_MAX_CLASSES} classes, got widths {widths}")
     return widths
 
@@ -113,7 +160,9 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
     ws = torch.empty(2 * k * d_cap * sum(widths[1:]), dtype=torch.float32, device=dev)
     rows = torch.empty(k, dtype=torch.int32, device=dev)
     inv_den = torch.empty(k, dtype=torch.float32, device=dev)
+    counters = torch.zeros(2, dtype=torch.int32, device=dev)
     n = len(work)
+    plan = _phase_plan(n)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -122,8 +171,8 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
             (ctypes.c_int * (n + 1))(*widths),
             (ctypes.c_void_p * n)(*[layer["w"].data_ptr() for layer in work]),
             (ctypes.c_void_p * n)(*[layer["b"].data_ptr() for layer in work]),
-            ws.data_ptr(), rows.data_ptr(), inv_den.data_ptr(), float(lr),
-            int(max_tau), stream,
+            ws.data_ptr(), rows.data_ptr(), inv_den.data_ptr(), counters.data_ptr(),
+            float(lr), int(max_tau), _plan_table(plan), len(plan), stream,
         )
     _build.check(lib, code, "train_agg_step kernel launch")
     launches += 1

@@ -8,9 +8,12 @@ runs on a machine with the card and no jax:
 
 Shapes are small and ragged (not multiples of the kernels' tiles) and
 cover the degenerate cases: a learner with tau_k = 0, one learner, an
-all-masked shard, a mask with holes, every tau 0. Tolerance: a few GD
-steps in float32 whose sums run in another order than the plain
-version's, rtol 1e-5 and atol 1e-6 per element.
+all-masked shard, a mask with holes, every tau 0, more learners than the
+persistent training kernel has CTAs, one learner training among ten at
+tau 0. Tolerance: a few GD steps in float32 whose sums run in another
+order than the plain version's, rtol 1e-5 and atol 1e-6 per element. A
+call trains in one launch of the training kernel (counted by
+``torch.profiler``), and refuses more than 16 layers or 64 classes.
 
 The accumulate/flush kernel runs the plain version's sum in its order with
 every product rounded, so it is held to 1e-6.
@@ -57,9 +60,12 @@ h0. A reduced-width 8-layer Jamba prefill launches it once a Mamba layer
 (7) and decode never, with logits matching the CPU's.
 
 The fused SwiGLU kernel takes its three products in float32 from the
-widened inputs and returns x's dtype; it is held to ``ref.swiglu_ref`` on
-the inputs widened to float32, summed in another order: 1e-5 of
+widened inputs (bf16 on the tensor cores with h in two bf16 pieces,
+float32 as 3xTF32) and returns x's dtype; it is held to ``ref.swiglu_ref``
+on the inputs widened to float32, summed in another order: 1e-5 of
 max(1, max |plain|) for float32, one bf16 step (2^-8) for bf16 output.
+The shapes include strides TMA takes as they lie and ones the kernel
+first packs (d or f not a multiple of 8 in bf16).
 
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
@@ -74,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -199,6 +206,11 @@ CASES = {
     "mask_with_holes": ([100, 70, 33, 10], 2, 130, [3, 2], "holes"),
     "all_tau_zero": ([64, 32, 16, 10], 2, 40, [0, 0], None),
     "paper_widths": (mlp.PAPER_LAYERS, 2, 150, [1, 0], None),
+    # more learners than the persistent kernel has CTAs (2 an SM), and a
+    # one-learner group among ten at tau 0 (the fedasync shape)
+    "many_learners": ([16, 12, 10], 300, 20, [i % 4 for i in range(300)], None),
+    "k64": ([32, 24, 10], 64, 30, [i % 3 for i in range(64)], None),
+    "one_of_ten": ([100, 70, 33, 10], 10, 60, [3] + [0] * 9, None),
 }
 
 
@@ -253,6 +265,47 @@ def test_train_agg_step_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="classes"):
         wide = _model(2, [64, 100], seed=9, dev=dev)
         train_step.train_agg_step_cuda(wide, x, y, m, tau, w, LR, max_tau=1)
+    with pytest.raises(ValueError, match="1 to 16 layers"):  # the kernel's layer tables
+        deep = _model(2, [64] + [8] * 17, seed=10, dev=dev)
+        train_step.train_agg_step_cuda(deep, x, y, m, tau, w, LR, max_tau=1)
+
+
+def _kernel_launches(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():  # torch's note that one profiling cycle keeps its events
+        warnings.filterwarnings("ignore", message=".*Profiler clears events", category=UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("form", ["cycle", "async"])
+def test_train_agg_step_trains_in_one_kernel_launch_a_call(dev, form):
+    """Every step of every learner runs in one launch of the persistent
+    training kernel; the aggregation follows it (one all-leaf fed_agg
+    launch, or accum_flush once a leaf)."""
+    layers = [100, 70, 33, 10]
+    k = 4
+    disp = _model(k, layers, seed=21, dev=dev)
+    x, y, m = _batch(k, 50, layers, seed=22, dev=dev)
+    tau = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
+    w = torch.softmax(torch.arange(k, dtype=torch.float32, device=dev), 0)
+    kw = {"max_tau": 3}
+    if form == "async":
+        server = mlp.init(23, layers, device=dev)
+        acc = [{n: 0.1 * torch.ones_like(v) for n, v in layer.items()} for layer in server]
+        kw.update(server=server, acc=acc, keep=0.5, flush=1.0)
+    ops.train_agg_step(disp, x, y, m, tau, w, LR, **kw)  # builds and loads the kernels
+    names = _kernel_launches(lambda: ops.train_agg_step(disp, x, y, m, tau, w, LR, **kw))
+    count = lambda key: sum(key in n for n in names)
+    assert count("train_steps_kernel") == 1, names
+    leaves = 2 * (len(layers) - 1)
+    assert (count("fed_agg_kernel"), count("accum_flush_kernel")) == (
+        (1, 0) if form == "cycle" else (0, leaves)), names
 
 
 # async form: (keep, flush) of an accumulate-only step, a buffered flush and
@@ -911,6 +964,9 @@ SWIGLU_CASES = {
     "one_row": (1, 64, 256, torch.float32),
     "many_splits_bf16": (64, 64, 1100, torch.bfloat16),
     "odd_d": (33, 70, 130, torch.float32),
+    # strides TMA takes as they lie: no packing pass for bf16
+    "tma_strides_bf16": (256, 512, 1024, torch.bfloat16),
+    "tma_strides_f32": (256, 512, 1024, torch.float32),
 }
 SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 

@@ -338,6 +338,139 @@ def test_cycle_plain_route_aggregates_every_leaf_as_the_reference(k, tau):
     _assert_trees_close(params_to_numpy(got), want, rtol=RTOL, atol=ATOL)
 
 
+# what each op of the training kernel's phase plan reads and writes, from
+# the step's math (H0 is x). wgrad and bias update in place: an item reads
+# only the elements it writes, so those reads are not listed.
+def _op_buffers(op: str, l: int) -> tuple[set, set]:
+    if op == "fwd":
+        return {f"H{l - 1}", f"W{l}", f"b{l}"}, {f"H{l}"}
+    if op == "fwd_xent":
+        return {f"H{l - 1}", f"W{l}", f"b{l}"}, {f"H{l}", f"G{l}"}
+    if op == "gin":
+        return {f"G{l}", f"W{l}", f"H{l - 1}"}, {f"G{l - 1}"}
+    if op == "wgrad":
+        return {f"H{l - 1}", f"G{l}"}, {f"W{l}"}
+    assert op == "bias"
+    return {f"G{l}"}, {f"b{l}"}
+
+
+def _run_phase_plan(plan, disp, x, y, m, tau, lr, max_tau):
+    """``train_step._phase_plan``'s phases run with torch ops, in the plan's
+    order: every op of a phase reads the state from before the phase and
+    its writes land after it, as between the kernel's grid syncs. A learner
+    at ``step >= tau_k`` keeps its parameters. Returns each learner's
+    trained parameters."""
+    st = {"H0": x}
+    for l, layer in enumerate(disp, 1):
+        st[f"W{l}"], st[f"b{l}"] = layer["w"].clone(), layer["b"].clone()
+    den = torch.clamp(m.sum(1), min=1.0)
+    for step in range(max_tau):
+        live = step < tau
+        for phase in plan:
+            out = {}
+            for op, l in phase:
+                if op in ("fwd", "fwd_xent"):
+                    z = st[f"H{l - 1}"] @ st[f"W{l}"] + st[f"b{l}"][:, None]
+                    out[f"H{l}"] = torch.relu(z) if op == "fwd" else z
+                    if op == "fwd_xent":
+                        onehot = torch.nn.functional.one_hot(y.long(), z.shape[-1])
+                        out[f"G{l}"] = ((torch.softmax(z, -1) - onehot.to(z.dtype))
+                                        * (m / den[:, None])[..., None])
+                elif op == "gin":
+                    out[f"G{l - 1}"] = ((st[f"G{l}"] @ st[f"W{l}"].transpose(1, 2))
+                                        * (st[f"H{l - 1}"] > 0))
+                elif op == "wgrad":
+                    out[f"W{l}"] = st[f"W{l}"] - lr * (st[f"H{l - 1}"].transpose(1, 2)
+                                                        @ st[f"G{l}"])
+                else:
+                    out[f"b{l}"] = st[f"b{l}"] - lr * st[f"G{l}"].sum(1)
+            for name, v in out.items():
+                if name[0] in "Wb":
+                    v = torch.where(live.reshape((-1,) + (1,) * (v.dim() - 1)), v, st[name])
+                st[name] = v
+    return [{"w": st[f"W{l}"], "b": st[f"b{l}"]} for l in range(1, len(disp) + 1)]
+
+
+# widths of an MLP of 1, 2, 4 and 16 layers (the kernel's cap)
+PLAN_WIDTHS = {1: [12, 5], 2: [12, 9, 5], 4: [40, 24, 16, 12, 10],
+               16: [12, 11, 10, 10, 9, 9, 8, 8, 8, 7, 7, 7, 6, 6, 6, 6, 5]}
+
+
+@pytest.mark.parametrize("n_layers", sorted(PLAN_WIDTHS))
+def test_phase_plan_runs_each_op_once_and_no_item_reads_what_its_phase_writes(n_layers):
+    plan = train_step._phase_plan(n_layers)
+    assert len(plan) == 2 * n_layers
+    assert all(1 <= len(phase) <= train_step._MAX_OPS for phase in plan)
+    want = ([("fwd", l) for l in range(1, n_layers)] + [("fwd_xent", n_layers)]
+            + [("gin", l) for l in range(2, n_layers + 1)]
+            + [(op, l) for op in ("wgrad", "bias") for l in range(1, n_layers + 1)])
+    assert sorted(item for phase in plan for item in phase) == sorted(want)
+    for phase in plan:
+        bufs = [_op_buffers(op, l) for op, l in phase]
+        for i, (reads_i, writes_i) in enumerate(bufs):
+            assert not writes_i & reads_i
+            for j, (reads_j, writes_j) in enumerate(bufs):
+                if i != j:
+                    assert not writes_i & (reads_j | writes_j), (phase, i, j)
+    table = list(train_step._plan_table(plan))
+    assert len(table) == 2 * train_step._MAX_OPS * len(plan)
+    codes = {v: k for k, v in train_step._OPS.items()}
+    for p, phase in enumerate(plan):
+        pairs = [table[2 * (p * train_step._MAX_OPS + o):][:2]
+                 for o in range(train_step._MAX_OPS)]
+        assert [(codes[c], l) for c, l in pairs if c] == phase
+
+
+@pytest.mark.parametrize("n_layers", [0, 17])
+def test_phase_plan_refuses_what_the_kernel_does_not_take(n_layers):
+    with pytest.raises(ValueError, match="1 to 16 layers"):
+        train_step._phase_plan(n_layers)
+
+
+@pytest.mark.parametrize("tau,max_tau", [([1, 0, 1], 1), ([3, 0, 2], 3)])
+@pytest.mark.parametrize("n_layers", sorted(PLAN_WIDTHS))
+def test_phase_plan_is_the_train_step(n_layers, tau, max_tau):
+    """The plan's phases, run in order with torch ops in float64, train each
+    learner as ``local_train_stacked`` (autograd; what ``train_agg_step_ref``
+    trains with) does to 1e-12 of each leaf's scale, aggregate as
+    ``train_agg_step_ref`` does, and in float32 match the reference's
+    unfused step."""
+    widths = PLAN_WIDTHS[n_layers]
+    k = len(tau)
+    rng = np.random.default_rng(n_layers + max_tau)
+    disp_jax = _stacked_jax_params(k, seed=80 + n_layers, layers=widths)
+    x = rng.standard_normal((k, 20, widths[0])).astype(np.float32)
+    y = rng.integers(0, widths[-1], (k, 20)).astype(np.int32)
+    m = (rng.random((k, 20)) < 0.8).astype(np.float32)
+    m[0, 13:] = 0.0
+    w = rng.dirichlet(np.ones(k)).astype(np.float32)
+    tau_t = _t(np.asarray(tau, np.int32))
+    plan = train_step._phase_plan(n_layers)
+    disp64 = [{n: v.double() for n, v in layer.items()}
+              for layer in params_from_jax(disp_jax, "cpu")]
+    got = _run_phase_plan(plan, disp64, _t(x).double(), _t(y), _t(m).double(), tau_t, LR,
+                          max_tau)
+    want = local_train_stacked(disp64, _t(x).double(), _t(y), _t(m).double(), tau_t, LR,
+                               max_tau=max_tau, loss_fn=pt_mlp.loss)
+    for g_layer, w_layer in zip(got, want):
+        for name in w_layer:
+            err = (g_layer[name] - w_layer[name]).abs().max().item()
+            assert err <= 1e-12 * w_layer[name].abs().max().item(), (name, err)
+    agg, _ = ref.train_agg_step_ref(disp64, _t(x).double(), _t(y), _t(m).double(), tau_t,
+                                    _t(w), LR, max_tau=max_tau)
+    for g_layer, a_layer in zip(got, agg):
+        for name in a_layer:
+            torch.testing.assert_close(ref.fed_agg_ref(g_layer[name], _t(w)), a_layer[name],
+                                       rtol=1e-6, atol=1e-7)
+    got32 = _run_phase_plan(plan, params_from_jax(disp_jax, "cpu"), _t(x), _t(y), _t(m),
+                            tau_t, LR, max_tau)
+    want32, _ = jx_ref.train_agg_step_ref(
+        disp_jax, jnp.asarray(x), jnp.asarray(y), jnp.asarray(m), jnp.asarray(tau_t.numpy()),
+        jnp.asarray(w), jnp.float32(LR), loss_fn=jx_mlp.loss, max_tau=max_tau)
+    got_agg = [{n: ref.fed_agg_ref(v, _t(w)) for n, v in layer.items()} for layer in got32]
+    _assert_trees_close(params_to_numpy(got_agg), want32, rtol=RTOL, atol=ATOL)
+
+
 def test_fed_agg_all_leaf_launch_refuses_more_leaves_than_its_cap():
     """The all-leaf launch takes 1 to ``MAX_LEAVES`` leaves (the kernel
     parameter's capacity) and raises beyond, before touching a device."""
