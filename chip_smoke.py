@@ -32,9 +32,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
         fused and eager, with its rows held to the CPU solver's;
   6. the async path:
      a. ``accum_flush`` kernel vs its plain version at the paper model's
-        leaf shapes (K = 10), in the three flush cases (accumulate only, a
-        buffered flush, a fedasync mix), with kernel, plain, bound and
-        ``torch.tensordot`` (the accumulate's contraction) times;
+        leaf shapes (K = 10): all 8 leaves in one launch, each bitwise the
+        leaf alone through the launch, in the three flush cases (accumulate
+        only, a buffered flush, a fedasync mix), with kernel, plain, bound
+        and ``torch.tensordot`` (the accumulate's contraction) times;
      b. one async group step (training + ``accum_flush``) at full width vs
         its plain version: the buffered run's widest flush group (one
         training-kernel launch a call, by ``torch.profiler``), and the
@@ -90,12 +91,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      c. the same width in float32 at 2 layers, kernel vs plain: logits
         within 1e-4 of their scale, 16 greedy decode steps equal;
   9. the RWKV-6 serving path (RWKV-6 "Finch" 7B at full width):
-     a. ``wkv6`` kernel vs its plain version, the step loop
-        ``ref.wkv6_ref``, at the prefill shape (B 4, S 2048, 64 heads of 64,
-        bf16 and float32 r/k/v, no starting state), a ragged S = 1000 with a
-        starting state, and the decode shape (S = 1) writing the state over a
-        copy of its own s0, with kernel, plain and bound times (no single
-        PyTorch call computes this function);
+     a. ``wkv6`` kernels vs their plain version, the step loop
+        ``ref.wkv6_ref``: the chunk kernel at the prefill shape (B 4, S 2048,
+        64 heads of 64, bf16 and float32 r/k/v, no starting state), a ragged
+        S = 1000 with a starting state, and S = 1000 with strong decays (w = 0
+        and within 1e-7 of 1 in some channels; in bf16 writing the state over
+        a copy of its own s0); the step kernel at the decode shape (S = 1,
+        both dtypes) writing the state over a copy of its own s0; with kernel
+        (CUDA events and the profiler's device time), plain and bound times,
+        and the chunk design's executed work (no single PyTorch call
+        computes this function);
      b. the serve: ``Model(get_config("rwkv6-7b"))`` with weights drawn from
         the seed (32 layers, d 4096, 7,576,621,056 parameters, bf16),
         ``serve.prefill`` of 4 x 2048 tokens and ``serve.decode`` of 31
@@ -224,13 +229,26 @@ FLASH_CASES = [
 RWKV_ARCH = "rwkv6-7b"
 WKV_TOL = 1e-5
 # phase 9a: name, B, S, heads, head dim, r/k/v dtype, with s0, state written
-# over s0, timed calls; the first is the serve's prefill and gives the
-# kernels line its row
+# over s0, decays, timed calls; the first is the serve's prefill and gives
+# the kernels line its row. S from wkv6.CHUNKED_MIN_SEQ on runs the chunk
+# kernel, shorter the step kernel. Decays: "" as the model makes them,
+# "zero" some channels' w = 0 (exp(-exp(raw)) underflows for raw >~ 4.5),
+# "one" some within 1e-7 of 1. Each case is held to the float32 step loop
+# ref.wkv6_ref, except "one" at 1000 steps: there the float32 step loop
+# itself drifts ~1e-5 of the scale from the exact recurrence (its w S,
+# with w = 1 - 2^-24, rounds the same way every step, and the state grows),
+# so that case is held to a float64 step loop, with the float32 loop's own
+# distance from it printed beside the kernel's
 WKV_CASES = [
-    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "bfloat16", False, False, 10),
-    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "float32", False, False, 10),
-    ("ragged", SERVE_BATCH, 1000, 64, 64, "bfloat16", True, False, 10),
-    ("rwkv6-7b decode step", SERVE_BATCH, 1, 64, 64, "bfloat16", True, True, 200),
+    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "bfloat16", False, False, "", 10),
+    ("rwkv6-7b prefill", SERVE_BATCH, SERVE_PROMPT, 64, 64, "float32", False, False, "", 10),
+    ("ragged", SERVE_BATCH, 1000, 64, 64, "bfloat16", True, False, "", 10),
+    ("strong decay", SERVE_BATCH, 1000, 64, 64, "bfloat16", True, True, "zero", 10),
+    ("strong decay", SERVE_BATCH, 1000, 64, 64, "float32", True, False, "zero", 10),
+    ("decay near 1", SERVE_BATCH, 300, 64, 64, "bfloat16", True, False, "one", 10),
+    ("decay near 1", SERVE_BATCH, 1000, 64, 64, "float32", True, False, "one", 10),
+    ("rwkv6-7b decode step", SERVE_BATCH, 1, 64, 64, "bfloat16", True, True, "", 200),
+    ("rwkv6-7b decode step", SERVE_BATCH, 1, 64, 64, "float32", True, True, "", 200),
 ]
 # phase 10: the Jamba serve, one 8-layer period of jamba-v0.1-52b at full
 # width (the published 32 layers need 103 GB in bf16, more than the card's
@@ -588,8 +606,8 @@ def main() -> int:
           f"{runs['eager']['ms_per_cycle']:.1f}")
 
     wf = realloc_phase(dev, train, test)
-    async_rows = async_phase(dev, train, test, leaves=2 * len(mats), row_flops=row_flops)
-    energy_row = energy_phase(dev, train, test, leaves=2 * len(mats))
+    async_rows = async_phase(dev, train, test, row_flops=row_flops)
+    energy_row = energy_phase(dev, train, test)
     attention_row = serve_phase(dev)
     wkv_row = rwkv_phase(dev)
     mamba_row = jamba_phase(dev)
@@ -833,7 +851,7 @@ def realloc_phase(dev, train, test) -> dict:
             "bound_by": "bytes", "library_ms": None}
 
 
-def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
+def async_phase(dev, train, test, *, row_flops: int) -> list[dict]:
     """Phase 6; returns the async train step's and ``accum_flush``'s entries
     of the kernels line."""
     import numpy as np
@@ -861,10 +879,15 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
              "fedasync mix": (0.4, 1.0)}
     af_err = 0.0
     for case, (keep, flush) in cases.items():
-        for loc, acc, srv in zip(locs, accs, servers):
-            got = accum_flush.accum_flush_cuda(loc, wts, acc, srv, keep, flush)
+        got_s, got_a = accum_flush.accum_flush_leaves_cuda(locs, accs, servers, wts, keep,
+                                                           flush)
+        for loc, acc, srv, gs, ga in zip(locs, accs, servers, got_s, got_a):
+            alone = accum_flush.accum_flush_cuda(loc, wts, acc, srv, keep, flush)
+            require(torch.equal(gs, alone[0]) and torch.equal(ga, alone[1]),
+                    f"accum_flush: a leaf of the all-leaf launch differs from the leaf "
+                    f"alone ({case})")
             want = ref.accum_flush_ref(loc, wts, acc, srv, keep, flush)
-            for g, w in zip(got, want):
+            for g, w in zip((gs, ga), want):
                 require(bool(torch.isfinite(g).all()), f"accum_flush gave non-finite "
                         f"values ({case})")
                 err = (g - w).abs().max().item()
@@ -872,11 +895,11 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
                         f"accum_flush differs from its plain version by {err:g} ({case})")
                 af_err = max(af_err, err)
     all_leaves = list(zip(locs, accs, servers))
-    af_ms = cuda_ms(lambda: [accum_flush.accum_flush_cuda(l, wts, a, s, 0.4, 1.0)
-                             for l, a, s in all_leaves], 200)
+    af_ms = cuda_ms(lambda: accum_flush.accum_flush_leaves_cuda(locs, accs, servers, wts,
+                                                                0.4, 1.0), 200)
     af_launch_ms = kernel_device_ms(
-        lambda: [accum_flush.accum_flush_cuda(l, wts, a, s, 0.4, 1.0)
-                 for l, a, s in all_leaves], "accum_flush_kernel", 20) * len(shapes)
+        lambda: accum_flush.accum_flush_leaves_cuda(locs, accs, servers, wts, 0.4, 1.0),
+        "accum_flush_kernel", 20)
     af_plain_ms = cuda_ms(lambda: [ref.accum_flush_ref(l, wts, a, s, 0.4, 1.0)
                                    for l, a, s in all_leaves], 200)
     af_lib_ms = cuda_ms(lambda: [torch.tensordot(wts, l, dims=1) for l, _, _ in all_leaves],
@@ -886,8 +909,9 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
     af_flops = (2 * K + 6) * n_params
     af_bound_ms = 1e3 * max(af_bytes / PEAK_BYTES_PER_S, af_flops / PEAK_FP32_FLOPS)
     print(f"accum_flush: {len(shapes)} leaves, {n_params} params, K = {K}, max_abs_err "
-          f"{af_err:.3g} over {', '.join(cases)}; kernel {af_ms:.4f} ms ({len(shapes)} launches, "
-          f"CUDA events; device time {af_launch_ms:.4f} ms by torch.profiler), plain "
+          f"{af_err:.3g} over {', '.join(cases)}, each leaf bitwise as alone; kernel "
+          f"{af_ms:.4f} ms (one launch for all leaves, CUDA events; device time "
+          f"{af_launch_ms:.4f} ms by torch.profiler), plain "
           f"{af_plain_ms:.4f} ms, tensordot of the accumulate {af_lib_ms:.4f} ms, bound "
           f"{af_bound_ms:.4f} ms ({af_bytes / 1e6:.1f} MB, bytes)")
 
@@ -1008,8 +1032,7 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
         fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
                  "flash_attention": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
-                "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
-                            **fixed}}
+                "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups, **fixed}}
         runs = {}
         for path in ("eager", "grouped", "grouped warm"):
             reset_launches()
@@ -1097,13 +1120,13 @@ def async_phase(dev, train, test, *, leaves: int, row_flops: int) -> list[dict]:
         {"name": "accum_flush", "route": "cuda",
          "source": "src/repro_torch/csrc/accum_flush.cu",
          "replaces": "src/repro/kernels/train_step.py:119",
-         "launches": total_launches * leaves, "max_abs_err": af_err,
+         "launches": total_launches, "max_abs_err": af_err,
          "ms": af_ms, "plain_ms": af_plain_ms, "bound_ms": af_bound_ms,
          "bound_by": "bytes", "library_ms": af_lib_ms},
     ]
 
 
-def energy_phase(dev, train, test, *, leaves: int) -> dict:
+def energy_phase(dev, train, test) -> dict:
     """Phase 7; returns the budgeted water-filling kernel's entry of the
     kernels line."""
     import dataclasses
@@ -1303,7 +1326,7 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
         sched = cpu_s["sched"]
         require(sched.energy_violations == 0, f"{mode}: the CPU schedule overspends")
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0},
-                "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups * leaves}}
+                "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups}}
         runs = {}
         for path in ("eager", "grouped", "grouped warm"):
             reset_launches()
@@ -1398,7 +1421,7 @@ def energy_phase(dev, train, test, *, leaves: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
-    require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups * leaves,
+    require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
                        "waterfill_energy_residual": 0, "flash_attention": 0, "wkv6": 0,
                        "mamba_scan": 0, "swiglu": 0},
@@ -1769,10 +1792,53 @@ def plain_wkv():
         ops.wkv6 = kernel
 
 
-def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, iters) -> dict:
+def wkv_chunk_work(b: int, s: int, h: int, hd: int, bf16: bool) -> tuple[int, int]:
+    """The chunk kernel's executed work at (B, S, H, hd), from its design
+    (csrc/wkv6.cu): (tensor-core FLOPs, CUDA-core flops of the triangles).
+    A CTA owns (b, h, nj = min(hd, 64) columns) in warps of 32 columns and
+    walks ceil(S / 64) chunks; per chunk, m16n8k8 products of 2048 FLOPs:
+    the six blocks between sub-chunks (two 8-column halves each) and the
+    four squares, 3 a k-step of 8 over hd; the cross term, 3; the state
+    update (hd / 16 row tiles, 8 k-steps) and A V (2 (m + 1) k-steps for
+    the rows of sub-chunk m), 2 where V is bf16, else 3; 4 n-tiles a warp.
+    The triangles: per half of 8 rows, 32 lanes, hd / 16 float4 channel
+    groups a lane, 7 row slots of 4 FMAs and 4 multiplies (12 flops)."""
+    chunks = -(-s // 64)
+    ks = hd // 8
+    nj = min(hd, 64)
+    col_warps = nj // 32
+    pv = 2 if bf16 else 3
+    mma = (6 * 2 * ks * 3 + 4 * ks * 3
+           + col_warps * 4 * ks * 4 * 3
+           + col_warps * (hd // 16) * 8 * 4 * pv
+           + col_warps * 20 * 4 * pv)
+    ctas = b * h * (hd // nj)
+    triangles = 8 * 32 * (hd // 16) * 7 * 12
+    return 2048 * mma * chunks * ctas, triangles * chunks * ctas
+
+
+def wkv_step64(r, k, v, w, u, s0):
+    """The WKV-6 step loop in float64 (the recurrence of ``ref.wkv6_ref``)."""
+    import torch
+
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf = (t.to(torch.float64) for t in (r, k, v, w))
+    uf = u.to(torch.float64)[..., :, None]
+    state = s0.to(torch.float64).clone()
+    y = torch.empty((b, s, h, hd), dtype=torch.float64, device=r.device)
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t], state + uf * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return y, state
+
+
+def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, decays, iters) -> dict:
     """Phase 9a, one case: the kernel against the step loop, timed with it
     and beside its bound. ``in_place``: the kernel writes the state over a
-    copy of s0, as decode writes the cache."""
+    copy of s0, as decode writes the cache. ``decays``: "zero" sets some
+    channels' w to 0 (whole channels, and single steps of others), "one"
+    some within 1e-7 of 1 (WKV_CASES says which oracle holds which)."""
     import torch
 
     from repro_torch.kernels import ref, wkv6
@@ -1785,30 +1851,48 @@ def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, iters) -> dict
 
     r, k, v = (randn(b, s, h, hd).mul_(0.5).to(dtype) for _ in range(3))
     w = torch.exp(-torch.exp(randn(b, s, h, hd) - 1.0))
+    if decays == "zero":
+        w[..., ::7] = 0.0
+        w[:, ::13, :, 1::5] = 0.0
+    elif decays == "one":
+        w[..., 3::7] = 1.0 - 1e-7 * torch.rand(w[..., 3::7].shape, generator=gen, device=dev)
     u = randn(h, hd).mul_(0.1)
     s0 = randn(b, h, hd, hd).mul_(0.1) if with_state else None
     state = s0.clone() if in_place else None
     got_y, got_s = wkv6.wkv6_cuda(r, k, v, w, u, state if in_place else s0, out_state=state)
     want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    oracle = "the float32 step loop"
+    if decays == "one" and s >= 1000:
+        f32 = (want_y, want_s)
+        want_y, want_s = wkv_step64(r, k, v, w, u, s0)
+        drift = max((a - p).abs().max().item() / max(1.0, p.abs().max().item())
+                    for a, p in zip(f32, (want_y, want_s)))
+        oracle = (f"a float64 step loop (the float32 step loop is {drift:.3g} of max(1, "
+                  f"scale) from it)")
     torch.cuda.synchronize()
     require(not in_place or got_s.data_ptr() == state.data_ptr(),
             f"wkv6 {name}: the state was not written over s0")
     err = 0.0
     for what, got, want in (("y", got_y, want_y), ("s_last", got_s, want_s)):
         require(bool(torch.isfinite(got).all()), f"wkv6 {name}: non-finite {what}")
-        e = (got - want).abs().max().item()
+        e = (got.double() - want.double()).abs().max().item()
         scale = max(1.0, want.abs().max().item())
-        require(e <= WKV_TOL * scale, f"wkv6 {name}: the kernel's {what} differs from the "
-                f"step loop's by {e:g} > {WKV_TOL} x {scale:g}")
+        require(e <= WKV_TOL * scale, f"wkv6 {name}: the kernel's {what} differs from "
+                f"{oracle} by {e:g} > {WKV_TOL} x {scale:g}")
         err = max(err, e)
 
     def kernel():
         return wkv6.wkv6_cuda(r, k, v, w, u, state if in_place else s0, out_state=state)
 
+    chunked = s >= wkv6.CHUNKED_MIN_SEQ
+    kname = "chunk_kernel" if chunked else "wkv6_kernel"
+    require(wkv6.last_kernel == ("chunked" if chunked else "step"),
+            f"wkv6 {name}: S = {s} ran the {wkv6.last_kernel} kernel")
     # the least of three timings: CUDA events also count the gaps when the
-    # host stalls between launches (the serve's profile in 9b gives the
-    # device time a launch)
+    # host stalls between launches (a decode step's launch is the host's
+    # time), so the profiler's device time a launch stands beside them
     ms = min(cuda_ms(kernel, iters) for _ in range(3))
+    dev_ms = kernel_device_ms(kernel, kname, min(iters, 20))
     plain_ms = cuda_ms(lambda: ref.wkv6_ref(r, k, v, w, u, s0), max(2, iters // 5))
     # r, k, v read once in their dtype, w read and y written in float32, u
     # and s0 read once, s_last written once; the least work: y_j = sum_i
@@ -1821,15 +1905,24 @@ def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, iters) -> dict
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
+           "device_ms": dev_ms, "kernel": "chunk" if chunked else "step"}
+    design = ""
+    if chunked:
+        tensor, tri = wkv_chunk_work(b, s, h, hd, dtype == torch.bfloat16)
+        design = (f"; the chunk design executes {tensor:.4g} tensor FLOPs as 3xTF32 "
+                  f"({1e3 * tensor / PEAK_TF32_FLOPS:.4f} ms at {PEAK_TF32_FLOPS / 1e12:g} "
+                  f"TF32 TFLOP/s) and {tri:.4g} flops of triangles on the CUDA cores "
+                  f"({1e3 * tri / PEAK_FP32_FLOPS:.4f} ms)")
     print(f"wkv6 {name}: B {b}, S {s}, {h} heads of {hd}, {str(dtype).removeprefix('torch.')} "
-          f"r/k/v, s0 {'given' if with_state else 'none'}{', state in place' if in_place else ''}: "
-          f"max_abs_err {err:.3g} (<= {WKV_TOL} x max(1, scale)); kernel {ms:.4f} ms "
-          f"(CUDA events, the least of 3 timings), plain {plain_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} FP32 FLOPs at "
-          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
-          f"{flops / (ms * 1e9):.1f} TFLOP/s, "
-          f"{row['bound_ms'] / ms:.3f} of the bound")
+          f"r/k/v, s0 {'given' if with_state else 'none'}{', state in place' if in_place else ''}"
+          f"{', decays ' + decays if decays else ''}: {row['kernel']} kernel, max_abs_err "
+          f"{err:.3g} against {oracle} (<= {WKV_TOL} x max(1, scale)); kernel {ms:.4f} ms "
+          f"(CUDA events, the "
+          f"least of 3 timings; device time {dev_ms:.4f} ms a launch by torch.profiler), plain "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} "
+          f"FP32 FLOPs at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s, {row['bound_ms'] / ms:.3f} of the bound{design}")
     return row
 
 
@@ -1843,7 +1936,8 @@ def rwkv_phase(dev) -> dict:
 
     # -- 9a. the kernel against the step loop at the path's shapes -----------
     rows = [wkv_case(dev, *case) for case in WKV_CASES]
-    main_case = rows[0]
+    main_case = {key: rows[0][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "bound_by", "max_abs_err")}
     torch.cuda.empty_cache()
 
     # -- 9b. the serve at full width -------------------------------------------

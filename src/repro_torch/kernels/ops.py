@@ -48,10 +48,12 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
     (B, H, hd, hd) float32 or None; returns (y float32 (B, S, H, hd),
     s_last float32 (B, H, hd, hd)). On the CPU the chunked matmul form
     ``models.rwkv6.wkv_chunked`` (with ``chunk``) when ``backend ==
-    "chunked"``, else the step loop ``ref.wkv6_ref``; on the card the
-    kernel, whatever the backend, as the TPU kernel ran. ``out_state``, a
-    float32 (B, H, hd, hd) tensor, receives s_last and is returned as it; it
-    may be ``s0`` itself, which then holds the new state."""
+    "chunked"``, else the step loop ``ref.wkv6_ref``; on the card one
+    launch, whatever the backend, as the TPU kernel ran: the chunk kernel
+    from ``wkv6.CHUNKED_MIN_SEQ`` steps on, the step kernel below.
+    ``out_state``, a float32 (B, H, hd, hd) tensor, receives s_last and is
+    returned as it; it may be ``s0`` itself, which then holds the new
+    state."""
     if r.device.type == "cpu":
         if backend == "chunked":
             from repro_torch.models.rwkv6 import wkv_chunked

@@ -8,8 +8,8 @@ parameters, then
 * cycle form: the trained learners are aggregated with weights ``w``, one
   ``fed_agg`` launch for every leaf;
 * async form (``server``, ``acc``, ``keep``, ``flush`` given): they are
-  folded into the accumulator and the flush applied, the ``accum_flush``
-  kernel once per leaf.
+  folded into the accumulator and the flush applied, one ``accum_flush``
+  launch for every leaf.
 
 The training source, with its bound and design, is ``csrc/train_step.cu``:
 one cooperative launch runs every step of every learner, walking the phase
@@ -29,7 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.accum_flush import accum_flush_cuda
+from repro_torch.kernels.accum_flush import accum_flush_leaves_cuda
 from repro_torch.kernels.fed_agg import fed_agg_leaves_cuda
 
 __all__ = ["train_agg_step_cuda", "launches"]
@@ -180,8 +180,10 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
         agg = iter(fed_agg_leaves_cuda([leaf for layer in work for leaf in layer.values()],
                                        weights))
         return [{name: next(agg) for name in layer} for layer in work], None
-    pairs = [{name: accum_flush_cuda(leaf, weights, acc[l][name], server[l][name],
-                                     keep, flush)
-              for name, leaf in layer.items()} for l, layer in enumerate(work)]
-    return ([{name: p[0] for name, p in layer.items()} for layer in pairs],
-            [{name: p[1] for name, p in layer.items()} for layer in pairs])
+    keys = [(l, name) for l, layer in enumerate(work) for name in layer]
+    servers, accs = accum_flush_leaves_cuda(
+        [work[l][name] for l, name in keys], [acc[l][name] for l, name in keys],
+        [server[l][name] for l, name in keys], weights, keep, flush)
+    servers, accs = iter(servers), iter(accs)
+    return ([{name: next(servers) for name in layer} for layer in work],
+            [{name: next(accs) for name in layer} for layer in work])

@@ -1,13 +1,17 @@
-"""CUDA kernel for the RWKV-6 WKV recurrence (forward, with its final state).
+"""CUDA kernels for the RWKV-6 WKV recurrence (forward, with its final state).
 
-Replaces the Pallas TPU kernel ``wkv6_pallas`` (``repro/kernels/wkv6.py:58``);
-the source, with its bound and design, is ``csrc/wkv6.cu``. The plain torch
-versions are the step loop ``repro_torch.kernels.ref.wkv6_ref`` (the
-oracle, and what ``ops.wkv6`` runs for a CPU tensor) and the chunked matmul
-form ``repro_torch.models.rwkv6.wkv_chunked``.
+Replace the Pallas TPU kernel ``wkv6_pallas`` (``repro/kernels/wkv6.py:58``);
+the source, with its bound and design, is ``csrc/wkv6.cu``: a chunk kernel
+on the tensor cores (3xTF32) for sequences of ``CHUNKED_MIN_SEQ`` steps or
+more, and a step kernel for shorter ones (decode). A call is one launch of
+one of them, chosen by S alone. The plain torch versions are the step loop
+``repro_torch.kernels.ref.wkv6_ref`` (the oracle, and what ``ops.wkv6``
+runs for a CPU tensor) and the chunked matmul form
+``repro_torch.models.rwkv6.wkv_chunked``.
 
-``launches`` counts the kernel's launches in this process; set it to 0 to
-start a count.
+``launches`` counts the kernels' launches in this process (either kernel);
+set it to 0 to start a count. ``last_kernel`` names the kernel the last
+launch ran, "step" or "chunked".
 """
 
 from __future__ import annotations
@@ -19,19 +23,32 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["HEAD_DIMS", "launches", "wkv6_cuda"]
+__all__ = ["CHUNK", "CHUNKED_MIN_SEQ", "HEAD_DIMS", "PIECES", "SUB_CHUNK", "last_kernel",
+           "launches", "wkv6_cuda"]
 
 launches = 0
+last_kernel: str | None = None
 HEAD_DIMS = (32, 64, 128)
+# the chunk kernel's shape (csrc/wkv6.cu): rows a chunk and a sub-chunk,
+# tf32 pieces a product (3xTF32), and the shortest sequence it takes (a
+# shorter one goes to the step kernel)
+CHUNK = 64
+SUB_CHUNK = 16
+PIECES = 3
+CHUNKED_MIN_SEQ = 48
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_KERNELS = {"step": 0, "chunked": 1}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wkv6")
-    lib.wkv6_fwd.restype = ctypes.c_int
-    lib.wkv6_fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p])
+    args = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.wkv6_fwd.restype = lib.wkv6_fwd_with.restype = ctypes.c_int
+    lib.wkv6_fwd.argtypes = args + [ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_fwd_with.argtypes = [ctypes.c_int] + args
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -67,22 +84,28 @@ def _check(r, k, v, w, u, s0, out_state) -> None:
                                    ("out_state", out_state, f32, state)):
         if t is not None:
             _check_tensor(name, t, r.device, dtypes, tuple(shape))
-    if b * h >= 2**31:
+    if b * h * (hd // 32) >= 2**31:
         raise ValueError(f"B * H = {b * h} exceeds the grid")
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               u: torch.Tensor, s0: torch.Tensor | None = None, *,
-              out_state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              out_state: torch.Tensor | None = None,
+              kernel: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The WKV-6 recurrence on the card. r, k, v: (B, S, H, hd), float32 or
     bfloat16 of one dtype; w: (B, S, H, hd) float32; u: (H, hd) float32;
     s0: (B, H, hd, hd) float32 or None (zeros); hd in ``HEAD_DIMS``; all
     contiguous, 16-byte aligned CUDA tensors. Every product is taken in
-    float32. Returns (y float32 (B, S, H, hd), s_last float32
-    (B, H, hd, hd)); s_last is written into ``out_state`` when it is given,
-    which may be ``s0`` itself (the state is then updated in place)."""
-    global launches
+    float32 (3xTF32 on the tensor cores in the chunk kernel). Returns
+    (y float32 (B, S, H, hd), s_last float32 (B, H, hd, hd)); s_last is
+    written into ``out_state`` when it is given, which may be ``s0`` itself
+    (the state is then updated in place). ``kernel`` ("step" or "chunked")
+    launches that kernel whatever S is, for measuring the two against each
+    other; None (what the model runs) lets the C entry choose by S."""
+    global launches, last_kernel
     _check(r, k, v, w, u, s0, out_state)
+    if kernel is not None and kernel not in _KERNELS:
+        raise ValueError(f"kernel must be one of {sorted(_KERNELS)} or None, got {kernel!r}")
     b, s, h, hd = r.shape
     y = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
     s_last = (torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
@@ -92,9 +115,13 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     lib = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.wkv6_fwd(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            w.data_ptr(), u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
-                            y.data_ptr(), s_last.data_ptr(), b, s, h, hd, stream)
+        args = (_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), 0 if s0 is None else s0.data_ptr(), y.data_ptr(),
+                s_last.data_ptr(), b, s, h, hd, stream)
+        which = ctypes.c_int(_KERNELS[kernel] if kernel is not None else -1)
+        code = (lib.wkv6_fwd(*args, ctypes.byref(which)) if kernel is None
+                else lib.wkv6_fwd_with(which.value, *args))
     _build.check(lib, code, "wkv6 kernel launch")
     launches += 1
+    last_kernel = ("step", "chunked")[which.value]
     return y, s_last

@@ -16,7 +16,8 @@ call trains in one launch of the training kernel (counted by
 ``torch.profiler``), and refuses more than 16 layers or 64 classes.
 
 The accumulate/flush kernel runs the plain version's sum in its order with
-every product rounded, so it is held to 1e-6.
+every product rounded, so it is held to 1e-6; one launch takes every leaf
+of a group step, and each leaf is bitwise the same through it as alone.
 
 The water-filling residual kernel sums in the plain version's order and
 rounds every operation as it does, so its tolerance is tight: absolute
@@ -44,13 +45,17 @@ The all-leaf ``fed_agg`` launch sums over k in order with every product
 rounded, so each leaf is bitwise the in-order per-leaf sum, and the
 single-leaf launch; a fused cycle aggregates every leaf in one launch.
 
-The WKV-6 kernel is held to the step loop ``ref.wkv6_ref`` on the card:
-both take every product in float32 from the same inputs and sum over i in
-other orders (the kernel with fused multiply-adds), and the output is
-float32 for bf16 inputs too, so y and s_last are held to 1e-5 of
-max(1, max |plain|) in both dtypes. The decode form writes the state over
-its own s0. A reduced-width 4-layer RWKV-6 prefill launches it once a
-layer, and decode once a layer a step, with logits matching the CPU's.
+The WKV-6 kernels are held to the step loop ``ref.wkv6_ref`` on the card:
+the step kernel takes every product in float32 and the chunk kernel as
+3xTF32 on the tensor cores, both from the same inputs, summing in other
+orders; the output is float32 for bf16 inputs too, so y and s_last are
+held to 1e-5 of max(1, max |plain|) in both dtypes. Lengths on both sides
+of ``wkv6.CHUNKED_MIN_SEQ`` run each kernel (``wkv6.last_kernel`` names which),
+with decays of 0 and within 1e-7 of 1; each kernel forced at any length
+holds the same gate, and repeats its bits. The decode form and a 1000-step
+prefill write the state over their own s0. A reduced-width 4-layer RWKV-6
+prefill launches it once a layer, and decode once a layer a step, with
+logits matching the CPU's.
 
 The Mamba scan kernel is held to the step loop ``ref.mamba_scan_ref``: both
 take every product in float32 (a bf16 x widened exactly) and sum over n in
@@ -287,7 +292,7 @@ def _kernel_launches(fn) -> list[str]:
 def test_train_agg_step_trains_in_one_kernel_launch_a_call(dev, form):
     """Every step of every learner runs in one launch of the persistent
     training kernel; the aggregation follows it (one all-leaf fed_agg
-    launch, or accum_flush once a leaf)."""
+    launch, or one all-leaf accum_flush launch)."""
     layers = [100, 70, 33, 10]
     k = 4
     disp = _model(k, layers, seed=21, dev=dev)
@@ -303,9 +308,8 @@ def test_train_agg_step_trains_in_one_kernel_launch_a_call(dev, form):
     names = _kernel_launches(lambda: ops.train_agg_step(disp, x, y, m, tau, w, LR, **kw))
     count = lambda key: sum(key in n for n in names)
     assert count("train_steps_kernel") == 1, names
-    leaves = 2 * (len(layers) - 1)
     assert (count("fed_agg_kernel"), count("accum_flush_kernel")) == (
-        (1, 0) if form == "cycle" else (0, leaves)), names
+        (1, 0) if form == "cycle" else (0, 1)), names
 
 
 # async form: (keep, flush) of an accumulate-only step, a buffered flush and
@@ -333,6 +337,63 @@ def test_accum_flush_kernel_matches_plain(dev, shape, case):
         assert bool((got[1] == 0).all())
     else:
         assert torch.equal(got[0], server)
+
+
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("case", sorted(FLUSH_CASES))
+@pytest.mark.parametrize("leaves", sorted(FED_AGG_LEAVES))
+def test_accum_flush_all_leaf_launch_is_each_leaf_alone_bitwise(dev, leaves, case, k):
+    """Every leaf through one launch gives the bits of that leaf through the
+    launch alone (a leaf of a size that is not a multiple of 4 takes single
+    floats, the others float4s), within 1e-6 of the plain version."""
+    keep, flush = FLUSH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(k + len(leaves))
+    shapes = FED_AGG_LEAVES[leaves]
+    locals_ = [torch.randn((k, *s), generator=gen, device=dev) for s in shapes]
+    accs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    servers = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    w = torch.softmax(torch.randn(k, generator=gen, device=dev), 0) * 0.6
+    accum_flush.launches = 0
+    got_s, got_a = accum_flush.accum_flush_leaves_cuda(locals_, accs, servers, w, keep, flush)
+    torch.cuda.synchronize()
+    assert accum_flush.launches == 1
+    for x, acc, server, gs, ga in zip(locals_, accs, servers, got_s, got_a):
+        assert gs.shape == ga.shape == acc.shape
+        assert gs.data_ptr() % 16 == 0 and ga.data_ptr() % 16 == 0
+        alone = accum_flush.accum_flush_cuda(x, w, acc, server, keep, flush)
+        assert torch.equal(gs, alone[0]) and torch.equal(ga, alone[1])
+        want = ref.accum_flush_ref(x, w, acc, server, keep, flush)
+        for g, p in zip((gs, ga), want):
+            torch.testing.assert_close(g, p, rtol=1e-6, atol=1e-6)
+
+
+def test_accum_flush_all_leaf_launch_refuses_what_it_does_not_take(dev):
+    w = torch.ones(2, device=dev) / 2
+    leaf, acc = torch.randn(2, 3, device=dev), torch.randn(3, device=dev)
+    many = accum_flush.MAX_LEAVES + 1
+    with pytest.raises(ValueError, match=f"1 to {accum_flush.MAX_LEAVES} leaves"):
+        accum_flush.accum_flush_leaves_cuda([leaf] * many, [acc] * many, [acc] * many, w,
+                                            1.0, 0.0)
+    with pytest.raises(ValueError, match="learner axis"):
+        accum_flush.accum_flush_leaves_cuda([leaf, torch.randn(3, 3, device=dev)],
+                                            [acc, acc], [acc, acc], w, 1.0, 0.0)
+    with pytest.raises(ValueError, match="float32"):
+        accum_flush.accum_flush_leaves_cuda([leaf, leaf.double()], [acc, acc], [acc, acc], w,
+                                            1.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        accum_flush.accum_flush_leaves_cuda([leaf, torch.randn(3, 2, device=dev).t()],
+                                            [acc, acc], [acc, acc], w, 1.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        accum_flush.accum_flush_leaves_cuda([leaf], [torch.randn(6, device=dev)[::2]], [acc],
+                                            w, 1.0, 0.0)
+    accum_flush.launches = 0
+    got_s, got_a = accum_flush.accum_flush_leaves_cuda(
+        [leaf] * accum_flush.MAX_LEAVES, [acc] * accum_flush.MAX_LEAVES,
+        [acc] * accum_flush.MAX_LEAVES, w, 0.4, 1.0)
+    torch.cuda.synchronize()
+    assert accum_flush.launches == 1
+    assert all(torch.equal(g, got_s[0]) for g in got_s)
+    assert all(torch.equal(g, got_a[0]) for g in got_a)
 
 
 def test_accum_flush_kernel_refuses_what_it_does_not_take(dev):
@@ -370,7 +431,7 @@ def test_async_train_agg_step_kernel_matches_plain(dev, case):
     got = ops.train_agg_step(disp, x, y, m, tau_t, w, LR, **kw)
     torch.cuda.synchronize()
     assert (train_step.launches, fed_agg.launches) == (1, 0)
-    assert accum_flush.launches == 2 * (len(layers) - 1)
+    assert accum_flush.launches == 1
     want = ref.train_agg_step_ref(disp, x, y, m, tau_t, w, LR, **kw)
     for got_tree, want_tree in zip(got, want):
         for g_layer, w_layer in zip(got_tree, want_tree):
@@ -706,29 +767,43 @@ def test_dense_prefill_launches_the_kernel_once_a_layer(dev):
     assert np.isfinite(tree_to_numpy(cache)["blocks"][0]["mixer"]["k"]).all()
 
 
-# b, s, heads, hd, dtype, with s0
+# b, s, heads, hd, with s0, decays: below wkv6.CHUNKED_MIN_SEQ (48) the step
+# kernel runs, from it on the chunk kernel; "zero" sets whole channels and
+# single steps of others to w = 0, "one" channels to within 1e-7 of 1
 WKV_CASES = {
-    "rwkv_head64": (2, 200, 4, 64, True),
-    "ragged_no_state": (3, 37, 2, 64, False),
-    "one_step": (4, 1, 3, 64, True),
-    "head32": (2, 65, 3, 32, True),
-    "head128": (1, 70, 2, 128, False),
-    "empty_seq": (2, 0, 2, 64, True),
+    "rwkv_head64": (2, 200, 4, 64, True, ()),
+    "ragged_no_state": (3, 37, 2, 64, False, ()),
+    "one_step": (4, 1, 3, 64, True, ()),
+    "head32": (2, 65, 3, 32, True, ()),
+    "head128": (1, 70, 2, 128, False, ()),
+    "empty_seq": (2, 0, 2, 64, True, ()),
+    "below_threshold": (2, 47, 2, 64, True, ()),
+    "at_threshold": (2, 48, 2, 64, False, ()),
+    "ragged_1000": (2, 1000, 2, 64, True, ()),
+    "head128_long": (1, 300, 2, 128, True, ()),
+    "head32_prime": (2, 131, 2, 32, False, ()),
+    "strong_decay": (2, 300, 3, 64, True, ("zero", "one")),
+    "strong_decay_step": (2, 40, 3, 64, True, ("zero", "one")),
 }
 WKV_TOL = 1e-5
 
 
-def _wkv_args(b, s, h, hd, dtype, with_state, seed, dev):
+def _wkv_args(b, s, h, hd, dtype, with_state, seed, dev, decays=()):
     rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.tensor(a, dtype=torch.float32, device=dev)
 
     r, k, v = (t(rng.standard_normal((b, s, h, hd)) * 0.5).to(dtype) for _ in range(3))
-    w = t(np.exp(-np.exp(rng.standard_normal((b, s, h, hd)) - 1.0)))
+    w = np.exp(-np.exp(rng.standard_normal((b, s, h, hd)) - 1.0))
+    if "zero" in decays:
+        w[..., ::7] = 0.0
+        w[:, ::13, :, 1::5] = 0.0
+    if "one" in decays:
+        w[..., 3::7] = 1.0 - rng.uniform(0.0, 1e-7, w[..., 3::7].shape)
     u = t(rng.standard_normal((h, hd)) * 0.1)
     s0 = t(rng.standard_normal((b, h, hd, hd)) * 0.1) if with_state else None
-    return r, k, v, w, u, s0
+    return r, k, v, t(w), u, s0
 
 
 def _wkv_close(got, want) -> None:
@@ -740,12 +815,13 @@ def _wkv_close(got, want) -> None:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(WKV_CASES))
 def test_wkv6_kernel_matches_plain(dev, case, dtype):
-    b, s, h, hd, with_state = WKV_CASES[case]
-    args = _wkv_args(b, s, h, hd, dtype, with_state, seed=s + hd, dev=dev)
-    wkv6.launches = 0
+    b, s, h, hd, with_state, decays = WKV_CASES[case]
+    args = _wkv_args(b, s, h, hd, dtype, with_state, seed=s + hd, dev=dev, decays=decays)
+    wkv6.launches, wkv6.last_kernel = 0, None
     y, s_last = ops.wkv6(*args)
     torch.cuda.synchronize()
     assert wkv6.launches == 1
+    assert wkv6.last_kernel == ("chunked" if s >= wkv6.CHUNKED_MIN_SEQ else "step")
     assert y.dtype == s_last.dtype == torch.float32
     assert y.shape == (b, s, h, hd) and s_last.shape == (b, h, hd, hd)
     want_y, want_s = ref.wkv6_ref(*args)
@@ -753,11 +829,14 @@ def test_wkv6_kernel_matches_plain(dev, case, dtype):
     _wkv_close(s_last, want_s)
 
 
+@pytest.mark.parametrize("s", [1, 1000], ids=["decode_step", "prefill_1000"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_wkv6_kernel_updates_the_state_in_place(dev, dtype):
-    """The decode form: S = 1, s_last written over s0 (a slice of a stacked
-    cache), as ``models.rwkv6.apply`` calls it; the slice's neighbours stay."""
-    r, k, v, w, u, s0 = _wkv_args(4, 1, 64, 64, dtype, True, seed=7, dev=dev)
+def test_wkv6_kernel_updates_the_state_in_place(dev, dtype, s):
+    """The decode form (S = 1, the step kernel) and a prefill given a cache
+    (S = 1000, the chunk kernel): s_last written over s0 (a slice of a
+    stacked cache), as ``models.rwkv6.apply`` calls it; the slice's
+    neighbours stay."""
+    r, k, v, w, u, s0 = _wkv_args(4, s, 64 if s == 1 else 8, 64, dtype, True, seed=7, dev=dev)
     stacked = torch.stack([s0 + 1.0, s0, s0 - 1.0])
     before = stacked.clone()
     want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
@@ -767,6 +846,35 @@ def test_wkv6_kernel_updates_the_state_in_place(dev, dtype):
     _wkv_close(y, want_y)
     _wkv_close(stacked[1], want_s)
     assert torch.equal(stacked[0], before[0]) and torch.equal(stacked[2], before[2])
+
+
+@pytest.mark.parametrize("s", [40, 200], ids=["step", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv6_kernels_repeat_their_bits(dev, dtype, s):
+    """A repeat call gives the same bits (no atomics, a fixed order)."""
+    args = _wkv_args(2, s, 4, 64, dtype, True, seed=s, dev=dev)
+    first = ops.wkv6(*args)
+    second = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("s", [1, 40, 48, 64, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv6_both_kernels_match_plain_at_any_length(dev, dtype, s):
+    """Each kernel forced on either side of the threshold: the same gate."""
+    args = _wkv_args(2, s, 3, 64, dtype, True, seed=s + 1, dev=dev, decays=("zero",))
+    want_y, want_s = ref.wkv6_ref(*args)
+    for kernel in ("step", "chunked"):
+        wkv6.launches = 0
+        y, s_last = wkv6.wkv6_cuda(*args, kernel=kernel)
+        torch.cuda.synchronize()
+        assert wkv6.launches == 1
+        _wkv_close(y, want_y)
+        _wkv_close(s_last, want_s)
+    with pytest.raises(ValueError, match="kernel must be"):
+        wkv6.wkv6_cuda(*args, kernel="scan")
 
 
 def test_wkv6_kernel_refuses_what_it_does_not_take(dev):
