@@ -2,10 +2,14 @@
 
 The layer map follows the reference package: ``configs/``, ``data/``,
 ``core/``, ``models/``, ``kernels/``, ``fed/``, ``launch/``. Host-side
-allocation math is NumPy, copied from the reference; model math is torch;
-the train+aggregate hot path, the allocator's water-filling and the dense
-serve's prefill attention run hand-written CUDA kernels (``kernels/``,
-sources in ``csrc/``).
+allocation math is NumPy, copied from the reference; model math is torch.
+Eight hand-written CUDA kernels (``kernels/``, sources in ``csrc/``) carry
+the hot paths: the local-training steps (``train_step``), the cycle's
+aggregate (``fed_agg``) and the async accumulate/flush (``accum_flush``);
+the allocator's water-filling residuals, time-only and energy-budgeted
+(``waterfill``); and the serves' flash attention (``flash_attention``),
+RWKV-6 recurrence (``wkv6``), Mamba selective scan (``mamba_scan``) and
+fused SwiGLU (``swiglu``).
 
 Entry points take ``device=None``, which means ``"cuda"``; on a machine
 without a card they raise unless the caller passes ``device="cpu"``.

@@ -10,55 +10,87 @@
 // (src/repro/kernels/mamba_scan.py:61), which runs a grid of (batch,
 // channel block, time chunk) with the time axis sequential and keeps the
 // (block_d, N) state in VMEM scratch across chunks. On the card blocks run
-// in no order and nothing carries over between them, so one thread owns one
-// (b, d) pair and walks every step itself, its N float32 states in
-// registers: the sequential grid axis becomes the thread's loop over t.
-// Inputs are converted to float32 and every product is taken there, as the
-// Pallas kernel's are. nvcc contracts h*da + u*B into one fused
-// multiply-add, so a product rounds where the plain version's separate ones
-// do not, and y is summed over n in another order than the plain version's
-// einsum; the tolerance against the plain version is 1e-5 of
-// max(1, |plain|).
+// in no order and nothing carries over between them, so a lane owns some
+// (b, d, n) states and walks every step itself, its states in registers:
+// the sequential grid axis becomes the lane's loop over t. Every product is
+// taken in float32, as the Pallas kernel's are.
 //
-// Bound: at the Jamba prefill shape (B 4, S 2048, D 8192, N 16) the
+// Bound. At the Jamba prefill shape (B 4, S 2048, D 8192, N 16) the
 // function reads dt and x (B, S, D) and writes y (B, S, D): with dt and y in
-// float32 and x in bf16, 10 bytes a (b, t, d), 671 MB (B, C, A and the
+// float32 and x in bf16, 10 bytes a (b, t, d), 671 MB (B, C, a and the
 // state add ~1 MB): 0.200 ms at 3.35 TB/s (x in float32: 805 MB, 0.240 ms).
-// The least work is 1.07e9 (b, t, d, n) elements, each dt a (1 multiply),
-// its exponential, h da + u B (2) and the y sum (2), 6 FP32 operations
-// counting the exponential as one, plus u = dt x a (b, t, d): 6.5e9 in
-// all, 0.097 ms at the CUDA cores' 67 TFLOP/s. So by the card's published
-// rates the function is bound by bytes. The exponentials are the catch:
-// the card's special-function unit (MUFU) issues 16 of them a clock an SM,
-// 4.2e12/s at 1.98 GHz, so 1.07e9 exponentials take 0.257 ms there if each
-// is one MUFU.EX2 (an IEEE-accurate expf, as built here without
-// --use_fast_math, adds ~7 FP32 instructions of range reduction to it).
-// Unless some exponentials move to polynomials on the FMA pipes, the SFU,
-// and not the memory, sets the floor.
+// The arithmetic, 6 FP32 operations per (b, t, d, n) counting the
+// exponential as one, is 0.097 ms at the CUDA cores' 67 TFLOP/s. But the
+// exponential is not one FMA-pipe operation: the special-function unit
+// (SFU, MUFU) issues 16 a clock an SM, so the 1.07e9 exponentials take
+// 0.257 ms there at 1.98 GHz if each is one bare MUFU.EX2. That, not the
+// memory, is the floor of a kernel that sends every exponential there; an
+// IEEE expf (this build has no --use_fast_math) wraps the same MUFU.EX2 in
+// ~7 FP32 instructions of range reduction and scaling, which the first
+// version of this kernel paid on every element (0.67 ms).
 //
-// Design: a CTA of 128 threads owns 128 neighbouring channels of one batch
-// row (grid: channel blocks x batch). dt and x load coalesced across the
-// channels, a chunk of TC steps ahead into registers of their own type (a
-// bf16 x is widened only when it is used: widening right after the load
-// makes the thread wait for it there). B_t and C_t, shared by every channel
-// of a row, are staged through shared memory once a chunk (TC N floats
-// each, contiguous in memory, float4 loads), double-buffered so that one
-// __syncthreads() a chunk suffices: a buffer is written at the end of chunk
-// c only after every thread has passed chunk c - 1's barrier, hence
-// finished reading it. Every thread reads the same B_t and C_t float4s
-// (broadcast). y_t is the thread's own sum over n in registers (two
-// partial sums for the latency of the adds); no shuffle. A thread reads its
-// own h0 row before it writes the same h_last row and no thread touches
-// another's, so h_last may alias h0: a caller updates a state in place this
-// way. Ragged S and D are masked (threads past D stage and wait, but load
-// and store nothing of their own). N is a template argument (4, 8, 16, 32);
-// x is float32 or bfloat16, everything else float32, every pointer 16-byte
-// aligned.
+// Not a chunked tensor-core form. Mamba-1's decay depends on the channel
+// and the state, so a chunk's kernel matrix M[t, s] = sum_n (C_t[n]
+// e^{a Lam_t}) (B_s[n] e^{-a Lam_s}) (Lam the running sum of dt) exists per
+// channel only, needs two exponentials per (t, d, n) where the scan needs
+// one, and its factors e^{-a Lam_s} overflow float32 within a chunk once
+// |a dLam| > 88: it doubles the resource that binds. One exponential an
+// element is the floor; the design chooses where each is computed.
 //
-// Occupancy is the weak point: at the prefill shape there are 32,768
-// threads, 256 CTAs of 4 warps on 132 SMs (about 8 warps an SM); latency is
-// hidden by the N independent state chains and the loads issued a chunk
-// ahead, not by other warps.
+// Design, in three parts:
+//  1. Exponentials on the SFU, bare. a2 = a log2(e) is formed once per
+//     (d, n) at the start, in registers, and each decay is 2^(dt a2) by one
+//     `ex2.approx.ftz.f32` (2 ulp; its result below 2^-126 is 0). This
+//     kernel alone asks for it, by inline PTX: the build's flags stay IEEE,
+//     so every other kernel keeps IEEE expf/logf.
+//  2. No share on the FMA pipes. Taking a fixed share of the exponentials
+//     by a polynomial on the FMA pipes (13 issue slots where the SFU takes
+//     one) pays only while the loop's other instructions leave issue slots
+//     free: the SFU takes 8 cycles of its sub-partition for a warp's 32
+//     exponentials, so it binds while an element costs fewer than 8 issue
+//     slots in all. The loop costs ~7.8 (4 FP32 operations, the
+//     exponential, ~2.8 of loads, conversion, the y sum and addressing),
+//     and shares of 1/8, 1/4 and 3/8 each measured slower than none
+//     (PERF.md), so every exponential goes to the SFU.
+//  3. More warps and fewer instructions an element. A channel's N states
+//     are split over LANES neighbouring lanes (NL = N / LANES each); a CTA
+//     of 128 threads owns 128 / LANES channels of one batch row (grid:
+//     channel blocks x batch), 16 warps an SM at the prefill. Every input
+//     of a chunk of TC steps (dt, x, B, C) is staged in shared memory by
+//     16-byte cp.async (dt and x element by element when D is no multiple
+//     of 8), STAGES - 1 chunks ahead of the chunk being computed, with one
+//     __syncthreads() a chunk; a chunk's steps are straight-line code (a
+//     step past S is staged as zeros and leaves h unchanged), so the
+//     compiler interleaves the steps' loads, exponentials and FMAs. A lane
+//     keeps its partial y of each step of the chunk and the LANES partials
+//     are summed after the chunk by a transposed butterfly of
+//     __shfl_xor_sync: at each stage a lane keeps half of its steps and
+//     sends the other half, so that lane j ends with the full sums of the
+//     steps i with i mod LANES == j, in an order fixed by the lane (the
+//     bits repeat from call to call), and stores them.
+// The time of every variant measured (FMA-pipe shares 0, 1/8, 1/4, 3/8; 1,
+// 2 and 4 lanes a channel; 1 or 2 channels a lane; 16, 24 or 32 steps a
+// chunk) is in PERF.md, from tools/mamba_variants.py; the constants below
+// are the fastest.
+//
+// Numerics against the plain version (the step loop ref.mamba_scan_ref,
+// IEEE exp): the decay's rounded a2 adds ~1 ulp to dt a and ex2.approx is
+// within 2 ulp; h * da + u * B is one fused multiply-add; y is summed over
+// n in another order. Each of these is emulated in
+// tests/test_torch_mamba_exp.py, which holds the emulation to the step loop
+// within 1e-5 of max(1, |plain|), the card tests' gate. Near a decay of 1
+// an exponential's error has one sign step after step, so a large state
+// that barely decays drifts: at decays within 1e-6 of 1 and a unit state
+// over 2048 steps, both this kernel and the float32 step loop end more than
+// 1e-5 of the scale from a float64 loop (the card tests and chip_smoke.py
+// hold the kernel to a float64 loop there, with the limit they state).
+//
+// A lane reads its own h0 states before it writes the same h_last states
+// and no lane touches another's, so h_last may alias h0: a caller updates a
+// state in place this way. Ragged D is masked (lanes past D compute on
+// zeros and store nothing). N is a template argument (4, 8, 16, 32); x is
+// float32 or bfloat16, widened exactly; everything else float32, every
+// pointer 16-byte aligned.
 //
 // C interface for ctypes; returns a cudaError_t code (0 on success).
 
@@ -69,141 +101,190 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // channels a CTA
-constexpr int TC = 16;        // steps a chunk: staged, loaded ahead, one barrier
+constexpr int THREADS = 128;      // a CTA
+constexpr int TC = 32;            // steps a chunk: staged, loaded ahead, one barrier
+constexpr int LANES = 2;          // lanes a channel (its states split over them)
+constexpr float LOG2E = 1.44269504088896341f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float exp2_sfu(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-// dt, x, b and c are read without __restrict__, so that their loads stay
-// ahead of the barriers as written and the prefetch holds.
-template <typename T, int N>
+// K neighbouring floats from p (aligned to K of them) into out
+template <int K>
+__device__ __forceinline__ void load_vec(float (&out)[K], const float* p) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < K; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + q);
+      out[q] = v.x; out[q + 1] = v.y; out[q + 2] = v.z; out[q + 3] = v.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+    static_assert(K == 1, "K is 1, 2 or a multiple of 4");
+    out[0] = p[0];
+  }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>  // wait until at most PENDING groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Steps t0 .. t0 + TC - 1 of channels d0 .. d0 + CH - 1 of one batch row's
+// (seq, dim) slab g into s, zeros past seq and dim; E elements a copy: 16
+// bytes by cp.async (D a multiple of 8), or one element by a load and a
+// store (any D).
+template <int E, int CH, typename T>
+__device__ __forceinline__ void stage(T (&s)[TC][CH], const T* g, int t0, int d0, int seq,
+                                      int dim, int tid) {
+  static_assert(E == 1 || E * sizeof(T) == 16, "a copy is one element or 16 bytes");
+#pragma unroll
+  for (int i = 0; i < (TC * CH / E + THREADS - 1) / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / (CH / E), c = E * (e % (CH / E));
+    const bool ok = t0 + r < seq && d0 + c < dim;
+    const T* src = g + (long long)(t0 + r) * dim + d0 + c;
+    if (e < TC * CH / E) {
+      if constexpr (E == 1) s[r][c] = ok ? *src : T(0.f);
+      else cp_async16(&s[r][c], ok ? src : g, ok);
+    }
+  }
+}
+
+// VEC: D is a multiple of 8, and dt and x are staged 16 bytes a copy
+template <typename T, int N, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-mamba_scan_kernel(const float* dt, const T* x, const float* bm, const float* cm,
+mamba_scan_kernel(const float* dt, const T* x, const float* __restrict__ bm,
+                  const float* __restrict__ cm,
                   const float* __restrict__ a,
                   const float* h0,  // may alias h_last: not __restrict__
                   float* __restrict__ y, float* h_last, int seq, int dim) {
-  constexpr int V = TC * N / 4;                               // float4s of B (or C) a chunk
-  constexpr int PER = (2 * V + THREADS - 1) / THREADS;        // float4s a thread stages
-  __shared__ __align__(16) float sbc[2][2][TC * N];           // [buffer][B, C][t * N + n]
+  constexpr int NL = N / LANES;                              // states a lane
+  constexpr int CH = THREADS / LANES;                        // channels a CTA
+  constexpr int V = TC * N / 4;                              // float4s of B (or C) a chunk
+  constexpr int PBC = (2 * V + THREADS - 1) / THREADS;       // float4s a thread stages
+  static_assert(N % LANES == 0 && TC % LANES == 0 && CH % 8 == 0, "geometry");
+  // chunks in shared memory: three (two loads in flight while one is read)
+  // where they fit in the 48 KB of static shared memory, else two
+  constexpr int STAGE_BYTES = (2 * TC * N + TC * CH) * 4 + TC * CH * (int)sizeof(T);
+  constexpr int STAGES = 3 * STAGE_BYTES <= 48 * 1024 ? 3 : 2;
+  __shared__ __align__(16) float sbc[STAGES][2][TC * N];     // [buffer][B, C][t * N + n]
+  __shared__ __align__(16) float sdt[STAGES][TC][CH];
+  __shared__ __align__(16) T sx[STAGES][TC][CH];
   const int tid = threadIdx.x;
-  const int d = blockIdx.x * THREADS + tid;
-  const bool live = d < dim;
-  const long long row = (long long)blockIdx.y * seq;          // (b, t = 0)
-  const float* dtp = dt + row * dim + d;
-  const T* xp = x + row * dim + d;
-  float* yp = y + row * dim + d;
+  const int j = tid % LANES;                                 // lane in the channel's group
+  const int dl = tid / LANES;                                // channel, in the CTA
+  const int d0 = blockIdx.x * CH;
+  const int d = d0 + dl;
+  const long long row = (long long)blockIdx.y * seq;         // (b, t = 0)
   const float* bp = bm + row * N;
   const float* cp = cm + row * N;
+  const float* dtp = dt + row * dim;
+  const T* xp = x + row * dim;
 
-  float av[N], h[N];
+  float a2[NL], h[NL];
 #pragma unroll
-  for (int n = 0; n < N; n += 4) {
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vh = va;
-    if (live) {
-      va = *reinterpret_cast<const float4*>(a + (long long)d * N + n);
-      if (h0 != nullptr)
-        vh = *reinterpret_cast<const float4*>(h0 + ((long long)blockIdx.y * dim + d) * N + n);
-    }
-    av[n] = va.x; av[n + 1] = va.y; av[n + 2] = va.z; av[n + 3] = va.w;
-    h[n] = vh.x; h[n + 1] = vh.y; h[n + 2] = vh.z; h[n + 3] = vh.w;
+  for (int k = 0; k < NL; ++k) a2[k] = h[k] = 0.f;
+  if (d < dim) {
+    load_vec(a2, a + (long long)d * N + j * NL);
+#pragma unroll
+    for (int k = 0; k < NL; ++k) a2[k] = __fmul_rn(a2[k], LOG2E);
+    if (h0 != nullptr) load_vec(h, h0 + ((long long)blockIdx.y * dim + d) * N + j * NL);
   }
 
-  float4 stage[PER];
-  auto fetch_bc = [&](int t0) {
+  // Staging. A step past S is staged as dt = x = B = C = 0: its decays are
+  // exactly 1 and it adds 0, so h passes it unchanged and no step needs a
+  // branch. Chunk t0 goes into a buffer STAGES - 1 chunks ahead of the
+  // chunk being computed.
+  auto issue = [&](int t0, int buf) {
     const int have = (seq - t0 < TC ? seq - t0 : TC) * (N / 4);  // float4s that exist
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
+    for (int i = 0; i < PBC; ++i) {
       const int e = tid + i * THREADS;
       if (e < 2 * V) {
-        const int j = e % V;
-        const float* src = (e < V ? bp : cp) + (long long)t0 * N;
-        stage[i] = j < have ? reinterpret_cast<const float4*>(src)[j]
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int q = e % V;
+        const float* src = (e < V ? bp : cp) + (long long)t0 * N + 4 * q;
+        cp_async16(&sbc[buf][e / V][4 * q], q < have ? src : bp, q < have);
       }
     }
-  };
-  auto store_bc = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (e < 2 * V) reinterpret_cast<float4*>(sbc[buf][e / V])[e % V] = stage[i];
-    }
-  };
-  float dtc[TC], dtn[TC];
-  T xc[TC], xn[TC];
-#pragma unroll
-  for (int i = 0; i < TC; ++i) {
-    dtn[i] = 0.f;
-    xn[i] = T(0.f);
-  }
-  auto fetch_dx = [&](int t0) {  // the chunk from t0 into dtn, xn
-#pragma unroll
-    for (int i = 0; i < TC; ++i) {
-      if (live && t0 + i < seq) {
-        dtn[i] = dtp[(long long)(t0 + i) * dim];
-        xn[i] = xp[(long long)(t0 + i) * dim];
-      }
-    }
-  };
-  auto advance = [&]() {  // the fetched chunk becomes the current one
-#pragma unroll
-    for (int i = 0; i < TC; ++i) {
-      dtc[i] = dtn[i];
-      xc[i] = xn[i];
-    }
+    stage<VEC ? 4 : 1>(sdt[buf], dtp, t0, d0, seq, dim, tid);
+    stage<VEC ? 16 / (int)sizeof(T) : 1>(sx[buf], xp, t0, d0, seq, dim, tid);
   };
 
-  if (seq > 0) {
-    fetch_bc(0);
-    fetch_dx(0);
-    store_bc(0);
-    advance();
+  // the first STAGES - 1 chunks; one commit group a chunk, empty past S
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c * TC < seq) issue(c * TC, c);
+    cp_async_commit();
   }
+  cp_async_wait<STAGES - 2>();
   __syncthreads();
   int buf = 0;
-  for (int t0 = 0; t0 < seq; t0 += TC) {
-    const bool more = t0 + TC < seq;  // the same in every thread
-    if (more) {
-      fetch_bc(t0 + TC);
-      fetch_dx(t0 + TC);
-    }
-    const float* sb = sbc[buf][0];
-    const float* sc = sbc[buf][1];
+  float* yp = y + (row + j) * dim + d;                       // step j of the chunk
+  for (int t0 = 0; t0 < seq; t0 += TC, yp += (long long)TC * dim) {
+    // chunk t0 + (STAGES - 1) TC into the buffer that chunk t0 - TC used:
+    // every thread has passed the barrier after reading it
+    const int ahead = t0 + (STAGES - 1) * TC;
+    if (ahead < seq) issue(ahead, buf == 0 ? STAGES - 1 : buf - 1);
+    cp_async_commit();
+    float ys[TC];
 #pragma unroll
     for (int i = 0; i < TC; ++i) {
-      if (t0 + i >= seq) break;  // the same t in every thread
-      const float dtv = dtc[i];
-      const float u = dtv * to_float(xc[i]);
+      float bv[NL], cv[NL];
+      load_vec(bv, &sbc[buf][0][i * N + j * NL]);
+      load_vec(cv, &sbc[buf][1][i * N + j * NL]);
+      const float dv = sdt[buf][i][dl];
+      const float u = __fmul_rn(dv, widen(sx[buf][i][dl]));
       float y0 = 0.f, y1 = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; n += 4) {
-        const float4 bv = *reinterpret_cast<const float4*>(sb + i * N + n);
-        const float4 cv = *reinterpret_cast<const float4*>(sc + i * N + n);
-        h[n] = h[n] * expf(dtv * av[n]) + u * bv.x;
-        h[n + 1] = h[n + 1] * expf(dtv * av[n + 1]) + u * bv.y;
-        h[n + 2] = h[n + 2] * expf(dtv * av[n + 2]) + u * bv.z;
-        h[n + 3] = h[n + 3] * expf(dtv * av[n + 3]) + u * bv.w;
-        y0 += h[n] * cv.x;
-        y1 += h[n + 1] * cv.y;
-        y0 += h[n + 2] * cv.z;
-        y1 += h[n + 3] * cv.w;
+      for (int k = 0; k < NL; ++k) {
+        const float da = exp2_sfu(__fmul_rn(dv, a2[k]));
+        h[k] = __fmaf_rn(h[k], da, __fmul_rn(u, bv[k]));
+        if (k % 2 == 0) y0 = __fmaf_rn(h[k], cv[k], y0);
+        else y1 = __fmaf_rn(h[k], cv[k], y1);
       }
-      if (live) yp[(long long)(t0 + i) * dim] = y0 + y1;
+      ys[i] = __fadd_rn(y0, y1);
     }
-    if (more) {
-      store_bc(buf ^ 1);
-      advance();
+    // the transposed butterfly: before the stage of mask m, slot i (i mod m
+    // == 0) holds this lane's partial of step i + (j mod m); after it, slot
+    // i (i mod 2m == 0) holds step i + (j mod 2m)'s
+#pragma unroll
+    for (int m = 1; m < LANES; m *= 2) {
+      const bool upper = (j & m) != 0;
+#pragma unroll
+      for (int i = 0; i < TC; i += 2 * m) {
+        const float send = upper ? ys[i] : ys[i + m];
+        const float keep = upper ? ys[i + m] : ys[i];
+        ys[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
+      }
     }
+    if (d < dim) {
+#pragma unroll
+      for (int i = 0; i < TC; i += LANES)
+        if (t0 + i + j < seq) yp[(long long)i * dim] = ys[i];
+    }
+    cp_async_wait<STAGES - 2>();  // the next chunk has landed
     __syncthreads();
-    buf ^= 1;
+    buf = buf == STAGES - 1 ? 0 : buf + 1;
   }
 
-  if (live) {
+  if (d < dim) {
+    float* hp = h_last + ((long long)blockIdx.y * dim + d) * N + j * NL;
 #pragma unroll
-    for (int n = 0; n < N; n += 4)
-      *reinterpret_cast<float4*>(h_last + ((long long)blockIdx.y * dim + d) * N + n) =
-          make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
+    for (int k = 0; k < NL; ++k) hp[k] = h[k];
   }
 }
 
@@ -211,8 +292,10 @@ template <typename T, int N>
 int launch(const void* dt, const void* x, const void* b, const void* c, const void* a,
            const void* h0, void* y, void* h_last, int batch, int seq, int dim,
            cudaStream_t stream) {
-  const dim3 grid((unsigned)((dim + THREADS - 1) / THREADS), (unsigned)batch);
-  mamba_scan_kernel<T, N><<<grid, THREADS, 0, stream>>>(
+  constexpr int CH = THREADS / LANES;
+  const dim3 grid((unsigned)((dim + CH - 1) / CH), (unsigned)batch);
+  auto kernel = dim % 8 == 0 ? mamba_scan_kernel<T, N, true> : mamba_scan_kernel<T, N, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(dt), static_cast<const T*>(x), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<const float*>(a),
       static_cast<const float*>(h0), static_cast<float*>(y), static_cast<float*>(h_last),
