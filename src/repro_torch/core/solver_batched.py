@@ -1,10 +1,8 @@
 """Batched allocation engine: KKT water-filling bisection + integer SAI
 repair for B allocation problems at once, in torch on one device.
 
-The port of ``repro/core/solver_batched.py`` without its cross-model layer
-(``SPLIT_POLICIES``, ``cross_model_weights``, ``cross_model_split``,
-``multimodel_policy``: ROADMAP Queue 1 item 10) and ``apply_sampling_mask``
-(item 11):
+The port of ``repro/core/solver_batched.py`` without its
+``apply_sampling_mask`` (ROADMAP Queue 1 item 11):
 
   * ``BatchedProblems`` — the (B, K) problem layout: coefficients
     ``c2/c1/c0`` and per-learner bounds ``d_lo/d_hi`` of shape (B, K),
@@ -23,6 +21,12 @@ The port of ``repro/core/solver_batched.py`` without its cross-model layer
   * ``solve_eta_batched`` — the equal-task baseline in the same layout.
   * ``batched_policy`` — the per-cycle re-solve hook of the orchestrator
     (``kkt_sai``, ``eta``, ``kkt_energy``, ``pgd``).
+  * the cross-model layer of the multi-tenant scheduler
+    (``fed.multimodel``): ``cross_model_weights`` / ``cross_model_split``
+    split each learner's deadline (and joule budget) across S tenant
+    models by their progress deficits (``SPLIT_POLICIES``), and
+    ``multimodel_policy`` solves the (S, K) problem with one
+    ``batched_policy`` call on the split.
   * ``batched_max_staleness`` / ``batched_avg_staleness`` /
     ``batched_summary`` — (B,) fleet metrics (host NumPy).
 
@@ -43,6 +47,7 @@ fleets this size, so the card and the CPU give the same bits.
 from __future__ import annotations
 
 import dataclasses
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -58,12 +63,16 @@ __all__ = [
     "BatchedAllocation",
     "BatchedProblems",
     "POLICIES",
+    "SPLIT_POLICIES",
     "apply_active_mask",
     "apply_energy_mask",
     "batched_avg_staleness",
     "batched_max_staleness",
     "batched_policy",
     "batched_summary",
+    "cross_model_split",
+    "cross_model_weights",
+    "multimodel_policy",
     "solve_energy_batched",
     "solve_eta_batched",
     "solve_kkt_batched",
@@ -743,3 +752,157 @@ def apply_active_mask(total_i, d_lo, d_hi, valid, active):
     v = valid & act
     tot = torch.clamp(total_i.to(lo.dtype), lo.sum(dim=-1), hi.sum(dim=-1))
     return tot.to(total_i.dtype), lo, hi, v
+
+
+# ---------------------------------------------------------------------------
+# cross-model allocation layer (FedAST-style multi-tenant split)
+# ---------------------------------------------------------------------------
+
+#: cross-model budget-split policies (see ``cross_model_weights``)
+SPLIT_POLICIES = ("deficit", "equal")
+
+#: split weights are floored onto this binary grid so their exact sum is a
+#: representable float <= 1.0 — the budget-conservation guarantee cannot be
+#: eaten by rounding in the normalization divides.
+_SPLIT_GRID = float(2**20)
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """``a * b + c`` rounded once to float64 (exact rationals, then one
+    correctly rounded conversion)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def cross_model_weights(deficits, *, policy: str = "deficit",
+                        share_floor: float = 0.0) -> torch.Tensor:
+    """Per-model budget-split weights ``w`` of shape (S,) from a (S,)
+    progress-deficit signal (how far each tenant model trails the
+    front-runner, in server versions: model-value-free, so the schedule
+    stays bit-reproducible).
+
+    ``policy="deficit"`` splits proportionally to ``max(deficits, 0)``
+    (equal split when all deficits are zero); ``policy="equal"`` is the
+    uniform 1/S baseline. ``share_floor`` mixes a uniform floor in
+    (``w = (1 - S*floor) p + floor``) so no tenant is fully starved; it
+    requires ``share_floor * S <= 1``.
+
+    The weights are floored onto a 2^-20 grid, so ``w.sum()`` is an exactly
+    representable float <= 1.0; S = 1 returns exactly 1.0, with no grid and
+    no arithmetic. S is small, so the weights are computed on the host in
+    float64 and returned as a float64 tensor on the deficits' device (the
+    CPU for a non-tensor)."""
+    if policy not in SPLIT_POLICIES:
+        raise ValueError(
+            f"no cross-model split policy {policy!r}; "
+            f"choose from {' | '.join(SPLIT_POLICIES)}"
+        )
+    dev = None
+    if isinstance(deficits, torch.Tensor):
+        dev, deficits = deficits.device, deficits.cpu().numpy()
+    d = np.asarray(deficits, np.float64).reshape(-1)
+    s = int(d.shape[0])
+    if s == 1:
+        return torch.ones(1, dtype=torch.float64, device=dev)
+    if share_floor < 0 or share_floor * s > 1.0:
+        raise ValueError(f"share_floor={share_floor} must satisfy "
+                         f"0 <= share_floor * S <= 1 (S={s})")
+    if policy == "equal":
+        p = [1.0 / s] * s
+    else:
+        c = [max(x, 0.0) for x in d.tolist()]
+        tot = sum(c)   # in index order
+        p = [x / tot for x in c] if tot > 0 else [1.0 / s] * s
+    if share_floor > 0.0:
+        # the reference computes this line inside a jit, where XLA fuses the
+        # multiply and the add into one FMA on the CPU; rounding twice moves
+        # some weights by one grid step, so it is one rounding here too
+        a = 1.0 - s * share_floor
+        p = [_fma(a, x, share_floor) for x in p]
+    w = np.floor(np.asarray(p, np.float64) * _SPLIT_GRID) / _SPLIT_GRID
+    return torch.as_tensor(w, device=dev)
+
+
+def _as_float_tensor(x) -> torch.Tensor:
+    """A tensor as it is; anything else through NumPy (a Python float is
+    float64, as under the reference's ``enable_x64``)."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+def cross_model_split(deficits, T, e_budget=None, *, policy: str = "deficit",
+                      share_floor: float = 0.0):
+    """Split shared budgets across S tenant models: ``(w, T_split,
+    eb_split)`` with ``T_split = w * T`` ((S,) per-model deadlines from a
+    scalar or (S,) shared deadline) and ``eb_split = w[:, None] *
+    e_budget`` ((S, K) per-model per-learner joule budgets; infinite
+    budgets stay infinite rather than going 0 * inf = nan). With ``w.sum()
+    <= 1.0`` exact (``cross_model_weights``), each learner's summed
+    time and energy commitment across tenants stays within its
+    single-tenant budget."""
+    w = cross_model_weights(deficits, policy=policy, share_floor=share_floor)
+    T = _as_float_tensor(T)
+    w = w.to(device=T.device, dtype=T.dtype)
+    T_split = w * T
+    eb_split = None
+    if e_budget is not None:
+        eb = _as_float_tensor(e_budget)
+        eb_split = torch.where(torch.isinf(eb), eb, w.to(eb.device)[:, None] * eb)
+    return w, T_split, eb_split
+
+
+def _covers_floor(T_s, c0, c1, d_lo) -> torch.Tensor:
+    """(S, K) bool ``T_s[:, None] >= c0 + c1 * d_lo``: whether a model's
+    deadline share covers a learner's cost at tau = 0 and its lower bound.
+    The reference evaluates ``c0 + c1 * d_lo`` inside a jit, where XLA
+    fuses it into one FMA on the CPU, so it is rounded once here too (on
+    the host: S x K values)."""
+    host = [t.detach().cpu().to(torch.float64).reshape(-1).tolist() for t in (c0, c1, d_lo)]
+    need = torch.tensor([_fma(b, c, a) for a, b, c in zip(*host)], dtype=torch.float64)
+    need = need.reshape(c0.shape).to(device=c0.device, dtype=c0.dtype)
+    return T_s[:, None] >= need
+
+
+def multimodel_policy(name: str, *, split: str = "deficit", share_floor: float = 0.0,
+                      **policy_kwargs):
+    """The cross-model allocation layer: a policy over the (S, K)
+    multi-tenant problem (S models sharing one K-learner pool), on device
+    tensors.
+
+    It splits each learner's deadline ``T`` (and the per-learner joule
+    budgets, for the energy-aware policies) across the models with
+    ``cross_model_split`` on the progress deficits, scales each model's
+    sample budget by its share, degrades (model, learner) cells whose share
+    cannot cover ``c0 + c1 * d_lo`` to the padded-slot semantics
+    (``apply_active_mask``, as offline learners under churn), and solves
+    all S rows with one ``batched_policy(name, **policy_kwargs)`` call.
+
+    Returns ``fn(deficits, c2, c1, c0, T, total_i, d_lo, d_hi, valid[,
+    energy]) -> (tau, d, feasible, w)`` with ``deficits`` (S,),
+    ``c2/c1/c0/d_lo/d_hi/valid`` (S, K), ``T`` (S,) full per-model
+    deadlines, ``total_i`` (S,) sample budgets and ``energy`` the optional
+    ``(e2, e1, e0, eb)`` rows of shape (S, K). S = 1 is a pass-through:
+    ``w = [1.0]`` and the base policy sees its inputs untouched."""
+    base = batched_policy(name, **policy_kwargs)
+
+    def fn(deficits, c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy=None):
+        s = int(c2.shape[0])
+        if s == 1:
+            w = torch.ones(1, dtype=T.dtype, device=T.device)
+            if energy is None:
+                tau, d, ok = base(c2, c1, c0, T, total_i, d_lo, d_hi, valid)
+            else:
+                tau, d, ok = base(c2, c1, c0, T, total_i, d_lo, d_hi, valid, energy)
+            return tau, d, ok, w
+        eb = energy[3] if energy is not None else None
+        w, T_s, eb_s = cross_model_split(deficits, T, eb, policy=split,
+                                         share_floor=share_floor)
+        total_s = torch.round(w * total_i.to(c2.dtype)).to(total_i.dtype)
+        active = valid & _covers_floor(T_s, c0, c1, d_lo)
+        total_s, lo, hi, v = apply_active_mask(total_s, d_lo, d_hi, valid, active)
+        if energy is None:
+            tau, d, ok = base(c2, c1, c0, T_s, total_s, lo, hi, v)
+        else:
+            e2, e1, e0, _ = energy
+            tau, d, ok = base(c2, c1, c0, T_s, total_s, lo, hi, v, (e2, e1, e0, eb_s))
+        return tau, d, ok, w
+
+    return fn

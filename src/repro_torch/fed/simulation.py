@@ -4,9 +4,8 @@ Builds the 802.11 indoor environment, derives the time-model coefficients
 from the paper's MNIST-DNN constants (S_m = 8,974,080 bits,
 C_m = 1,123,736 FLOPs/sample), allocates with the requested scheme, and
 runs federated training on synthetic MNIST-class data — the port of
-``repro/fed/simulation.py`` without the fleet and multi-tenant sweeps
-(``fleet_scale_sweep``: ROADMAP Queue 1 item 11; ``multi_model_sweep`` and
-``laggard_time_to_accuracy``: item 10).
+``repro/fed/simulation.py`` without the fleet sweep (``fleet_scale_sweep``:
+ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from repro_torch.core import (
 )
 from repro_torch.data.pipeline import Dataset, synthetic_mnist
 from repro_torch.fed.async_engine import AsyncConfig, AsyncFedEngine, summarize_async_history
+from repro_torch.fed.multimodel import MultiModelEngine
 from repro_torch.fed.orchestrator import MELConfig, Orchestrator, _solver
 from repro_torch.models import mlp
 
@@ -45,6 +45,8 @@ __all__ = [
     "churn_sweep",
     "drift_staleness_sweep",
     "energy_sweep",
+    "laggard_time_to_accuracy",
+    "multi_model_sweep",
     "run_async_experiment",
     "run_experiment",
     "staleness_sweep",
@@ -679,3 +681,96 @@ def energy_sweep(
                 "staleness_max": s["staleness"]["max"],
             })
     return rows
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant simultaneous training (fed.multimodel)
+# ---------------------------------------------------------------------------
+
+def multi_model_sweep(
+    totals=(200, 200, 600),
+    *,
+    k: int = 4,
+    T: float = 8.0,
+    cycles: int = 8,
+    splits=("deficit", "equal"),
+    mode: str = "fedasync",
+    alpha: float = 0.6,
+    lr: float = 0.05,
+    share_floor: float = 0.1,
+    seed: int = 0,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+    device=None,
+) -> list[dict]:
+    """S tenant models time-sharing one fleet, deficit split against equal
+    split (``fed.multimodel.MultiModelEngine``, eager ``run``), at equal
+    virtual time, on ``device`` (``None``: the card).
+
+    The tenants differ only in their per-round sample budget (``totals``):
+    the LAGGARD (largest total) needs more learner-seconds an aggregation,
+    so under the equal split it falls behind in server versions. The
+    deficit split reads that version gap and shifts each learner's time
+    toward the laggard; the question is the laggard's time to accuracy.
+    Each row reports per-model accuracy traces, final versions and the
+    laggard's trace (see ``laggard_time_to_accuracy``). Tenant i starts
+    from ``mlp.init(seed + i)``.
+
+    ``share_floor`` defaults to 0.1 so that no tenant's slice of the
+    deadline is so small that the deadline-filling solver piles hundreds
+    of local steps onto a handful of samples (which diverges plain GD);
+    ``lr`` is gentler than the single-model default for the same reason."""
+    device = resolve_device(device)
+    s = len(totals)
+    probs = [build_problem(k, T, total_samples=int(t), seed=seed) for t in totals]
+    if train is None or test is None:
+        train, test = synthetic_mnist(max(max(totals) * 2, 12_000), seed=seed)
+    eval_batch = (torch.from_numpy(test.x[:2000]).to(device),
+                  torch.from_numpy(test.y[:2000]).to(device))
+    params = tuple(mlp.init(seed + i, device=device) for i in range(s))
+    laggard = int(np.argmax(totals))
+    horizon = cycles * T
+    rows: list[dict] = []
+    for split in splits:
+        cfg = AsyncConfig(mode=mode, alpha=alpha, lr=lr, staleness_fn="poly")
+        eng = MultiModelEngine(cfg, probs, mlp.loss, params, seed=seed, split=split,
+                               share_floor=share_floor)
+        histories = eng.run([train] * s, horizon, eval_fns=[mlp.accuracy] * s,
+                            eval_batches=[eval_batch] * s)
+        traces = [
+            [(round(float(r["t"]), 3), round(float(r["accuracy"]), 4))
+             for r in h if "accuracy" in r]
+            for h in histories
+        ]
+        rows.append({
+            "S": s,
+            "K": k,
+            "T": T,
+            "cycles": cycles,
+            "mode": mode,
+            "lr": lr,
+            "split": split,
+            "share_floor": share_floor,
+            "totals": [int(t) for t in totals],
+            "laggard": laggard,
+            "versions": [int(h[-1]["server_version"]) if h else 0 for h in histories],
+            "final_accuracy": [t[-1][1] if t else 0.0 for t in traces],
+            "laggard_trace": traces[laggard],
+            "events": sum(len(h) for h in histories),
+            "split_weights_seen": [[round(float(x), 4) for x in w]
+                                   for w in eng.split_weight_log[:8]],
+        })
+    return rows
+
+
+def laggard_time_to_accuracy(rows, target: float | None = None):
+    """First virtual time each split's laggard reaches ``target`` accuracy
+    (default: 95% of the worst split's laggard final accuracy, so every row
+    has a finite crossing). Returns ``({split: t}, target)``."""
+    if target is None:
+        finals = [r["laggard_trace"][-1][1] for r in rows if r["laggard_trace"]]
+        target = 0.95 * min(finals)
+    out = {}
+    for r in rows:
+        out[r["split"]] = next((t for t, acc in r["laggard_trace"] if acc >= target), None)
+    return out, float(target)

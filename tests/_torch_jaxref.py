@@ -44,7 +44,7 @@ with _enable_x64_alias():
     from repro.core import (aggregation, availability, energy, solver_batched, solver_kkt,
                             solver_numeric, staleness, time_model)
     from repro.data import pipeline
-    from repro.fed import async_engine, orchestrator, simulation
+    from repro.fed import async_engine, multimodel, orchestrator, simulation
     from repro import configs
     from repro.kernels import flash_attention as kernels_flash_attention
     from repro.kernels import mamba_scan as kernels_mamba_scan
@@ -59,9 +59,9 @@ with _enable_x64_alias():
 __all__ = ["aggregation", "async_engine", "attention", "availability", "configs", "core",
            "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_mamba_scan",
            "kernels_ops", "kernels_ref", "kernels_swiglu", "kernels_waterfill",
-           "kernels_wkv6", "layers", "loaded", "mamba", "mlp", "model", "orchestrator",
-           "params", "pipeline", "rwkv6", "simulation", "solver_batched", "solver_kkt",
-           "solver_numeric", "staleness", "time_model"]
+           "kernels_wkv6", "layers", "loaded", "mamba", "mlp", "model", "multimodel",
+           "orchestrator", "params", "pipeline", "rwkv6", "simulation", "solver_batched",
+           "solver_kkt", "solver_numeric", "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

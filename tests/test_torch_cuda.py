@@ -80,6 +80,13 @@ max(1, max |plain|) for float32, one bf16 step (2^-8) for bf16 output.
 The shapes include strides TMA takes as they lie and ones the kernel
 first packs (d or f not a multiple of 8 in bf16).
 
+The multi-tenant scheduler (``fed.multimodel``) at S = 3 on the spread
+fleet, narrow width: ``run_events`` on the card gives the rows, the
+split-weight log and the counters of the same run on the CPU, launches the
+training and ``accum_flush`` kernels once a group and the water-filling
+kernel once for each residual the CPU run evaluated; at S = 1 it gives
+``AsyncFedEngine.run_events``'s rows and parameters on the card bitwise.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -1208,3 +1215,83 @@ def test_swiglu_kernel_counts_no_launch_for_no_rows(dev):
     swiglu.launches = 0
     got = swiglu.swiglu_cuda(x, wg, wu, wd)
     assert swiglu.launches == 0 and got.shape == (0, 64)
+
+
+# -- the multi-tenant scheduler ---------------------------------------------
+
+MM_LAYERS = [16, 16, 4]
+MM_TOTALS = (60, 60, 180)
+
+
+def _mm_setup(mode: str):
+    from repro_torch.core import CapacityDrift
+    from repro_torch.data.pipeline import synthetic_mnist
+    from repro_torch.fed.async_engine import AsyncConfig
+    from repro_torch.fed.simulation import build_spread_problem
+
+    train, test = synthetic_mnist(2000, n_test=200, features=16, classes=4, seed=0)
+    cfg = AsyncConfig(mode=mode, reallocate=True,
+                      **({"buffer_size": 2} if mode == "buffered" else {}))
+    probs = [build_spread_problem(4, 6.0, total_samples=t) for t in MM_TOTALS]
+    return train, test, cfg, probs, lambda: CapacityDrift(seed=0)
+
+
+def _rows_equal(got, want, skip=("accuracy", "model")):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for key in w.keys() - set(skip):
+            np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("mode", ["fedasync", "buffered"])
+def test_multimodel_run_events_on_the_card_gives_the_cpu_rows(dev, mode, monkeypatch):
+    from repro_torch.fed.multimodel import MultiModelEngine
+
+    train, test, cfg, probs, drift = _mm_setup(mode)
+
+    def run(device):
+        eng = MultiModelEngine(cfg, probs, mlp.loss,
+                               tuple(mlp.init(i, MM_LAYERS, device=device) for i in range(3)),
+                               seed=2, drift=drift(), share_floor=0.1)
+        batch = (torch.from_numpy(test.x).to(device), torch.from_numpy(test.y).to(device))
+        return eng, eng.run_events([train] * 3, 12.0, eval_fns=mlp.accuracy,
+                                   eval_batches=[batch] * 3)
+
+    calls = {"train_agg_step": 0, "waterfill_residual": 0}
+    with monkeypatch.context() as patch:
+        for name in calls:
+            def counted(*args, _fn=getattr(ops, name), _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*args, **kw)
+            patch.setattr(ops, name, counted)
+        cpu, cpu_hists = run("cpu")
+    train_step.launches = accum_flush.launches = waterfill.launches = 0
+    card, card_hists = run(dev)
+    assert train_step.launches == accum_flush.launches == calls["train_agg_step"] > 0
+    assert waterfill.launches == calls["waterfill_residual"] > 0
+    for g, w in zip(card_hists, cpu_hists):
+        _rows_equal(g, w)
+        np.testing.assert_allclose([r["accuracy"] for r in g], [r["accuracy"] for r in w],
+                                   rtol=0, atol=0.01)
+    assert len(card.split_weight_log) == len(cpu.split_weight_log) > 0
+    for g, w in zip(card.split_weight_log, cpu.split_weight_log):
+        np.testing.assert_array_equal(g, w)
+    assert card.fault_counters == cpu.fault_counters
+
+
+def test_multimodel_s1_on_the_card_is_the_async_engine(dev):
+    from repro_torch.fed.async_engine import AsyncFedEngine
+    from repro_torch.fed.multimodel import MultiModelEngine
+
+    train, test, cfg, probs, drift = _mm_setup("fedasync")
+    batch = (torch.from_numpy(test.x).to(dev), torch.from_numpy(test.y).to(dev))
+    single = AsyncFedEngine(cfg, probs[2], mlp.loss, mlp.init(0, MM_LAYERS, device=dev),
+                            seed=2, drift=drift())
+    want = single.run_events(train, 18.0, eval_fn=mlp.accuracy, eval_batch=batch)
+    multi = MultiModelEngine(cfg, [probs[2]], mlp.loss, mlp.init(0, MM_LAYERS, device=dev),
+                             seed=2, drift=drift())
+    got = multi.run_events([train], 18.0, eval_fns=[mlp.accuracy], eval_batches=[batch])[0]
+    _rows_equal(got, want, skip=("model",))
+    for g, w in zip(multi.params[0], single.params):
+        for name in w:
+            assert torch.equal(g[name], w[name]), name
