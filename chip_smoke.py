@@ -172,8 +172,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
         dispatch over budget, and in every split allocation each learner's
         joules summed over the tenants within its budget.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11 and 12 each set the kernels' launch
-counters to 0 just before the run they check and read them just after.
+ 13. the fleet-of-fleets engine (``fed.fleet.FleetEngine``), every fleet on
+     one card as a batch axis:
+     a. the grouped ``fed_agg`` at 1250 fleets of 8 over the paper MLP's 8
+        leaves against its plain version, each group bitwise its one-group
+        launch, with kernel, plain, bound and ``torch.bmm`` times; one
+        training launch of 10^4 learners (the population's first dispatch)
+        bitwise ten launches of 1000, against its plain version, with its
+        device split and its bounds;
+     b. the F = 1 anchor: ``build_problem(10, 15.0, seed=0)`` as one fleet,
+        3 rounds, rows, accuracies and parameters bitwise
+        ``Orchestrator.run_fused``'s;
+     c. ``build_fleet_problems(1250, 8, T=6, total_samples=60, seed=0)``,
+        the paper MLP, participation 0.5, 3 rounds: rows, versions and the
+        next dispatch held to a schedule built on the CPU, launches exact
+        (one training, one grouped ``fed_agg`` and one merge launch a round,
+        the water-fillings of the CPU's solves), ms a round warm, learner-
+        rounds a second, the solves' share, the idle share and peak memory;
+        at 64 fleets, the accuracy within 0.005 of the plain path's;
+     d. ``solve_multimodel`` S = 3 on that population in the eager-rounding
+        cases, card vs CPU bitwise; a ``kkt_energy`` round on the population
+        with joule budgets, held to the CPU's schedule and launches, no
+        dispatch over budget (nor the S = 3 split's sum).
+
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12 and 13b-d each set the kernels'
+launch counters to 0 just before the run they check and read them just
+after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -339,6 +363,33 @@ SWIGLU_CASES = [
 MM_TOTALS = (2000, 2000, 6000)
 MM_SHARE_FLOOR = 0.1
 MM_LR = 0.05
+# phase 13: the fleet of fleets. build_fleet_problems' population (K = 8,
+# T = 6 s, 60 samples a fleet) at 1250 fleets is 10^4 learners a round, the
+# reference's acceptance point (benchmarks/fleet_scale.py), with the paper
+# MLP; fleet_scale_sweep's participation; 64 fleets for the accuracy gate
+# against the plain path; the split cases where the reference's eager
+# floored share differs from a fused one (tests/test_torch_fleet.py)
+POP_F, POP_K, POP_T, POP_TOTAL = 1250, 8, 6.0, 60
+POP_PARTICIPATION, POP_ROUNDS, POP_SMALL_F = 0.5, 3, 64
+# the engine's default lr (0.1) is set for fleet_scale_sweep's [64, 32, 10]
+# model; the paper MLP on 3-15 samples a learner and up to 44 steps
+# diverges to NaN there within a round (and at 0.05), so the population
+# trains at 0.01
+POP_LR = 0.01
+POP_CHUNK = 1000        # 13a: learners a launch of the ten-launch comparison
+# 13a: the training kernel at 10^4 learners against its plain version, per
+# leaf of max |plain|, after up to 44 float32 GD steps, where a ReLU input
+# near 0 may take the other side in either (tests/test_torch_slice.py holds
+# the paper run to 2e-2 for that reason; phase 3 holds one step to 1e-4)
+POP_TRAIN_TOL = 1e-2
+POP_ACC_TOL = 0.005     # F = 64, kernels vs plain, on 2000 test samples
+# F = 64 after 3 rounds, kernels vs plain: the global and fleet models, per
+# leaf of max |plain| (the training kernel's float32 sums in other orders
+# than autograd's). Read on the H100: 6.3e-6 (global) and 6.5e-5 (fleets);
+# every leaf's training moves it by far more (printed beside)
+POP_MODEL_TOL = 1e-3
+POP_FMA_CASES = [((3.0, 1.0, 0.0), 0.1), ((4.0, 1.0, 2.0), 0.1), ((0.0, 4.0, 3.0), 0.1),
+                 ((0.0, 1.0, 3.0), 0.1)]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -687,6 +738,7 @@ def main() -> int:
     mamba_row = jamba_phase(dev)
     swiglu_row = swiglu_phase(dev)
     multimodel_phase(dev, train, test)
+    fleet_rows = fleet_phase(dev, train, test)
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -708,6 +760,7 @@ def main() -> int:
         wkv_row,
         mamba_row,
         swiglu_row,
+        *fleet_rows,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2773,6 +2826,451 @@ def multimodel_phase(dev, train, test) -> None:
           f"{len(eng._alloc_cache)} split allocations; "
           f"{1e3 * wall / n_aggs:.2f} ms per aggregation; final accuracy "
           f"{[h[-1]['accuracy'] for h in hists]}; launches {counts}")
+
+
+@contextlib.contextmanager
+def plain_training():
+    """``ops.train_agg_step`` and ``ops.fed_agg_leaves`` bound to their
+    plain versions (autograd, torch sums) for the duration; restored on
+    leaving. This script's comparison only: on the card the package always
+    launches the kernels."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.train_agg_step, ops.fed_agg_leaves
+    ops.train_agg_step = ref.train_agg_step_ref
+    ops.fed_agg_leaves = lambda leaves, w: [ref.fed_agg_ref(x, w) for x in leaves]
+    try:
+        yield
+    finally:
+        ops.train_agg_step, ops.fed_agg_leaves = saved
+
+
+@contextlib.contextmanager
+def capture_merges(out: list):
+    """``ops.fed_agg_leaves`` recording each call in ``out`` for the
+    duration (the fleet engine's merge over the F axis): (leaves, weights,
+    outputs) for the first call, the weights alone after it; restored on
+    leaving."""
+    from repro_torch.kernels import ops
+
+    saved = ops.fed_agg_leaves
+
+    def recorded(leaves, w):
+        got = saved(leaves, w)
+        out.append((leaves, w, got) if not out else (None, w, None))
+        return got
+
+    ops.fed_agg_leaves = recorded
+    try:
+        yield
+    finally:
+        ops.fed_agg_leaves = saved
+
+
+def merge_error(merges: list, n_leaves: int) -> tuple[float, int]:
+    """Phase 13c: the first round's merge launch over the F axis (the
+    fleet models' leaves, the staleness-discounted weights of the sampled
+    fleets; ``capture_merges``) against its plain version at FED_AGG_TOL;
+    one launch a round. Returns (max abs error, fleets weighted)."""
+    from repro_torch.kernels import ref
+
+    leaves, w, out = merges[0]
+    require(len(merges) == POP_ROUNDS and len(leaves) == n_leaves
+            and leaves[0].shape[0] == POP_F, f"13c: {len(merges)} merge launches of "
+            f"{len(leaves)} leaves, not {POP_ROUNDS} of {n_leaves} over {POP_F} fleets")
+    worst = 0.0
+    for got, x in zip(out, leaves):
+        want = ref.fed_agg_ref(x, w)
+        err = (got - want).abs().max().item()
+        require(err <= FED_AGG_TOL * max(1.0, want.abs().max().item()),
+                f"13c: the merge launch over {POP_F} fleets differs from its plain version "
+                f"by {err:g}")
+        worst = max(worst, err)
+    return worst, int((w > 0).sum())
+
+
+def pop_problems(f: int, energy: bool = False):
+    """Phase 13's population of ``f`` fleets; with ``energy``, joules as a
+    learner's power (1 to 3 W, drawn from the seed) times its time
+    coefficients, and a budget of ``BUDGET_FRAC`` x the median spend of the
+    blind ``kkt_sai`` dispatch."""
+    import numpy as np
+
+    from repro_torch.core import solve_kkt_batched
+    from repro_torch.fed.fleet import build_fleet_problems
+
+    bp = build_fleet_problems(f, POP_K, T=POP_T, total_samples=POP_TOTAL, seed=SEED)
+    if not energy:
+        return bp
+    power = np.random.default_rng(SEED).uniform(1.0, 3.0, bp.c2.shape)
+    e2, e1, e0 = power * bp.c2, power * bp.c1, power * bp.c0
+    blind = solve_kkt_batched(bp, device="cpu")
+    spend = np.where(blind.d > 0, e2 * blind.tau * blind.d + e1 * blind.d + e0, 0.0)
+    eb = np.full(bp.c2.shape, BUDGET_FRAC * float(np.median(spend)))
+    return dataclasses.replace(bp, e2=e2, e1=e1, e0=e0, e_budget=eb)
+
+
+def cpu_fleet_schedule(cfg, bp, train, rounds: int, counted: str) -> dict:
+    """The fleet engine's schedule built on the CPU: the rows (all but the
+    accuracy), versions and dispatches of ``rounds`` rounds with the
+    training stubbed out (the schedule does not read the models), and the
+    calls of ``ops.<counted>`` its solves made."""
+    from repro_torch.fed.fleet import FleetEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import mlp
+
+    eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, [train.x.shape[1], 10], device="cpu"),
+                      seed=SEED)
+    trained = ops.train_agg_step
+    ops.train_agg_step = lambda disp, *args, **kw: (disp, None)
+    try:
+        with CallCounter(counted) as count:
+            hist = eng.run(train, rounds)
+    finally:
+        ops.train_agg_step = trained
+    return {"hist": hist, "eng": eng, "solves": count.calls}
+
+
+def check_fleet(eng, hist, cpu: dict, what: str) -> None:
+    """A card run of the fleet engine against its CPU schedule: rows,
+    versions and the next dispatch."""
+    import numpy as np
+
+    check_rows(hist, [{n: v for n, v in r.items() if n != "accuracy"} for r in cpu["hist"]],
+               what)
+    ref_eng = cpu["eng"]
+    require(eng.global_version == ref_eng.global_version
+            and np.array_equal(eng.pull_version, ref_eng.pull_version)
+            and np.array_equal(eng.tau, ref_eng.tau) and np.array_equal(eng.d, ref_eng.d),
+            f"{what}: versions or the next dispatch differ from the CPU schedule's")
+    accs = [r.get("accuracy", 0.0) for r in hist]
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"{what}: accuracies out of range: {accs}")
+
+
+def over_budget(bp, taus, ds) -> float:
+    """The largest share of a learner's joule budget that the summed
+    dispatches ``(taus[i], ds[i])`` spend (<= 1 within rounding: no
+    violation)."""
+    import numpy as np
+
+    joules = sum(np.where(d > 0, bp.e2 * tau * d + bp.e1 * d + bp.e0, 0.0)
+                 for tau, d in zip(taus, ds))
+    return float((joules / bp.e_budget).max())
+
+
+def fleet_phase(dev, train, test) -> list[dict]:
+    """Phase 13: the fleet-of-fleets engine on the card; returns the fleet
+    shape's entries of the kernels line (the training kernel at 10^4
+    learners and the grouped ``fed_agg``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BatchedProblems
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine
+    from repro_torch.fed.orchestrator import MELConfig, Orchestrator
+    from repro_torch.fed.simulation import build_problem
+    from repro_torch.kernels import fed_agg, ref, train_step
+    from repro_torch.models import mlp
+
+    t_phase = time.perf_counter()
+    ex, ey = (torch.from_numpy(a[:2000]).to(dev) for a in (test.x, test.y))
+    zero = {name: 0 for name in read_launches()}
+    widths = mlp.PAPER_LAYERS
+    mats = list(zip(widths[:-1], widths[1:]))
+    n_params = sum(a * b + b for a, b in mats)
+    row_flops = 2 * (2 * sum(a * b for a, b in mats) + sum(a * b for a, b in mats[1:]))
+    bp = pop_problems(POP_F)
+    cfg = FleetConfig(participation=POP_PARTICIPATION, lr=POP_LR)
+    n = POP_F * POP_K
+
+    # -- 13a. the kernels at the population's shapes ---------------------------
+    # the grouped fed_agg: 1250 fleets of 8 over the paper MLP's 8 leaves
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [s for fi, fo in mats for s in ((fi, fo), (fo,))]
+    leaves = [torch.randn((n, *s), generator=gen, device=dev) for s in shapes]
+    w = torch.rand(n, generator=gen, device=dev)
+    got = fed_agg.fed_agg_leaves_cuda(leaves, w, groups=POP_F)
+    fa_err = 0.0
+    for g_leaf, x in zip(got, leaves):
+        want = ref.fed_agg_ref(x, w, groups=POP_F)
+        err = (g_leaf - want).abs().max().item()
+        require(err <= FED_AGG_TOL * max(1.0, want.abs().max().item()),
+                f"13a: the grouped fed_agg differs from its plain version by {err:g}")
+        fa_err = max(fa_err, err)
+        del want
+    for g in range(POP_F):
+        sl = slice(g * POP_K, (g + 1) * POP_K)
+        one = fed_agg.fed_agg_leaves_cuda([x[sl] for x in leaves], w[sl])
+        require(all(torch.equal(a[g], b) for a, b in zip(got, one)),
+                f"13a: group {g} of the grouped fed_agg differs from its one-group launch")
+    del got
+    fa_ms = cuda_ms(lambda: fed_agg.fed_agg_leaves_cuda(leaves, w, groups=POP_F), 10)
+    # the device time is read for the print only: late in a long smoke the
+    # card's torch.profiler has been seen to record no kernel at all
+    hits = [(ms, calls) for key, ms, calls in device_time_by_kernel(
+        lambda: [fed_agg.fed_agg_leaves_cuda(leaves, w, groups=POP_F) for _ in range(3)],
+        expect="fed_agg_kernel") if "fed_agg_kernel" in key]
+    fa_dev = (f"{sum(ms for ms, _ in hits) / sum(c for _, c in hits):.3f} ms device, "
+              "torch.profiler" if hits else "device time not measured")
+    fa_plain_ms = cuda_ms(lambda: [ref.fed_agg_ref(x, w, groups=POP_F) for x in leaves], 2)
+    wg = w.view(POP_F, 1, POP_K)
+    fa_lib_ms = cuda_ms(lambda: [torch.bmm(wg, x.view(POP_F, POP_K, -1)) for x in leaves], 5)
+    fa_bytes = 4 * (n * n_params + POP_F * n_params + n)
+    fa_bound_ms = 1e3 * max(fa_bytes / PEAK_BYTES_PER_S, 2 * n * n_params / PEAK_FP32_FLOPS)
+    del leaves
+    torch.cuda.empty_cache()
+    print(f"fleet 13a fed_agg grouped G={POP_F} K={POP_K}, 8 leaves ({fa_bytes / 1e9:.2f} GB): "
+          f"every group bitwise its one-group launch, max_abs_err {fa_err:.3g}; one launch "
+          f"{fa_ms:.3f} ms ({fa_dev}), plain {fa_plain_ms:.3f} "
+          f"ms, 8 x bmm {fa_lib_ms:.3f} ms, bound {fa_bound_ms:.3f} ms (bytes)")
+
+    # the training kernel: 10^4 learners of the population's first dispatch
+    # in one launch, against ten launches of 1000 (learners are independent)
+    eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+    tau_h, d_h = eng.tau.reshape(-1), eng.d.reshape(-1)
+    d_cap, max_tau = int(d_h.max()), int(tau_h.max())
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(train.x[rng.integers(0, train.size, (n, d_cap))]).to(dev)
+    y = torch.from_numpy(train.y[rng.integers(0, train.size, (n, d_cap))]).to(dev)
+    m = (torch.arange(d_cap, device=dev)[None] < torch.from_numpy(d_h).to(dev)[:, None]
+         ).to(torch.float32)
+    tau_t = torch.from_numpy(tau_h.astype(np.int32)).to(dev)
+    w_t = torch.from_numpy(eng._weights().reshape(-1)).to(dev)
+    starts = [{k: v.expand((POP_F,) + v.shape[1:]) for k, v in layer.items()}
+              for layer in eng.fleet_params]
+
+    def step(lo=0, hi=n, fn=train_step.train_agg_step_cuda):
+        sub = [{k: v[lo // POP_K:hi // POP_K] for k, v in layer.items()} for layer in starts]
+        return fn(sub, x[lo:hi], y[lo:hi], m[lo:hi], tau_t[lo:hi], w_t[lo:hi], POP_LR,
+                  max_tau=max_tau, groups=(hi - lo) // POP_K)[0]
+
+    whole = step()
+    for c in range(n // POP_CHUNK):
+        part = step(c * POP_CHUNK, (c + 1) * POP_CHUNK)
+        g0 = c * POP_CHUNK // POP_K
+        require(all(torch.equal(a[k][g0:g0 + len(b[k])], b[k]) for a, b in zip(whole, part)
+                    for k in b), f"13a: learners {c * POP_CHUNK}.. differ between one launch "
+                "of 10^4 and launches of 1000")
+        del part
+    ts_ms = cuda_ms(step, 3)
+    split = device_time_by_kernel(step, expect="train_steps_kernel")
+    # the plain version once (autograd over 10^4 learners holds ~35 GB), timed
+    # by CUDA events around that call
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    plain = step(fn=ref.train_agg_step_ref)
+    events[1].record()
+    torch.cuda.synchronize()
+    ts_plain_ms = events[0].elapsed_time(events[1])
+    ts_abs, ts_rel = leaf_errors(whole, plain)
+    require(ts_rel <= POP_TRAIN_TOL, f"13a: the training kernel at 10^4 learners is "
+            f"{ts_rel:g} of a leaf's scale from its plain version")
+    del plain, whole
+    torch.cuda.empty_cache()
+    row_steps = int((tau_h * d_h).sum())
+    ts_flops = row_steps * row_flops
+    ts_bytes = 4 * (x.numel() + y.numel() + m.numel() + 2 * n + 2 * POP_F * n_params)
+    ts_bound_ms = 1e3 * max(ts_flops / PEAK_FP32_FLOPS, ts_bytes / PEAK_BYTES_PER_S)
+    stream_ms = 1e3 * int(tau_h.sum()) * 2 * 4 * n_params / PEAK_BYTES_PER_S
+    train_dev = [ms for name, ms, _ in split if "train_steps_kernel" in name]
+    train_dev = (f"the training kernel {train_dev[0]:.1f} ms device (torch.profiler)"
+                 if train_dev else "device split not measured")
+    print(f"fleet 13a train_agg_step {n} learners (F={POP_F} x K={POP_K}), d_cap {d_cap}, "
+          f"max_tau {max_tau}, sum tau d {row_steps} row-steps: one launch bitwise ten of "
+          f"{POP_CHUNK}; {ts_ms:.1f} ms a call ({train_dev}); plain {ts_plain_ms:.1f} ms; "
+          f"max relative (per leaf) to plain {ts_rel:.3g}; bound {ts_bound_ms:.2f} ms ({ts_flops:.4g} FP32 FLOPs at 67 "
+          f"TFLOP/s; bytes once {ts_bytes / 1e9:.2f} GB); a step-synchronous design streams "
+          f"each learner's weights in and out every step: {int(tau_h.sum())} learner-steps x "
+          f"{8 * n_params / 1e6:.2f} MB = {stream_ms:.1f} ms at 3.35 TB/s")
+    for name, ms, calls in split[:6]:
+        print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+    del x, y, m, starts, eng
+    torch.cuda.empty_cache()
+
+    # -- 13b. the F = 1 anchor: the paper's fleet, bitwise run_fused -----------
+    prob = build_problem(K, T_CYCLE, total_samples=TOTAL, seed=SEED)
+    orch = Orchestrator(MELConfig(), prob, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+    reset_launches()
+    want = orch.run_fused(train, CYCLES, eval_fn=mlp.accuracy, eval_batch=(ex, ey))
+    want_counts = read_launches()
+    single = BatchedProblems.from_problems([prob])
+    solves = cpu_fleet_schedule(FleetConfig(), single, train, CYCLES,
+                                "waterfill_residual")["solves"]
+    one = FleetEngine(FleetConfig(), single, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+    reset_launches()
+    got_h = one.run(train, CYCLES, eval_fn=mlp.accuracy, eval_batch=(ex, ey))
+    counts = read_launches()
+    require(all(np.array_equal(g["tau"][0], w_["tau"]) and np.array_equal(g["d"][0], w_["d"])
+                and g["accuracy"] == w_["accuracy"] for g, w_ in zip(got_h, want)),
+            "13b: F = 1 rows differ from run_fused's")
+    require(all(torch.equal(a[k], b[k]) for a, b in zip(one.global_params, orch.params)
+                for k in b), "13b: F = 1 parameters differ from run_fused's")
+    # the engine re-solves each round's dispatch (the water-fillings of the
+    # CPU's solves) and merges the one fleet (a second fed_agg launch)
+    require(counts == {**want_counts, "fed_agg": 2 * CYCLES, "waterfill_residual": solves}
+            and want_counts == {**zero, "train_agg_step": CYCLES, "fed_agg": CYCLES},
+            f"13b: launches {counts}, run_fused's {want_counts}")
+    print(f"fleet 13b F=1 (k={K}, {TOTAL} samples, T={T_CYCLE}) {CYCLES} rounds: rows, "
+          f"accuracies {[r['accuracy'] for r in got_h]} and parameters bitwise "
+          f"run_fused's; launches {counts}")
+
+    # -- 13c. the population at full width, three rounds ------------------------
+    cpu = cpu_fleet_schedule(cfg, bp, train, POP_ROUNDS, "waterfill_residual")
+    want_counts = {**zero, "train_agg_step": POP_ROUNDS, "fed_agg": 2 * POP_ROUNDS,
+                   "waterfill_residual": cpu["solves"]}
+    runs = {}
+    merges = []   # the first run's merge launches: (leaves, weights, outputs)
+    for label in ("first", "warm"):
+        eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+        solve_s = []
+        solve = eng._solve
+
+        def timed(sampled, _solve=solve):
+            t0 = time.perf_counter()
+            try:
+                return _solve(sampled)
+            finally:
+                solve_s.append(time.perf_counter() - t0)
+
+        eng._solve = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        with capture_merges(merges) if label == "first" else contextlib.nullcontext():
+            hist = eng.run(train, POP_ROUNDS, eval_fn=mlp.accuracy, eval_batch=(ex, ey))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        require(counts == want_counts, f"13c {label}: launches {counts}, not {want_counts}")
+        check_fleet(eng, hist, cpu, f"13c {label}")
+        runs[label] = {"wall": wall, "solve": sum(solve_s), "hist": hist,
+                       "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del eng
+        if label == "first":
+            merge_err, n_merged = merge_error(merges, len(mats) * 2)
+            merges.clear()
+            torch.cuda.empty_cache()
+    warm = runs["warm"]
+    require([r["accuracy"] for r in warm["hist"]] == [r["accuracy"] for r in runs["first"]["hist"]],
+            "13c: the warm run's accuracies differ from the first's")
+    split = device_time_by_kernel(lambda: FleetEngine(
+        cfg, bp, mlp.loss, mlp.init(SEED, device=dev), seed=SEED).run(train, POP_ROUNDS),
+        expect="train_steps_kernel")
+    busy = sum(ms for _, ms, _ in split)
+    round_ms = 1e3 * warm["wall"] / POP_ROUNDS
+    stale = [r["fleet_staleness_max"] for r in warm["hist"]]
+    print(f"fleet 13c F={POP_F} K={POP_K} ({n} learners) paper MLP participation "
+          f"{POP_PARTICIPATION} {POP_ROUNDS} rounds: rows, versions and dispatch equal the CPU "
+          f"schedule's; launches {counts}; sampled {[r['sampled_fleets'] for r in warm['hist']]}"
+          f", fleet staleness max {stale}; accuracy {[r['accuracy'] for r in warm['hist']]}; "
+          f"the first round's merge launch ({POP_F} rows, {n_merged} weighted, 8 leaves) "
+          f"max_abs_err {merge_err:.3g} from plain")
+    print(f"  ms a round (host clock, staging, solve and eval in): "
+          f"{1e3 * runs['first']['wall'] / POP_ROUNDS:.1f} first, {round_ms:.1f} warm; "
+          f"{n * POP_ROUNDS / warm['wall']:.0f} learner-rounds a second; the solves "
+          f"{1e3 * warm['solve'] / POP_ROUNDS:.1f} ms a round "
+          f"({100 * warm['solve'] / warm['wall']:.0f}%); peak memory "
+          f"{warm['peak']:.2f} GB")
+    print(f"  device busy {busy:.1f} ms (torch.profiler, a third run) of {1e3 * warm['wall']:.1f}"
+          f" ms warm wall ({100 * (1 - busy / (1e3 * warm['wall'])):.0f}% idle) in "
+          f"{sum(c for *_, c in split)} launches" if split else
+          "  device time not measured (no device events)")
+    for name, ms, calls in split[:8]:
+        print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
+    fleet_counts = counts
+
+    # F = 64: the kernels' models and accuracy against the plain path's
+    small = pop_problems(POP_SMALL_F)
+    accs, models = {}, {}
+    for path in ("kernels", "plain"):
+        eng = FleetEngine(cfg, small, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+        with plain_training() if path == "plain" else contextlib.nullcontext():
+            hist = eng.run(train, POP_ROUNDS, eval_fn=mlp.accuracy, eval_batch=(ex, ey))
+        accs[path] = [r["accuracy"] for r in hist]
+        models[path] = (eng.global_params, eng.fleet_params)
+        if path == "kernels":
+            small_hist = hist
+        else:
+            check_rows(hist, [{k: v for k, v in r.items() if k != "accuracy"}
+                              for r in small_hist], "13c F=64 plain")
+    gap = max(abs(a - b) for a, b in zip(accs["kernels"], accs["plain"]))
+    require(gap <= POP_ACC_TOL, f"13c F={POP_SMALL_F}: kernel accuracies {accs['kernels']} "
+            f"and plain {accs['plain']} differ by {gap:g} > {POP_ACC_TOL}")
+    g_abs, g_rel = leaf_errors(models["kernels"][0], models["plain"][0])
+    f_abs, f_rel = leaf_errors(models["kernels"][1], models["plain"][1])
+    # the least that the plain path's training moved a leaf of the global
+    # model from its init, per leaf of max |plain|
+    moved = min(((g[name] - w[name]).abs().max() / w[name].abs().max()).item()
+                for g, w in zip(mlp.init(SEED, device=dev), models["plain"][0]) for name in w)
+    require(max(g_rel, f_rel) <= POP_MODEL_TOL, f"13c F={POP_SMALL_F}: the kernels' global "
+            f"model is {g_rel:g} and fleet models {f_rel:g} of a leaf's scale from the plain "
+            f"path's (limit {POP_MODEL_TOL:g})")
+    print(f"fleet 13c F={POP_SMALL_F}: accuracy kernels {accs['kernels']}, plain "
+          f"{accs['plain']} (max gap {gap:.4f} <= {POP_ACC_TOL}); kernels vs plain, per leaf "
+          f"of max |plain|: global model {g_rel:.3g} (max_abs_err {g_abs:.3g}), fleet models "
+          f"{f_rel:.3g} (max_abs_err {f_abs:.3g}) <= {POP_MODEL_TOL:g}; the plain path moved "
+          f"each leaf of the global model at least {moved:.3g} of its scale from its init")
+
+    # -- 13d. solve_multimodel on the population, and a budgeted round ----------
+    cpu_eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, [784, 10], device="cpu"),
+                          seed=SEED)
+    card_eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, [784, 10], device=dev),
+                           seed=SEED)
+    for deficits, floor in POP_FMA_CASES:
+        t0 = time.perf_counter()
+        got3 = card_eng.solve_multimodel(np.asarray(deficits), share_floor=floor)
+        card_s = time.perf_counter() - t0
+        want3 = cpu_eng.solve_multimodel(np.asarray(deficits), share_floor=floor)
+        require(all(np.array_equal(a, b) for a, b in zip(got3, want3)),
+                f"13d: solve_multimodel {deficits} on the card differs from the CPU's")
+    print(f"fleet 13d solve_multimodel S=3 on F={POP_F}: (tau, d, w) bitwise the CPU's in the "
+          f"{len(POP_FMA_CASES)} eager-rounding cases (last w {got3[2].tolist()}, "
+          f"{1e3 * card_s:.0f} ms on the card)")
+    bp_e = pop_problems(POP_F, energy=True)
+    cfg_e = FleetConfig(participation=POP_PARTICIPATION, lr=POP_LR, scheme="kkt_energy")
+    cpu_e = cpu_fleet_schedule(cfg_e, bp_e, train, 1, "waterfill_energy_residual")
+    eng = FleetEngine(cfg_e, bp_e, mlp.loss, mlp.init(SEED, device=dev), seed=SEED)
+    first = (eng.tau, eng.d)
+    reset_launches()
+    hist = eng.run(train, 1, eval_fn=mlp.accuracy, eval_batch=(ex, ey))
+    counts = read_launches()
+    want_counts = {**zero, "train_agg_step": 1, "fed_agg": 2,
+                   "waterfill_energy_residual": cpu_e["solves"]}
+    require(counts == want_counts, f"13d kkt_energy: launches {counts}, not {want_counts}")
+    check_fleet(eng, hist, cpu_e, "13d kkt_energy")
+    worst = max(over_budget(bp_e, [first[0]], [first[1]]),
+                over_budget(bp_e, [eng.tau], [eng.d]))
+    require(worst <= 1.0 + 1e-9, f"13d: a dispatch spends {worst:.6f} of a learner's budget")
+    tau3, d3, w3 = eng.solve_multimodel(np.asarray(POP_FMA_CASES[0][0]),
+                                        share_floor=POP_FMA_CASES[0][1])
+    want3 = cpu_e["eng"].solve_multimodel(np.asarray(POP_FMA_CASES[0][0]),
+                                          share_floor=POP_FMA_CASES[0][1])
+    require(all(np.array_equal(a, b) for a, b in zip((tau3, d3, w3), want3)),
+            "13d: the budgeted solve_multimodel on the card differs from the CPU's")
+    split_worst = over_budget(bp_e, tau3, d3)
+    require(split_worst <= 1.0 + 1e-9, f"13d: the tenants' summed dispatches spend "
+            f"{split_worst:.6f} of a learner's budget")
+    print(f"fleet 13d kkt_energy F={POP_F} budget {float(bp_e.e_budget[0, 0]):.4f} J: one round "
+          f"(rows as the CPU's, launches {counts}), 0 violations (largest share of a budget "
+          f"{worst:.4f}; the S=3 split's summed {split_worst:.4f})")
+    print(f"fleet phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    return [
+        {"name": f"train_agg_step (fleet, {n} learners)", "route": "cuda",
+         "source": "src/repro_torch/csrc/train_step.cu",
+         "replaces": "src/repro/kernels/train_step.py:119",
+         "launches": fleet_counts["train_agg_step"], "max_abs_err": ts_abs, "ms": ts_ms,
+         "plain_ms": ts_plain_ms, "bound_ms": ts_bound_ms, "bound_by": "operations",
+         "library_ms": None},
+        {"name": f"fed_agg (grouped, {POP_F} x {POP_K})", "route": "cuda",
+         "source": "src/repro_torch/csrc/fed_agg.cu",
+         "replaces": "src/repro/kernels/fed_agg.py:30",
+         "launches": fleet_counts["fed_agg"], "max_abs_err": fa_err, "ms": fa_ms,
+         "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms, "bound_by": "bytes",
+         "library_ms": fa_lib_ms},
+    ]
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from repro_torch.core.solver_batched import (
     BatchedProblems,
     apply_active_mask,
     apply_energy_mask,
+    apply_sampling_mask,
     batched_avg_staleness,
     batched_max_staleness,
     batched_policy,
@@ -81,6 +82,7 @@ __all__ = [
     "aggregate_stacked",
     "apply_active_mask",
     "apply_energy_mask",
+    "apply_sampling_mask",
     "availability_masks",
     "avg_staleness",
     "batched_avg_staleness",

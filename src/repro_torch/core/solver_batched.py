@@ -66,6 +66,7 @@ __all__ = [
     "SPLIT_POLICIES",
     "apply_active_mask",
     "apply_energy_mask",
+    "apply_sampling_mask",
     "batched_avg_staleness",
     "batched_max_staleness",
     "batched_policy",
@@ -754,6 +755,17 @@ def apply_active_mask(total_i, d_lo, d_hi, valid, active):
     return tot.to(total_i.dtype), lo, hi, v
 
 
+def apply_sampling_mask(total_i, d_lo, d_hi, valid, sampled):
+    """Project a fleet-axis policy problem onto the round's sampled fleets:
+    ``apply_active_mask`` with the per-fleet (B,) bool mask ``sampled``
+    broadcast over the learner axis. A sampled-out fleet is then exactly an
+    all-offline fleet, which is exactly a row of ``BatchedProblems`` padded
+    slots (zero boxes, ``valid=False``, budget 0), so the policies solve it
+    to tau = d = 0 without going infeasible."""
+    act = torch.as_tensor(sampled, dtype=torch.bool, device=d_lo.device)[..., None] & valid
+    return apply_active_mask(total_i, d_lo, d_hi, valid, act)
+
+
 # ---------------------------------------------------------------------------
 # cross-model allocation layer (FedAST-style multi-tenant split)
 # ---------------------------------------------------------------------------
@@ -774,7 +786,7 @@ def _fma(a: float, b: float, c: float) -> float:
 
 
 def cross_model_weights(deficits, *, policy: str = "deficit",
-                        share_floor: float = 0.0) -> torch.Tensor:
+                        share_floor: float = 0.0, fused: bool = True) -> torch.Tensor:
     """Per-model budget-split weights ``w`` of shape (S,) from a (S,)
     progress-deficit signal (how far each tenant model trails the
     front-runner, in server versions: model-value-free, so the schedule
@@ -790,7 +802,10 @@ def cross_model_weights(deficits, *, policy: str = "deficit",
     representable float <= 1.0; S = 1 returns exactly 1.0, with no grid and
     no arithmetic. S is small, so the weights are computed on the host in
     float64 and returned as a float64 tensor on the deficits' device (the
-    CPU for a non-tensor)."""
+    CPU for a non-tensor).
+
+    ``fused=False`` rounds the floor's multiply and add apart, as the
+    reference's eager callers do (``FleetEngine.solve_multimodel``)."""
     if policy not in SPLIT_POLICIES:
         raise ValueError(
             f"no cross-model split policy {policy!r}; "
@@ -817,7 +832,7 @@ def cross_model_weights(deficits, *, policy: str = "deficit",
         # multiply and the add into one FMA on the CPU; rounding twice moves
         # some weights by one grid step, so it is one rounding here too
         a = 1.0 - s * share_floor
-        p = [_fma(a, x, share_floor) for x in p]
+        p = [_fma(a, x, share_floor) if fused else a * x + share_floor for x in p]
     w = np.floor(np.asarray(p, np.float64) * _SPLIT_GRID) / _SPLIT_GRID
     return torch.as_tensor(w, device=dev)
 

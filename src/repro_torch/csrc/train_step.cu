@@ -29,7 +29,11 @@
 // 198,528) needs 2.4e11 FLOPs a cycle, 3.6 ms at 67 TFLOP/s of FP32; it
 // moves about 43 MB (shards once, parameters in and out), 13 us at 3.35 TB/s.
 // TF32 tensor cores would keep ~3 decimal digits, too few for the 1e-4
-// parity the port holds, so the products run on the FP32 units.
+// parity the port holds, so the products run on the FP32 units. A fleet of
+// fleets (10^4 learners of at most 15 rows, max tau 44) needs 2.2e12 FLOPs
+// (33 ms), but its 11.2 GB of learner weights cannot stay on the chip
+// between steps, so this step-synchronous schedule moves each learner's
+// weights in and out every step: 0.55 TB, 0.16 s at 3.35 TB/s.
 //
 // Design. A launch per product would be 16 launches a step (~530 for the
 // ~33 steps of an async group), each paying a launch gap, and a
@@ -38,7 +42,8 @@
 // threads per co-resident slot (occupancy x SMs: two an SM), and walks a
 // phase plan:
 //   * phase 0: the mask statistics, one item a learner: rows[z] = 1 + the
-//     last masked-in row (0 if none), inv_den[z] = 1 / max(sum m, 1);
+//     last masked-in row (0 if none), inv_den[z] = 1 / max(sum m, 1); then
+//     each step's prefix sums of the learners' item counts, one CTA a step;
 //   * then per step the plan built in Python (train_step._phase_plan) and
 //     passed as a __grid_constant__ table: L forward phases, the last with
 //     the loss gradient in its epilogue (<= 64 classes fit one 64-column
@@ -50,8 +55,15 @@
 //     2L phases a step, each ended by cooperative_groups' grid sync.
 // Each phase is a flat work list of (op, learner, output tile) items;
 // learners with step >= tau_k and row tiles past rows[z] are left out of
-// it. The CTAs take its items one at a time from an atomic counter, the
-// ops with the longest items first, so that uneven items spread evenly.
+// it. CTA b takes item b first, then items one at a time from an atomic
+// counter, the ops with the longest items first, so that uneven items
+// spread evenly; a phase's first items so start without an atomic round
+// trip after the grid sync.
+// After the mask statistics, each step's item counts of every learner are
+// summed once into prefix arrays in global memory (build_prefix), from
+// which a phase reads its totals and a CTA finds an item's learner by a
+// 32-way search (locate): an item's bookkeeping does not grow with the
+// learner count, so 10^4 learners run in one launch.
 // The tile shape of each op is chosen per phase as the least estimated
 // (rounds of items over the CTAs) x (an item's time) over 128x64 (8x4
 // outputs a thread, 32-deep k stages), 64x32 (4x2, 64-deep) and 32x32
@@ -132,7 +144,8 @@ struct Net {
   float* g[MAX_LAYERS + 1];  // g[l] (K, d_cap, widths[l])
   int* rows;
   float* inv_den;
-  int* work;  // two item counters, used by alternate phases; work[0] starts at 0
+  int* work;    // two item counters, used by alternate phases; work[0] starts at 0
+  int* prefix;  // (max_tau, PREFIXES, k + 1): see build_prefix
 };
 
 // cp.async: `bytes` of 16 (or 4) from global to shared memory, the rest
@@ -428,24 +441,6 @@ __device__ void stats_item(const Net& net, int z, float* smem) {
   }
 }
 
-// An op's extent for one learner: (rows of output tiles' M, columns N),
-// and whether the learner has work in this step.
-struct Extent {
-  int m, n;
-};
-
-__device__ __forceinline__ Extent extent(const Net& net, int op, int l, int z) {
-  const int* wd = net.widths;
-  const int r = net.rows[z];
-  switch (op) {
-    case OP_FWD:
-    case OP_FWD_XENT: return {r, wd[l]};
-    case OP_GIN: return {r, wd[l - 1]};
-    case OP_WGRAD: return {wd[l - 1], wd[l]};
-    default: return {1, wd[l]};  // OP_BIAS: 32-column blocks
-  }
-}
-
 // tile shape s: 0 Wide, 1 Mid, 2 Deep
 __device__ __forceinline__ int tile_bm(int s) { return s == 0 ? Wide::BM : s == 1 ? Mid::BM : Deep::BM; }
 __device__ __forceinline__ int tile_bn(int s) { return s == 0 ? Wide::BN : s == 1 ? Mid::BN : Deep::BN; }
@@ -467,14 +462,36 @@ __device__ __forceinline__ bool is_gemm(int op) {
   return op == OP_FWD || op == OP_GIN || op == OP_WGRAD;
 }
 
-// Items of `op` for learner z in tile shape `shape` (0 if the learner is done)
-__device__ __forceinline__ int items_of(const Net& net, int op, int l, int z, int shape,
-                                        int step) {
-  if (step >= net.tau[z]) return 0;
-  const Extent e = extent(net, op, l, z);
-  if (op == OP_BIAS) return (e.n + 31) / 32;
-  return ((e.m + tile_bm(shape) - 1) / tile_bm(shape)) *
-         ((e.n + tile_bn(shape) - 1) / tile_bn(shape));
+// The learners' item counts of a step, as prefix sums over the learners
+// (build_prefix): for array a < 3, learner z's row tiles in tile shape a
+// (ceil(rows[z] / BM)), for a = 3 one; both 0 for a learner whose step >=
+// tau_z. An op's items for learner z are mult x array a's term, where
+// op_items gives (mult, a): a row-tiled product (forward, loss, carried
+// gradient) has its column tiles for each row tile; a weight gradient and
+// a bias update have a fixed count for every learner with work.
+constexpr int PREFIXES = 4;
+
+__device__ __forceinline__ const int* prefix_of(const Net& net, int step, int a) {
+  return net.prefix + ((long long)step * PREFIXES + a) * (net.k + 1);
+}
+
+__device__ __forceinline__ int op_items(const Net& net, int op, int l, int sh, int& a) {
+  const int* wd = net.widths;
+  const int bm = tile_bm(sh), bn = tile_bn(sh);
+  switch (op) {
+    case OP_FWD:
+    case OP_FWD_XENT: a = sh; return (wd[l] + bn - 1) / bn;
+    case OP_GIN: a = sh; return (wd[l - 1] + bn - 1) / bn;
+    case OP_WGRAD: a = 3; return ((wd[l - 1] + bm - 1) / bm) * ((wd[l] + bn - 1) / bn);
+    default: a = 3; return (wd[l] + 31) / 32;  // OP_BIAS: 32-column blocks
+  }
+}
+
+// The items of (op, l) in tile shape sh at this step, over all learners.
+__device__ __forceinline__ int op_total(const Net& net, int op, int l, int sh, int step) {
+  int a;
+  const int mult = op_items(net, op, l, sh, a);
+  return mult * prefix_of(net, step, a)[net.k];
 }
 
 template <class T>
@@ -508,53 +525,84 @@ __device__ void run_item(const Net& net, int op, int l, int shape, int z, int it
 struct Book {
   Net net;
   Plan plan;
-  int count[MAX_OPS][3];  // items of each op in each tile shape
   int shape[MAX_OPS];     // each op's tile shape
   int order[MAX_OPS];     // the ops, longest items first
   int prefix[MAX_OPS + 1];  // items before the k-th op of `order`
-  int item;
-  int warp_sum[THREADS / 32];  // locate()'s scan
-  int found_z, found_i;
+  int item, found_o, found_z, found_i;  // the item taken, and its op, learner and index
+  int warp_sum[THREADS / 32][PREFIXES];  // build_prefix's scan
 };
 constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS + sizeof(Book);
 
-// The work list of phase p of this step (one CTA, every thread): items
-// counted over the learners by all threads, then warp 0 picks each op's
-// tile shape, orders the ops and sums their items.
+// The learners' item counts of step s as exclusive prefix sums in
+// net.prefix (one CTA, every thread; the learners THREADS at a time: a warp
+// scan, then the warps' sums), read by every later phase of the launch:
+// prefix_of(s, a)[z] is the sum over the learners before z, and [k] the
+// total.
+__device__ void build_prefix(Book& bk, int s) {
+  const Net& net = bk.net;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int* out = net.prefix + (long long)s * PREFIXES * (net.k + 1);
+  int carry[PREFIXES] = {0, 0, 0, 0};
+  for (int z0 = 0; z0 < net.k; z0 += THREADS) {
+    const int z = z0 + threadIdx.x;
+    int v[PREFIXES] = {0, 0, 0, 0};
+    if (z < net.k && s < net.tau[z]) {
+      const int r = net.rows[z];
+      v[0] = (r + Wide::BM - 1) / Wide::BM;
+      v[1] = (r + Mid::BM - 1) / Mid::BM;
+      v[2] = (r + Deep::BM - 1) / Deep::BM;
+      v[3] = 1;
+    }
+    int incl[PREFIXES];
+#pragma unroll
+    for (int a = 0; a < PREFIXES; ++a) {
+      incl[a] = v[a];
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int u = __shfl_up_sync(0xffffffffu, incl[a], d);
+        if (lane >= d) incl[a] += u;
+      }
+      if (lane == 31) bk.warp_sum[warp][a] = incl[a];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < PREFIXES; ++a) {
+      int before = carry[a];
+      for (int w = 0; w < THREADS / 32; ++w) {
+        if (w < warp) before += bk.warp_sum[w][a];
+        carry[a] += bk.warp_sum[w][a];
+      }
+      if (z < net.k) out[a * (net.k + 1) + z] = before + incl[a] - v[a];
+    }
+    __syncthreads();  // warp_sum is rewritten by the next chunk
+  }
+  if (threadIdx.x < PREFIXES) out[threadIdx.x * (net.k + 1) + net.k] = carry[threadIdx.x];
+}
+
+// The work list of phase p of this step (one CTA, warp 0): each op's items
+// in each tile shape from the step's prefix sums, each op's tile shape, the
+// ops in order and their items summed.
 __device__ void plan_phase(Book& bk, int p, int step, int ctas) {
   const Net& net = bk.net;
-  if (threadIdx.x < MAX_OPS * 3) bk.count[threadIdx.x / 3][threadIdx.x % 3] = 0;
-  __syncthreads();
-  for (int z = threadIdx.x; z < net.k; z += THREADS) {
-    if (step >= net.tau[z]) continue;
-    for (int o = 0; o < MAX_OPS; ++o) {
-      const int op = bk.plan.op[p][o], l = bk.plan.layer[p][o];
-      if (op == OP_NONE) break;
-      for (int sh = 0; sh < (is_gemm(op) ? 3 : 1); ++sh) {
-        const int n = items_of(net, op, l, z, sh, step);
-        if (n) atomicAdd(&bk.count[o][sh], n);
-      }
-    }
-  }
-  __syncthreads();
   if (threadIdx.x < 32) {
     const int o = threadIdx.x;
     const int op = o < MAX_OPS ? bk.plan.op[p][o] : OP_NONE;
     const int l = o < MAX_OPS ? bk.plan.layer[p][o] : 0;
-    int shape = 0, count = op == OP_NONE ? 0 : bk.count[o][0];
+    int shape = 0, count = op == OP_NONE ? 0 : op_total(net, op, l, 0, step);
     long long weight = op == OP_NONE ? -1 : 0;
     if (is_gemm(op)) {
       // the least (rounds of items over the CTAs) x (an item's time)
       const int kd = op == OP_FWD ? net.widths[l - 1] : op == OP_GIN ? net.widths[l] : net.d_cap;
       long long best = -1;
       for (int sh = 0; sh < 3; ++sh) {
-        const long long est = (long long)((bk.count[o][sh] + ctas - 1) / ctas) * item_time(sh, kd);
+        const int n = op_total(net, op, l, sh, step);
+        const long long est = (long long)((n + ctas - 1) / ctas) * item_time(sh, kd);
         if (best < 0 || est < best) {
           best = est;
           shape = sh;
+          count = n;
         }
       }
-      count = bk.count[o][shape];
       weight = item_time(shape, kd);
     } else if (op == OP_FWD_XENT) {
       weight = item_time(0, net.widths[l - 1]);
@@ -581,38 +629,38 @@ __device__ void plan_phase(Book& bk, int p, int step, int ctas) {
   __syncthreads();
 }
 
-// The learner z of item `rest` of op (op, l) in tile shape sh, and the
-// item's index i within the learner's items: the CTA scans the learners'
-// item counts THREADS at a time (a warp scan, then the warps' sums).
-__device__ void locate(Book& bk, int op, int l, int sh, int step, int rest, int& z, int& i) {
+// Item `it` of this phase's work list (warp 0; lane 0 holds `it` < total):
+// its op (by the ops' item prefix), its learner z and its index i within
+// the learner's items. z is the last learner whose prefix sum is at most
+// `rest / mult`, found by a 32-way search of the step's prefix array (one
+// probe a lane a round: ~3 rounds at 10^4 learners).
+__device__ void locate(Book& bk, int p, int step, int it) {
   const Net& net = bk.net;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int z0 = 0, base = 0; z0 < net.k; z0 += THREADS) {
-    const int zz = z0 + threadIdx.x;
-    const int n = zz < net.k ? items_of(net, op, l, zz, sh, step) : 0;
-    int incl = n;
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (lane == 31) bk.warp_sum[warp] = incl;
-    __syncthreads();
-    int start = base + incl - n, chunk = 0;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      if (w < warp) start += bk.warp_sum[w];
-      chunk += bk.warp_sum[w];
-    }
-    if (rest >= start && rest < start + n) {
-      bk.found_z = zz;
-      bk.found_i = rest - start;
-    }
-    __syncthreads();
-    base += chunk;
-    if (rest < base) break;
+  const int lane = threadIdx.x % 32;
+  int k = 0;
+  while (it >= bk.prefix[k + 1]) ++k;
+  const int o = bk.order[k], sh = bk.shape[o];
+  const int op = bk.plan.op[p][o], l = bk.plan.layer[p][o];
+  int a;
+  const int mult = op_items(net, op, l, sh, a);
+  const int rest = it - bk.prefix[k], q = rest / mult;
+  const int* pre = prefix_of(net, step, a);
+  int lo = 0, hi = net.k;  // pre[lo] <= q < pre[hi]
+  while (hi - lo > 1) {
+    const int span = hi - lo;
+    const int at = lo + (int)(((long long)(lane + 1) * span) / 33);
+    const unsigned below = __ballot_sync(0xffffffffu, pre[at] <= q);
+    const int n = __popc(below);  // the probes are in order, so are their answers
+    const int new_lo = __shfl_sync(0xffffffffu, at, n > 0 ? n - 1 : 0);
+    const int new_hi = __shfl_sync(0xffffffffu, at, n < 32 ? n : 31);
+    if (n > 0) lo = new_lo;
+    if (n < 32) hi = new_hi;
   }
-  z = bk.found_z;
-  i = bk.found_i;
+  if (lane == 0) {
+    bk.found_o = o;
+    bk.found_z = lo;
+    bk.found_i = rest - mult * pre[lo];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -632,11 +680,13 @@ train_steps_kernel(const __grid_constant__ Net net_param, const __grid_constant_
   __syncthreads();
   const Net& net = bk.net;
 
-  // phase 0: the mask statistics
+  // phase 0: the mask statistics; then each step's item prefix sums
   for (int z = blockIdx.x; z < net.k; z += ctas) {
     stats_item(net, z, smem);
     __syncthreads();
   }
+  grid.sync();
+  for (int s = blockIdx.x; s < net.max_tau; s += ctas) build_prefix(bk, s);
   grid.sync();
 
   int pc = 0;  // phases run so far: phase pc takes its items from work[pc & 1]
@@ -644,24 +694,25 @@ train_steps_kernel(const __grid_constant__ Net net_param, const __grid_constant_
     for (int p = 0; p < bk.plan.n_phases; ++p, ++pc) {
       plan_phase(bk, p, step, ctas);
       const int total = bk.prefix[MAX_OPS];
-      // the CTAs take items one at a time from this phase's counter; the
-      // other counter is set to 0 for the next phase (no CTA reads it now)
+      // CTA b takes item b, then items ctas, ctas + 1, ... one at a time
+      // from this phase's counter; the other counter is set to 0 for the
+      // next phase (no CTA reads it now)
       int* counter = net.work + (pc & 1);
       if (blockIdx.x == 0 && threadIdx.x == 0) net.work[(pc + 1) & 1] = 0;
-      for (;;) {
-        if (threadIdx.x == 0) bk.item = atomicAdd(counter, 1);
+      for (bool first = true;; first = false) {
+        if (threadIdx.x < 32) {
+          int it = 0;
+          if (threadIdx.x == 0) it = first ? (int)blockIdx.x : ctas + atomicAdd(counter, 1);
+          it = __shfl_sync(0xffffffffu, it, 0);
+          if (it < total) locate(bk, p, step, it);
+          if (threadIdx.x == 0) bk.item = it;
+        }
         __syncthreads();
-        const int it = bk.item;
-        __syncthreads();
-        if (it >= total) break;
-        int k = 0;
-        while (it >= bk.prefix[k + 1]) ++k;
-        const int o = bk.order[k], sh = bk.shape[o];
-        const int op = bk.plan.op[p][o], l = bk.plan.layer[p][o];
-        int z, i;
-        locate(bk, op, l, sh, step, it - bk.prefix[k], z, i);
-        run_item(net, op, l, sh, z, i, smem);
-        __syncthreads();  // the next item reuses shared memory
+        if (bk.item >= total) break;
+        const int o = bk.found_o, sh = bk.shape[o];
+        run_item(net, bk.plan.op[p][o], bk.plan.layer[p][o], sh, bk.found_z, bk.found_i,
+                 smem);
+        __syncthreads();  // the next item reuses shared memory and the Book's item
       }
       grid.sync();
     }
@@ -676,14 +727,16 @@ train_steps_kernel(const __grid_constant__ Net net_param, const __grid_constant_
 // (K, widths[l], widths[l+1]) and (K, widths[l+1]), updated in place.
 // ws: device workspace of 2 * K * d_cap * sum(widths[1:]) floats;
 // rows (K,) i32 and inv_den (K,) f32: device scratch; work: 2 i32 of device
-// scratch, set to 0 before the call. plan: host array of
+// scratch, set to 0 before the call; prefix: max_tau * 4 * (K + 1) i32 of
+// device scratch. plan: host array of
 // n_phases * 3 (op, layer) pairs, the phases of one step
 // (train_step._phase_plan). One cooperative launch runs every step.
 extern "C" int train_cycle_f32(const float* x, const int* y, const float* mask,
                                const int* tau, int k, int d_cap, int n_layers,
                                const int* widths, float* const* w, float* const* b,
-                               float* ws, int* rows, float* inv_den, int* work, float lr,
-                               int max_tau, const int* plan, int n_phases, void* stream_ptr) {
+                               float* ws, int* rows, float* inv_den, int* work,
+                               int* prefix, float lr, int max_tau, const int* plan,
+                               int n_phases, void* stream_ptr) {
   if (n_layers < 1 || n_layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
   if (widths[n_layers] > MAX_CLASSES) return (int)cudaErrorInvalidValue;
   if (n_phases < 1 || n_phases > MAX_PHASES) return (int)cudaErrorInvalidValue;
@@ -702,6 +755,7 @@ extern "C" int train_cycle_f32(const float* x, const int* y, const float* mask,
   net.rows = rows;
   net.inv_den = inv_den;
   net.work = work;
+  net.prefix = prefix;
   for (int l = 0; l <= n_layers; ++l) net.widths[l] = widths[l];
   net.h[0] = const_cast<float*>(x);
   float* p = ws;

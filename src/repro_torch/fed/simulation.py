@@ -4,13 +4,13 @@ Builds the 802.11 indoor environment, derives the time-model coefficients
 from the paper's MNIST-DNN constants (S_m = 8,974,080 bits,
 C_m = 1,123,736 FLOPs/sample), allocates with the requested scheme, and
 runs federated training on synthetic MNIST-class data — the port of
-``repro/fed/simulation.py`` without the fleet sweep (``fleet_scale_sweep``:
-ROADMAP Queue 1 item 11).
+``repro/fed/simulation.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ __all__ = [
     "churn_sweep",
     "drift_staleness_sweep",
     "energy_sweep",
+    "fleet_scale_sweep",
     "laggard_time_to_accuracy",
     "multi_model_sweep",
     "run_async_experiment",
@@ -686,6 +687,64 @@ def energy_sweep(
 # ---------------------------------------------------------------------------
 # multi-tenant simultaneous training (fed.multimodel)
 # ---------------------------------------------------------------------------
+
+def fleet_scale_sweep(
+    fleet_counts=(4, 16),
+    *,
+    k: int = 4,
+    rounds: int = 3,
+    T: float = 6.0,
+    total_samples: int = 40,
+    participation: float = 0.5,
+    features: int = 64,
+    hidden: int = 32,
+    seed: int = 0,
+    device=None,
+    train: Dataset | None = None,
+    test: Dataset | None = None,
+) -> list[dict]:
+    """Population-scale rows: one two-tier ``FleetEngine`` run per fleet
+    count F, F fleets x ``k`` learners, FedAST partial participation at
+    ``participation``, a compact ``[features, hidden, 10]`` model so the
+    per-round cost is the fleet machinery's rather than one product's, on
+    ``device`` (``None``: the card).
+
+    Every fleet trains every round (unsampled fleets keep working on their
+    stale pull), so one global round of virtual time T simulates F x k
+    busy learners: ``learners_per_vtu`` is exactly F x k. One device holds
+    every fleet: ``mesh_devices`` is 1 and ``fleet_axes`` empty."""
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+
+    device = resolve_device(device)
+    if train is None or test is None:
+        train, test = synthetic_mnist(6000, n_test=2000, features=features, seed=seed)
+    params = mlp.init(seed, layers=[features, hidden, 10], device=device)
+    cfg = FleetConfig(participation=participation)
+    rows: list[dict] = []
+    for f in fleet_counts:
+        bp = build_fleet_problems(int(f), k, T=T, total_samples=total_samples, seed=seed)
+        eng = FleetEngine(cfg, bp, mlp.loss, params, seed=seed)
+        t0 = time.time()
+        hist = eng.run(train, rounds, eval_fn=mlp.accuracy,
+                       eval_batch=(test.x[:1000], test.y[:1000]))
+        wall = time.time() - t0
+        learners = int(f) * k
+        rows.append({
+            "F": int(f),
+            "K": k,
+            "learners": learners,
+            "rounds": rounds,
+            "participation": participation,
+            "mesh_devices": 1,
+            "fleet_axes": [],
+            "learners_per_vtu": learners,
+            "final_accuracy": float(hist[-1]["accuracy"]),
+            "fleet_staleness_max": max(r["fleet_staleness_max"] for r in hist),
+            "wall_s": round(wall, 3),
+            "learner_rounds_per_s": round(learners * rounds / max(wall, 1e-9), 1),
+        })
+    return rows
+
 
 def multi_model_sweep(
     totals=(200, 200, 600),

@@ -3,10 +3,11 @@
 Replaces the Pallas TPU kernel ``fed_agg_pallas``
 (``repro/kernels/fed_agg.py:30``); the source, with its bound and design,
 is ``csrc/fed_agg.cu``. One launch aggregates every leaf it is given
-(``fed_agg_leaves_cuda``, at most ``MAX_LEAVES``); ``fed_agg_cuda`` is one
-leaf through the same launch. The plain torch version is
-``repro_torch.kernels.ref.fed_agg_ref``; ``ops.fed_agg`` picks between the
-two by the tensors' device.
+(``fed_agg_leaves_cuda``, at most ``MAX_LEAVES``), and with ``groups=G``
+each of G consecutive groups of learners into its own output (a fleet of
+fleets); ``fed_agg_cuda`` is one leaf through the same launch. The plain
+torch version is ``repro_torch.kernels.ref.fed_agg_ref``; ``ops.fed_agg``
+and ``ops.fed_agg_leaves`` pick between the two by the tensors' device.
 
 ``launches`` counts the kernel's launches in this process; set it to 0 to
 start a count.
@@ -35,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     lib.fed_agg_leaves_f32.restype = ctypes.c_int
     lib.fed_agg_leaves_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_void_p]
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -53,24 +54,34 @@ def _check(x: torch.Tensor, weights: torch.Tensor) -> None:
         raise ValueError("fed_agg_cuda takes contiguous tensors")
 
 
-def fed_agg_leaves_cuda(leaves: list[torch.Tensor], weights: torch.Tensor) -> list[torch.Tensor]:
+def fed_agg_leaves_cuda(leaves: list[torch.Tensor], weights: torch.Tensor, *,
+                        groups: int = 1) -> list[torch.Tensor]:
     """``[sum_k weights[k] * x[k] for x in leaves]`` on the card, in one
-    launch. Each leaf is a contiguous float32 (K, ...) CUDA tensor with one
-    K, ``weights`` a contiguous float32 (K,) tensor on the same device; at
-    most ``MAX_LEAVES`` leaves. The outputs are contiguous views of one
-    buffer."""
+    launch. Each leaf is a contiguous float32 (N, ...) CUDA tensor with one
+    N, ``weights`` a contiguous float32 (N,) tensor on the same device; at
+    most ``MAX_LEAVES`` leaves. With ``groups=G`` the N = G K learners are
+    G groups of K consecutive ones, and each output is (G, ...): group g's
+    sum over its own K, each group the bits of a one-group launch on its
+    slice. The outputs are contiguous views of one buffer."""
     global launches
     if not 1 <= len(leaves) <= MAX_LEAVES:
         raise ValueError(f"fed_agg_leaves_cuda takes 1 to {MAX_LEAVES} leaves a launch, "
                          f"got {len(leaves)}")
     for x in leaves:
         _check(x, weights)
+    n_rows = weights.shape[0]
+    if groups < 1 or n_rows % groups:
+        raise ValueError(f"{n_rows} learners do not split into {groups} groups")
+    k = n_rows // groups
+    lead = (groups,) if groups > 1 else ()
     # the outputs are views of one buffer (one allocation, not one a leaf),
     # each starting on a 16-byte boundary
     sizes = [math.prod(x.shape[1:]) for x in leaves]
-    starts = list(itertools.accumulate(((n + 3) // 4 * 4 for n in sizes), initial=0))
+    starts = list(itertools.accumulate(((groups * n + 3) // 4 * 4 for n in sizes),
+                                       initial=0))
     flat = torch.empty(starts[-1], dtype=torch.float32, device=weights.device)
-    outs = [flat[a:a + n].view(x.shape[1:]) for a, n, x in zip(starts, sizes, leaves)]
+    outs = [flat[a:a + groups * n].view(lead + x.shape[1:])
+            for a, n, x in zip(starts, sizes, leaves)]
     if starts[-1] == 0:
         return outs
     n = len(leaves)
@@ -80,7 +91,7 @@ def fed_agg_leaves_cuda(leaves: list[torch.Tensor], weights: torch.Tensor) -> li
         code = lib.fed_agg_leaves_f32(
             (ctypes.c_void_p * n)(*[x.data_ptr() for x in leaves]),
             (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
-            (ctypes.c_longlong * n)(*sizes), n, weights.data_ptr(), weights.shape[0], stream)
+            (ctypes.c_longlong * n)(*sizes), n, weights.data_ptr(), k, groups, stream)
     _build.check(lib, code, "fed_agg kernel launch")
     launches += 1
     return outs

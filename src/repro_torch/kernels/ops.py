@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fed_agg import fed_agg_cuda
+from repro_torch.kernels.fed_agg import fed_agg_cuda, fed_agg_leaves_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.swiglu import swiglu_cuda
@@ -26,8 +26,8 @@ from repro_torch.kernels.waterfill import (
 from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models import layers
 
-__all__ = ["fed_agg", "flash_attention", "mamba_scan", "swiglu_fused", "train_agg_step",
-           "waterfill_energy_residual", "waterfill_residual", "wkv6"]
+__all__ = ["fed_agg", "fed_agg_leaves", "flash_attention", "mamba_scan", "swiglu_fused",
+           "train_agg_step", "waterfill_energy_residual", "waterfill_residual", "wkv6"]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=False,
@@ -96,20 +96,32 @@ def fed_agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return fed_agg_cuda(stacked, weights)
 
 
-def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int, server=None,
-                   acc=None, keep=None, flush=None):
+def fed_agg_leaves(leaves: list[torch.Tensor], weights: torch.Tensor) -> list[torch.Tensor]:
+    """``fed_agg`` of every leaf with the same weights: on the card one
+    launch for all of them (at most ``fed_agg.MAX_LEAVES``)."""
+    if weights.device.type == "cpu":
+        return [ref.fed_agg_ref(x, weights) for x in leaves]
+    return fed_agg_leaves_cuda(leaves, weights)
+
+
+def train_agg_step(disp, x, y, m, tau, weights, lr, *, max_tau: int, groups: int = 1,
+                   server=None, acc=None, keep=None, flush=None):
     """One train+aggregate step of the MLP: ``tau_k`` masked GD steps of
     ``mlp.loss`` per learner from ``disp``, then
 
     * cycle form (``acc=None``): the weighted aggregation of the trained
-      learners; returns ``(new_model, None)``;
+      learners; returns ``(new_model, None)``. With ``groups=G`` the
+      learners are G groups of consecutive ones (a fleet of fleets), each
+      aggregated into its own model (leaves (G, ...)); ``disp`` may then
+      hold one start model a group;
     * async form (``server``, ``acc``, ``keep``, ``flush`` given): the
       accumulate ``acc1 = acc + sum_k w_k local_k`` and the flush; returns
       ``(keep * server + flush * acc1, (1 - flush) * acc1)``.
 
     ``max_tau`` is the host's bound on ``max(tau)``; ``keep`` and ``flush``
     are host numbers."""
-    kw = dict(max_tau=max_tau, server=server, acc=acc, keep=keep, flush=flush)
+    kw = dict(max_tau=max_tau, groups=groups, server=server, acc=acc, keep=keep,
+              flush=flush)
     if x.device.type == "cpu":
         return ref.train_agg_step_ref(disp, x, y, m, tau, weights, lr, **kw)
     return train_agg_step_cuda(disp, x, y, m, tau, weights, lr, **kw)

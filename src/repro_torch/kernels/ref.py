@@ -104,11 +104,27 @@ def swiglu_ref(x, w_gate, w_up, w_down):
     return layers.swiglu(x, w_gate, w_up, w_down)
 
 
-def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def fed_agg_ref(stacked: torch.Tensor, weights: torch.Tensor, *,
+                groups: int = 1) -> torch.Tensor:
     """Weighted sum over the leading learner axis, accumulated in float32
-    and returned in the input dtype (``repro.kernels.ref.fed_agg_ref``)."""
+    and returned in the input dtype (``repro.kernels.ref.fed_agg_ref``).
+    With ``groups=G`` the N = G K learners are G groups of K consecutive
+    ones, each summed into its own (G, ...) output."""
     w = weights.to(torch.float32).reshape((-1,) + (1,) * (stacked.dim() - 1))
-    return (stacked.to(torch.float32) * w).sum(dim=0).to(stacked.dtype)
+    if groups == 1:
+        return (stacked.to(torch.float32) * w).sum(dim=0).to(stacked.dtype)
+    prod = stacked.to(torch.float32) * w
+    return prod.reshape((groups, stacked.shape[0] // groups) + stacked.shape[1:]).sum(
+        dim=1).to(stacked.dtype)
+
+
+def _start_models(disp, n: int):
+    """Every leaf of ``disp`` with a leading axis of the ``n`` learners:
+    as it is, or, for a leaf with one model a group of learners (G rows),
+    each row repeated for its group's n / G learners."""
+    return [{name: leaf if leaf.shape[0] == n else leaf.repeat_interleave(
+                n // leaf.shape[0], dim=0)
+             for name, leaf in layer.items()} for layer in disp]
 
 
 def sum_in_order(x: torch.Tensor) -> torch.Tensor:
@@ -164,22 +180,24 @@ def accum_flush_ref(locals_, weights, acc, server, keep, flush):
 
 
 def train_agg_step_ref(disp, x, y, m, tau, weights, lr, *, max_tau: int,
-                       loss_fn=mlp.loss, server=None, acc=None, keep=None,
-                       flush=None):
+                       loss_fn=mlp.loss, groups: int = 1, server=None, acc=None,
+                       keep=None, flush=None):
     """The train+aggregate step, unfused: ``local_train_stacked``
     (``tau_k`` masked GD steps per learner from its own parameters), then
     on every leaf either ``fed_agg_ref`` of the trained learners (cycle
-    form, ``acc=None``) or ``accum_flush_ref`` (async form, with
-    ``server``, ``acc``, ``keep`` and ``flush``). Returns
+    form, ``acc=None``; with ``groups=G``, one aggregate for each of G
+    groups of consecutive learners, whose start models ``disp`` may hold
+    one a group, see ``_start_models``) or ``accum_flush_ref`` (async form,
+    with ``server``, ``acc``, ``keep`` and ``flush``). Returns
     ``(new_server, new_acc)``, ``new_acc=None`` in cycle form
     (``repro.kernels.ref.train_agg_step_ref``)."""
     from repro_torch.fed.orchestrator import local_train_stacked
 
-    locals_ = local_train_stacked(disp, x, y, m, tau, lr, max_tau=max_tau,
-                                  loss_fn=loss_fn)
+    locals_ = local_train_stacked(_start_models(disp, x.shape[0]), x, y, m, tau, lr,
+                                  max_tau=max_tau, loss_fn=loss_fn)
     w = weights.to(torch.float32)
     if acc is None:
-        return [{name: fed_agg_ref(leaf, w) for name, leaf in layer.items()}
+        return [{name: fed_agg_ref(leaf, w, groups=groups) for name, leaf in layer.items()}
                 for layer in locals_], None
     pairs = [{name: accum_flush_ref(leaf, w, acc[l][name], server[l][name], keep, flush)
               for name, leaf in layer.items()} for l, layer in enumerate(locals_)]

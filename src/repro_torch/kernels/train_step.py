@@ -6,7 +6,9 @@ Replaces the Pallas TPU megakernel ``train_agg_step_pallas``
 parameters, then
 
 * cycle form: the trained learners are aggregated with weights ``w``, one
-  ``fed_agg`` launch for every leaf;
+  ``fed_agg`` launch for every leaf; with ``groups=G`` the learners are G
+  groups of consecutive ones (the fleets of a fleet of fleets), each
+  aggregated into its own model by the same one launch;
 * async form (``server``, ``acc``, ``keep``, ``flush`` given): they are
   folded into the accumulator and the flush applied, one ``accum_flush``
   launch for every leaf.
@@ -88,7 +90,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.train_cycle_f32.restype = i32
     lib.train_cycle_f32.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ctypes.c_float, i32, ptr, i32, ptr,
     ]
     lib.kernel_error_string.restype = ctypes.c_void_p
@@ -96,7 +98,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
+def _check_inputs(disp, x, y, m, tau, weights, groups: int = 1) -> list[int]:
     """Validate what the kernel takes; returns the layer widths."""
     dev = x.device
     if not x.is_cuda:
@@ -117,11 +119,14 @@ def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if groups < 1 or k % groups:
+        raise ValueError(f"{k} learners do not split into {groups} groups")
     widths = [feat]
     for i, layer in enumerate(disp):
         w, b = layer["w"], layer["b"]
-        if (w.dim() != 3 or tuple(w.shape[:2]) != (k, widths[-1])
-                or tuple(b.shape) != (k, w.shape[2])):
+        rows = w.shape[0] if w.dim() == 3 else -1
+        if (rows not in (k, groups) or tuple(w.shape[1:2]) != (widths[-1],)
+                or tuple(b.shape) != (rows, w.shape[2])):
             raise ValueError(f"layer {i}: w {tuple(w.shape)}, b {tuple(b.shape)} do "
                              f"not chain from width {widths[-1]} over {k} learners")
         if w.dtype != torch.float32 or b.dtype != torch.float32:
@@ -137,30 +142,40 @@ def _check_inputs(disp, x, y, m, tau, weights) -> list[int]:
 
 
 def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
-                        server=None, acc=None, keep=None, flush=None):
+                        groups: int = 1, server=None, acc=None, keep=None, flush=None):
     """One train+aggregate step on the card; returns ``(new_server,
     new_acc)``, ``new_acc=None`` in cycle form (``acc=None``).
 
     disp : list of ``{"w": (K, fan_in, fan_out), "b": (K, fan_out)}``
-        float32 — each learner's start parameters (a broadcast view is fine)
+        float32 — each learner's start parameters (a broadcast view is
+        fine); in grouped cycle form the leaves may hold one model a group
+        instead, (G, fan_in, fan_out) and (G, fan_out)
     x : (K, d_cap, F) float32; y : (K, d_cap) int32; m : (K, d_cap) float32
     tau : (K,) int32; weights : (K,) float32; all contiguous, on one card
     max_tau : the host's ``max(tau)`` bound on the steps (no device read)
+    groups : G, the cycle form's aggregates: one for each of G groups of
+        K / G consecutive learners, leaves (G, ...); 1 gives (...) leaves
     server, acc : the async form's server model and accumulator (lists of
         ``{"w", "b"}`` float32 leaves, contiguous); keep, flush : host numbers
     """
     global launches
-    widths = _check_inputs(disp, x, y, m, tau, weights)
+    if acc is not None and groups != 1:
+        raise ValueError("the async form aggregates one group")
+    widths = _check_inputs(disp, x, y, m, tau, weights, groups)
     k, d_cap, _ = x.shape
     dev = x.device
     # the kernel updates the learners' parameters in place, so each
-    # (possibly broadcast) leaf is first copied into its own (K, ...) buffer
-    work = [{name: leaf.clone(memory_format=torch.contiguous_format)
+    # (possibly broadcast, or one-a-group) leaf is first copied into its own
+    # (K, ...) buffer
+    work = [{name: leaf.clone(memory_format=torch.contiguous_format) if leaf.shape[0] == k
+             else leaf.repeat_interleave(k // groups, dim=0)
              for name, leaf in layer.items()} for layer in disp]
     ws = torch.empty(2 * k * d_cap * sum(widths[1:]), dtype=torch.float32, device=dev)
     rows = torch.empty(k, dtype=torch.int32, device=dev)
     inv_den = torch.empty(k, dtype=torch.float32, device=dev)
     counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    # each step's prefix sums of the learners' item counts (4 arrays of K + 1)
+    prefix = torch.empty(max(int(max_tau), 1) * 4 * (k + 1), dtype=torch.int32, device=dev)
     n = len(work)
     plan = _phase_plan(n)
     lib = _lib()
@@ -172,13 +187,13 @@ def train_agg_step_cuda(disp, x, y, m, tau, weights, lr: float, *, max_tau: int,
             (ctypes.c_void_p * n)(*[layer["w"].data_ptr() for layer in work]),
             (ctypes.c_void_p * n)(*[layer["b"].data_ptr() for layer in work]),
             ws.data_ptr(), rows.data_ptr(), inv_den.data_ptr(), counters.data_ptr(),
-            float(lr), int(max_tau), _plan_table(plan), len(plan), stream,
+            prefix.data_ptr(), float(lr), int(max_tau), _plan_table(plan), len(plan), stream,
         )
     _build.check(lib, code, "train_agg_step kernel launch")
     launches += 1
     if acc is None:
         agg = iter(fed_agg_leaves_cuda([leaf for layer in work for leaf in layer.values()],
-                                       weights))
+                                       weights, groups=groups))
         return [{name: next(agg) for name in layer} for layer in work], None
     keys = [(l, name) for l, layer in enumerate(work) for name in layer]
     servers, accs = accum_flush_leaves_cuda(

@@ -206,6 +206,32 @@ def test_fed_agg_all_leaf_launch_refuses_what_it_does_not_take(dev):
     assert fed_agg.launches == 1 and all(torch.equal(g, got[0]) for g in got)
 
 
+@pytest.mark.parametrize("groups,k", [(1, 5), (3, 4), (1250, 8), (7, 1)])
+def test_grouped_fed_agg_is_each_group_alone_bitwise(dev, groups, k):
+    """One grouped launch over G groups of K learners: each group's output is
+    a one-group launch on its slice, bitwise, and close to the plain
+    version; G = 1 gives the ungrouped leaves' shapes."""
+    gen = torch.Generator(device=dev).manual_seed(groups + k)
+    shapes = FED_AGG_LEAVES["paper_mlp"] if groups > 100 else FED_AGG_LEAVES["ragged"]
+    leaves = [torch.randn((groups * k, *shape), generator=gen, device=dev)
+              for shape in shapes]
+    w = torch.rand(groups * k, generator=gen, device=dev)
+    fed_agg.launches = 0
+    got = fed_agg.fed_agg_leaves_cuda(leaves, w, groups=groups)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == 1
+    lead = (groups,) if groups > 1 else ()
+    for gl, x, shape in zip(got, leaves, shapes):
+        assert gl.shape == lead + shape
+        torch.testing.assert_close(gl, ref.fed_agg_ref(x, w, groups=groups), rtol=1e-6,
+                                   atol=1e-6)
+        for g in range(0, groups, max(1, groups // 5)):
+            one = fed_agg.fed_agg_cuda(x[g * k:(g + 1) * k].contiguous(), w[g * k:(g + 1) * k])
+            assert torch.equal(gl[g] if groups > 1 else gl, one)
+    with pytest.raises(ValueError, match="groups"):
+        fed_agg.fed_agg_leaves_cuda(leaves, w, groups=groups * k + 1)
+
+
 def test_fed_agg_kernel_refuses_what_it_does_not_take(dev):
     x = torch.randn(3, 8, device=dev)
     w = torch.ones(3, device=dev) / 3
@@ -257,6 +283,73 @@ def test_train_agg_step_kernel_matches_plain(dev, case):
     for g_layer, w_layer in zip(got, want):
         for name in w_layer:
             torch.testing.assert_close(g_layer[name], w_layer[name], **TOL)
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_grouped_train_agg_step_matches_plain_and_one_call_a_group(dev, groups):
+    """G fleets of K learners in one call, each fleet's learners starting
+    from the fleet's model: one training launch and one grouped fed_agg
+    launch; each fleet's aggregate is the bits of the fleet's call alone,
+    and close to the plain version."""
+    layers, k, d_cap = [100, 70, 33, 10], 3, 40
+    n = groups * k
+    starts = _model(groups, layers, seed=31, dev=dev)
+    x, y, m = _batch(n, d_cap, layers, seed=32, dev=dev)
+    tau = torch.tensor([(i * 5) % 4 for i in range(n)], dtype=torch.int32, device=dev)
+    w = torch.rand(n, device=dev)
+    fed_agg.launches = train_step.launches = 0
+    got, _ = ops.train_agg_step(starts, x, y, m, tau, w, LR, max_tau=3, groups=groups)
+    torch.cuda.synchronize()
+    assert (train_step.launches, fed_agg.launches) == (1, 1)
+    want, _ = ref.train_agg_step_ref(starts, x, y, m, tau, w, LR, max_tau=3, groups=groups)
+    for g_layer, w_layer in zip(got, want):
+        for name in w_layer:
+            torch.testing.assert_close(g_layer[name], w_layer[name], **TOL)
+    for g in range(groups):
+        sl = slice(g * k, (g + 1) * k)
+        one, _ = ops.train_agg_step([{n_: v[g:g + 1] for n_, v in layer.items()}
+                                     for layer in starts], x[sl], y[sl], m[sl], tau[sl],
+                                    w[sl], LR, max_tau=3)
+        for g_layer, o_layer in zip(got, one):
+            for name in o_layer:
+                assert torch.equal(g_layer[name][g] if groups > 1 else g_layer[name],
+                                   o_layer[name])
+
+
+def test_ten_thousand_learners_train_as_ten_calls_of_a_thousand(dev):
+    """Learners are independent: a launch of 10,000 learners (a fleet of
+    fleets, d_cap 15, tau up to 44) gives each learner the bits of ten
+    launches of 1,000. Trained parameters read back through weights
+    one-hot on a learner a group."""
+    from repro_torch.fed.fleet import build_fleet_problems
+    from repro_torch.core import batched_policy
+
+    layers = [16, 12, 10]
+    bp = build_fleet_problems(1250, 8)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    tau, d, _ = batched_policy("kkt_sai")(
+        f64(bp.c2), f64(bp.c1), f64(bp.c0), f64(bp.T),
+        torch.as_tensor(bp.total, device=dev), f64(bp.d_lo), f64(bp.d_hi),
+        torch.as_tensor(bp.valid, device=dev))
+    tau, d = tau.reshape(-1).to(torch.int32), d.reshape(-1)
+    n, d_cap, max_tau = tau.numel(), int(d.max()), int(tau.max())
+    disp = _model(1, layers, seed=41, dev=dev)
+    x, y, _ = _batch(n, d_cap, layers, seed=42, dev=dev)
+    m = (torch.arange(d_cap, device=dev)[None] < d[:, None]).to(torch.float32)
+    # one learner a group of 8 read back: weights one-hot on learner g*8 + 3
+    pick = torch.zeros(n, device=dev)
+    pick[3::8] = 1.0
+    start = [{k_: v.expand((n,) + v.shape[1:]) for k_, v in layer.items()} for layer in disp]
+    whole, _ = ops.train_agg_step(start, x, y, m, tau, pick, LR, max_tau=max_tau,
+                                  groups=n // 8)
+    for c in range(10):
+        sl = slice(c * 1000, (c + 1) * 1000)
+        part, _ = ops.train_agg_step([{k_: v[sl] for k_, v in layer.items()} for layer in start],
+                                     x[sl], y[sl], m[sl], tau[sl], pick[sl], LR,
+                                     max_tau=max_tau, groups=125)
+        for w_layer, p_layer in zip(whole, part):
+            for name in p_layer:
+                assert torch.equal(w_layer[name][c * 125:(c + 1) * 125], p_layer[name])
 
 
 def test_finished_learner_stays_bitwise_untouched(dev):
@@ -1295,3 +1388,64 @@ def test_multimodel_s1_on_the_card_is_the_async_engine(dev):
     for g, w in zip(multi.params[0], single.params):
         for name in w:
             assert torch.equal(g[name], w[name]), name
+
+
+FLEET_LAYERS = [16, 8, 10]
+
+
+def test_fleet_f1_on_the_card_is_run_fused(dev):
+    """One fleet, full participation: the fleet engine's rows, accuracies
+    and parameters are the fused orchestrator's, bitwise, with the same
+    training launches and one more fed_agg launch a round (the merge)."""
+    from repro_torch.core import BatchedProblems
+    from repro_torch.data.pipeline import synthetic_mnist
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine
+    from repro_torch.fed.orchestrator import MELConfig, Orchestrator
+    from repro_torch.fed.simulation import build_spread_problem
+
+    train, test = synthetic_mnist(1200, n_test=200, features=16, seed=0)
+    batch = (torch.from_numpy(test.x).to(dev), torch.from_numpy(test.y).to(dev))
+    prob = build_spread_problem(3, 6.0, total_samples=60)
+    orch = Orchestrator(MELConfig(T=6.0, total_samples=60), prob, mlp.loss,
+                        mlp.init(1, FLEET_LAYERS, device=dev), seed=3)
+    train_step.launches = fed_agg.launches = 0
+    want = orch.run_fused(train, 3, eval_fn=mlp.accuracy, eval_batch=batch)
+    assert (train_step.launches, fed_agg.launches) == (3, 3)
+    eng = FleetEngine(FleetConfig(), BatchedProblems.from_problems([prob]), mlp.loss,
+                      mlp.init(1, FLEET_LAYERS, device=dev), seed=3)
+    train_step.launches = fed_agg.launches = 0
+    got = eng.run(train, 3, eval_fn=mlp.accuracy, eval_batch=batch)
+    assert (train_step.launches, fed_agg.launches) == (3, 6)
+    for rf, ro in zip(got, want):
+        np.testing.assert_array_equal(rf["tau"][0], ro["tau"])
+        np.testing.assert_array_equal(rf["d"][0], ro["d"])
+        assert rf["accuracy"] == ro["accuracy"]
+    for g, w in zip(eng.global_params, orch.params):
+        for name in w:
+            assert torch.equal(g[name], w[name]), name
+
+
+def test_fleet_on_the_card_gives_the_cpu_schedule(dev):
+    """F = 4 at participation 0.5: the card's rows (sampled fleets, tau, d,
+    staleness) are the CPU's, accuracies within 0.01; one training, one
+    grouped fed_agg and one merge launch a round."""
+    from repro_torch.data.pipeline import synthetic_mnist
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+
+    train, test = synthetic_mnist(1200, n_test=200, features=16, seed=0)
+
+    def run(device):
+        eng = FleetEngine(FleetConfig(participation=0.5),
+                          build_fleet_problems(4, 3, T=6.0, total_samples=30, seed=2),
+                          mlp.loss, mlp.init(0, FLEET_LAYERS, device=device), seed=1)
+        batch = (torch.from_numpy(test.x).to(device), torch.from_numpy(test.y).to(device))
+        return eng, eng.run(train, 3, eval_fn=mlp.accuracy, eval_batch=batch)
+
+    cpu, cpu_hist = run("cpu")
+    train_step.launches = fed_agg.launches = 0
+    card, card_hist = run(dev)
+    assert (train_step.launches, fed_agg.launches) == (3, 6)
+    _rows_equal(card_hist, cpu_hist)
+    np.testing.assert_allclose([r["accuracy"] for r in card_hist],
+                               [r["accuracy"] for r in cpu_hist], rtol=0, atol=0.01)
+    np.testing.assert_array_equal(card.pull_version, cpu.pull_version)

@@ -4,16 +4,22 @@ earlier version of the same file, bit for bit and in time, on one card.
 
     python3 tools/compare_train_step.py OLD.cu
 
-OLD.cu is an earlier ``train_step.cu`` whose ``train_cycle_f32`` takes no
-phase plan (the version of one launch a product). Both are built with the
-port's nvcc flags and run on the same inputs: the paper cycle of
-``chip_smoke.py`` phase 3 (K = 10, the ``solve_kkt_sai`` allocation), the
-buffered run's widest flush group and the largest fedasync group of phase
-6b (their CPU-built schedules), and small ragged cases with a finished
-learner and an all-masked shard. Each learner's trained parameters must be
-equal bitwise; the times (CUDA events, the least of three means over 5
-calls) are taken in turns, old, new, new, old. Prints one line a case and
-exits non-zero if any differs.
+OLD.cu is an earlier ``train_step.cu``, in any of its three C interfaces
+(read from its text): one launch a product (no phase plan), the persistent
+launch with a phase plan, or that launch with the step prefix sums of the
+learners' item counts. Both are built with the port's nvcc flags and run
+on the same inputs: the paper cycle of ``chip_smoke.py`` phase 3 (K = 10,
+the ``solve_kkt_sai`` allocation), the buffered run's widest flush group
+and the largest fedasync group of phase 6b (their CPU-built schedules),
+small ragged cases with a finished learner and an all-masked shard, and a
+fleet of fleets (``build_fleet_problems(F, 8)``'s allocation, F = 125 by
+default, 1000 learners of the paper MLP). Each learner's trained
+parameters must be equal bitwise; the times (CUDA events, the least of
+three means over 5 calls; one call for a case of more than 2000 learners)
+are taken in turns, old, new, new, old. Prints one line a case and exits
+non-zero if any differs.
+
+    python3 tools/compare_train_step.py OLD.cu [--fleets F]
 """
 
 from __future__ import annotations
@@ -28,6 +34,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 
+def interface(src: str) -> str:
+    """The C interface of a ``train_step.cu``: "product", "plan" or
+    "prefix" (see the module docstring)."""
+    text = open(src).read()
+    return "prefix" if "int* prefix" in text else "plan" if "const int* plan" in text else "product"
+
+
 def build_old(src: str) -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
@@ -38,13 +51,17 @@ def build_old(src: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.train_cycle_f32.restype = i32
-    lib.train_cycle_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                    ptr, ptr, ctypes.c_float, i32, ptr]
+    kind = interface(src)
+    lib.train_cycle_f32.argtypes = (
+        [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+        + {"product": [], "plan": [ptr], "prefix": [ptr, ptr]}[kind]
+        + [ctypes.c_float, i32] + ([] if kind == "product" else [ptr, i32]) + [ptr])
     return lib
 
 
-def train(lib, new: bool, disp, x, y, m, tau, lr, max_tau):
-    """Each learner's parameters after ``max_tau`` steps (no aggregation)."""
+def train(lib, kind: str, disp, x, y, m, tau, lr, max_tau):
+    """Each learner's parameters after ``max_tau`` steps (no aggregation),
+    through a library of C interface ``kind``."""
     import torch
 
     from repro_torch.kernels import _build, train_step
@@ -63,9 +80,11 @@ def train(lib, new: bool, disp, x, y, m, tau, lr, max_tau):
             (ctypes.c_void_p * n)(*[layer["w"].data_ptr() for layer in work]),
             (ctypes.c_void_p * n)(*[layer["b"].data_ptr() for layer in work]),
             ws.data_ptr(), rows.data_ptr(), inv_den.data_ptr()]
-    args += [counters.data_ptr()] if new else []
+    prefix = torch.empty(max(max_tau, 1) * 4 * (k + 1), dtype=torch.int32, device=x.device)
+    args += [] if kind == "product" else [counters.data_ptr()]
+    args += [prefix.data_ptr()] if kind == "prefix" else []
     args += [float(lr), int(max_tau)]
-    if new:
+    if kind != "product":
         plan = train_step._phase_plan(n)
         args += [train_step._plan_table(plan), len(plan)]
     code = lib.train_cycle_f32(*args, torch.cuda.current_stream().cuda_stream)
@@ -73,8 +92,9 @@ def train(lib, new: bool, disp, x, y, m, tau, lr, max_tau):
     return work
 
 
-def cases(dev):
-    """(name, disp, x, y, m, tau, max_tau) at the shapes chip_smoke.py times."""
+def cases(dev, fleets: int = 125):
+    """(name, disp, x, y, m, tau, max_tau, lr) at the shapes chip_smoke.py
+    times."""
     import numpy as np
     import torch
 
@@ -95,7 +115,8 @@ def cases(dev):
                for a in _stage_shards(shards, int(d.max()), train_set.x.shape[1]))
     init = mlp.init(cs.SEED, device=dev)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
-    yield "paper cycle (phase 3)", _broadcast(init, cs.K), x, y, m, t(tau), int(tau.max())
+    yield ("paper cycle (phase 3)", _broadcast(init, cs.K), x, y, m, t(tau), int(tau.max()),
+           cs.LR)
 
     tx, ty = torch.from_numpy(train_set.x).to(dev), torch.from_numpy(train_set.y).to(dev)
     for mode, extra in cs.ASYNC_MODES.items():
@@ -114,7 +135,7 @@ def cases(dev):
         idx = torch.from_numpy(np.ascontiguousarray(st.idx[0])).to(dev)
         yield (name, _broadcast(init, cs.K), tx[idx], ty[idx],
                torch.from_numpy(np.ascontiguousarray(st.m[0])).to(dev), t(st.tau[0]),
-               max(int(st.tau[0].max()), 1))
+               max(int(st.tau[0].max()), 1), cs.LR)
 
     rng = np.random.default_rng(0)
     for layers, k, d_cap, taus in (([100, 70, 33, 10], 3, 70, [4, 0, 2]),
@@ -127,13 +148,30 @@ def cases(dev):
         y = torch.tensor(rng.integers(0, layers[-1], (k, d_cap)), dtype=torch.int32, device=dev)
         m = torch.tensor(rng.random((k, d_cap)) < 0.8, dtype=torch.float32, device=dev)
         m[1] = 0.0
-        yield f"ragged K = {k}", disp, x, y, m, t(taus), max(taus)
+        yield f"ragged K = {k}", disp, x, y, m, t(taus), max(taus), cs.LR
+
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+
+    eng = FleetEngine(FleetConfig(), build_fleet_problems(fleets, 8), mlp.loss,
+                      mlp.init(cs.SEED, device=dev), seed=cs.SEED)
+    taus, ds = eng.tau.reshape(-1), eng.d.reshape(-1)
+    d_cap = int(ds.max())
+    rows = rng.integers(0, train_set.size, (taus.size, d_cap))
+    x, y = tx[torch.from_numpy(rows).to(dev)], ty[torch.from_numpy(rows).to(dev)]
+    m = torch.tensor(np.arange(d_cap)[None] < ds[:, None], dtype=torch.float32, device=dev)
+    yield (f"fleet of fleets, {taus.size} learners", _broadcast(init, taus.size), x, y, m,
+           t(taus), int(taus.max()), cs.POP_LR)
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    fleets = 125
+    if len(args) == 3 and args[1] == "--fleets":
+        fleets = int(args.pop())
+        args.pop()
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -147,21 +185,23 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
-    old, new = build_old(sys.argv[1]), train_step._lib()
+    old, new = build_old(args[0]), train_step._lib()
+    kinds = {"old": interface(args[0]), "new": "prefix"}
     ok = True
-    for name, disp, x, y, m, tau, max_tau in cases(dev):
-        a = train(old, False, disp, x, y, m, tau, cs.LR, max_tau)
-        b = train(new, True, disp, x, y, m, tau, cs.LR, max_tau)
+    for name, disp, x, y, m, tau, max_tau, lr in cases(dev, fleets):
+        a = train(old, kinds["old"], disp, x, y, m, tau, lr, max_tau)
+        b = train(new, kinds["new"], disp, x, y, m, tau, lr, max_tau)
         torch.cuda.synchronize()
         same = all(torch.equal(la[n], lb[n]) for la, lb in zip(a, b) for n in la)
         diff = max((la[n] - lb[n]).abs().max().item() for la, lb in zip(a, b) for n in la)
         ok &= same
         times = {"old": [], "new": []}
+        repeats, calls = (3, 5) if x.shape[0] <= 2000 else (1, 1)
         for which in ("old", "new", "new", "old"):
             lib = old if which == "old" else new
             times[which].append(min(cs.cuda_ms(lambda: train(
-                lib, which == "new", disp, x, y, m, tau, cs.LR, max_tau), 5)
-                for _ in range(3)))
+                lib, kinds[which], disp, x, y, m, tau, lr, max_tau), calls)
+                for _ in range(repeats)))
         print(f"{name}: K {x.shape[0]}, d_cap {x.shape[1]}, max_tau {max_tau}: "
               f"{'bitwise equal' if same else f'DIFFERENT (max abs {diff:g})'}; ms a call "
               f"old {times['old']}, new {times['new']}")
