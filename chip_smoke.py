@@ -76,7 +76,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
      a. ``flash_attention`` kernel vs its plain version at the prefill
         shapes of Llama-3.2-3B (B 4, S 2048, 24/8 heads, d 128, causal, bf16
         and float32), a ragged S = 1000, and H2O-Danube-1.8B (B 1, S 8192,
-        32/8 heads, d 80, window 4096, bf16), with kernel, plain, bound and
+        32/8 heads, d 80, window 4096, bf16), and Whisper-small's encoder
+        (B 8, 1500 frames, 12/12 heads, d 64, non-causal) and
+        cross-attention (64 queries against 1500 keys, non-causal) and
+        decoder self-attention (B 8, S 64, causal), and InternVL2-76B's
+        prefill (B 4, S 512, 64/8 heads, d 128, causal), bf16 and float32,
+        with kernel, plain, bound and
         ``scaled_dot_product_attention`` times and TFLOP/s; each bf16 case
         also against the float32 kernel on the widened inputs (within one
         bf16 step of the output's scale);
@@ -193,11 +198,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
      d. ``solve_multimodel`` S = 3 on that population in the eager-rounding
         cases, card vs CPU bitwise; a ``kkt_energy`` round on the population
         with joule budgets, held to the CPU's schedule and launches, no
-        dispatch over budget (nor the S = 3 split's sum).
+        dispatch over budget (nor the S = 3 split's sum);
+     e. c's population and rounds over ``launch.mesh.host_mesh()`` in a
+        one-rank NCCL process group (the merge an ``all_reduce``, the
+        solve's rows an ``all_gather``): rows, versions, dispatch, launches
+        and every model bitwise c's engine's; ``mesh_devices`` and
+        ``fleet_axes`` printed (one card: no multi-card time is measured);
+ 14. the audio serving path: ``Model(get_config("whisper-small"))`` at full
+     width and published depth (12 + 12 layers, d 768, 1500 frames, bf16),
+     ``serve.prefill`` of 8 x 64 decoder tokens over the frames and 31
+     greedy decode steps, through the kernel (36 launches in the prefill:
+     one an encoder layer, non-causal, two a decoder layer, causal and
+     cross with Sq != Skv; none in decode), times, idle shares and peak
+     memory, the logits held to the plain attention's; then 2 + 2 layers
+     at full width in float32 from the same seed on the card and on the
+     CPU: logits within 1e-4 of their scale, 4 greedy tokens equal;
+     b. the vlm path: InternVL2-76B at full width (d 8192, 64/8 heads, d_ff
+        28672) with its depth cut to 2 of 80 layers (80 need ~141 GB in
+        bf16), 256 image embeddings ahead of 256 text tokens, batch 4,
+        prefill and 31 greedy decode steps from position 512 (2 launches a
+        prefill, none in decode), held to the plain attention.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12 and 13b-d each set the kernels'
-launch counters to 0 just before the run they check and read them just
-after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14 and 14b each set the
+kernels' launch counters to 0 just before the run they check and read them
+just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -275,13 +299,40 @@ E2E_LAYERS, E2E_STEPS, E2E_TOL = 2, 16, 1e-4
 DENSE_REF_BYTES = 4e9
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
-# phase 8a: name, B, S, heads, kv heads, d, dtype, causal, window, timed
-# calls; the first is the serve's prefill and gives the kernels line its row
+# phase 14: the Whisper-small serve at full width and published depth (12 +
+# 12 layers, 1500 frames), a batch of 64-token decoder prompts
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = "whisper-small", 8, 64, 32
+# its float32 gate, card vs CPU: 2 + 2 layers at full width (the reduced
+# config's head dim, 32, is not one the kernel takes), the prefill's logits
+# held like phase 8c's and this many greedy tokens equal
+WHISPER_E2E_LAYERS, WHISPER_E2E_BATCH, WHISPER_E2E_STEPS = 2, 2, 4
+# phase 14b: InternVL2-76B's vlm path at full width, its depth cut to 2 of
+# 80 layers (80 need ~150 GB in bf16, the card holds 80), 256 image tokens
+# ahead of a 256-token text prompt
+VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN = "internvl2-76b", 2, 4, 256, 32
+VLM_IMAGE_TOKENS = 256  # the config's num_image_tokens; 14b checks it
+# phase 8a: name, B, S (of the queries), heads, kv heads, d, dtype, causal,
+# window, timed calls, and Skv where it is not S; the first is the dense
+# serve's prefill and gives the kernels line its row
 FLASH_CASES = [
     ("llama3.2-3b prefill", SERVE_BATCH, SERVE_PROMPT, 24, 8, 128, "bfloat16", True, None, 10),
     ("llama3.2-3b prefill", SERVE_BATCH, SERVE_PROMPT, 24, 8, 128, "float32", True, None, 5),
     ("ragged", SERVE_BATCH, 1000, 24, 8, 128, "bfloat16", True, None, 10),
     ("h2o-danube-1.8b prefill", 1, 8192, 32, 8, 80, "bfloat16", True, 4096, 5),
+    ("whisper-small encoder", WHISPER_BATCH, 1500, 12, 12, 64, "bfloat16", False, None, 10),
+    ("whisper-small encoder", WHISPER_BATCH, 1500, 12, 12, 64, "float32", False, None, 5),
+    ("whisper-small cross", WHISPER_BATCH, WHISPER_PROMPT, 12, 12, 64, "bfloat16", False, None,
+     10, 1500),
+    ("whisper-small cross", WHISPER_BATCH, WHISPER_PROMPT, 12, 12, 64, "float32", False, None,
+     10, 1500),
+    ("whisper-small decoder self", WHISPER_BATCH, WHISPER_PROMPT, 12, 12, 64, "bfloat16", True,
+     None, 10),
+    ("whisper-small decoder self", WHISPER_BATCH, WHISPER_PROMPT, 12, 12, 64, "float32", True,
+     None, 10),
+    ("internvl2-76b prefill", VLM_BATCH, VLM_IMAGE_TOKENS + VLM_PROMPT, 64, 8, 128, "bfloat16",
+     True, None, 10),
+    ("internvl2-76b prefill", VLM_BATCH, VLM_IMAGE_TOKENS + VLM_PROMPT, 64, 8, 128, "float32",
+     True, None, 10),
 ]
 # phase 9: the RWKV-6 serve at the dense serve's batch and lengths. The WKV
 # kernel and the step loop take every product in float32 from the same
@@ -733,12 +784,14 @@ def main() -> int:
     wf = realloc_phase(dev, train, test)
     async_rows = async_phase(dev, train, test, row_flops=row_flops)
     energy_row = energy_phase(dev, train, test)
-    attention_row = serve_phase(dev)
+    attention_row, whisper_case = serve_phase(dev)
     wkv_row = rwkv_phase(dev)
     mamba_row = jamba_phase(dev)
     swiglu_row = swiglu_phase(dev)
     multimodel_phase(dev, train, test)
     fleet_rows = fleet_phase(dev, train, test)
+    whisper_row = whisper_phase(dev, whisper_case)
+    vlm_phase(dev)
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -761,6 +814,7 @@ def main() -> int:
         mamba_row,
         swiglu_row,
         *fleet_rows,
+        whisper_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1652,10 +1706,11 @@ def serve_breakdown(arch, model, params, cache, tokens, tok, t0, t1, t2, gen) ->
     """Device time by kernel (``torch.profiler``) over one more prefill and
     one more decode step (at the cache's last position), beside the wall
     time of the timed prefill (t0 to t1) and decode step (t1 to t2, over
-    ``gen - 1`` steps): the device's idle share of each."""
+    ``gen - 1`` steps): the device's idle share of each. ``tokens`` is the
+    prompt's tokens or the family's input dict (``serve.prompt_batch``)."""
     from repro_torch.launch import serve
 
-    s = tokens.shape[1]
+    s = serve.start_position(model.cfg, tokens)
     for what, fn, wall_ms in (
             ("prefill", lambda: serve.prefill(model, params, tokens, s + gen),
              1e3 * (t1 - t0)),
@@ -1700,10 +1755,11 @@ def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict:
+def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters, skv=None) -> dict:
     """Phase 8a, one case: the kernel against its plain version (in bf16
     also against the float32 kernel), timed with its plain version, its
-    bound and ``scaled_dot_product_attention``."""
+    bound and ``scaled_dot_product_attention``. ``s`` queries attend to
+    ``skv`` keys (default ``s``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1711,11 +1767,12 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
     from repro_torch.models import layers
 
     dtype = getattr(torch, dtype)
+    skv = s if skv is None else skv
     gen = torch.Generator(device=dev).manual_seed(SEED + s + d)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+               for shape in ((b, s, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
     kw = dict(causal=causal, window=window)
-    score_bytes = 4 * b * s * h * s
+    score_bytes = 4 * b * s * h * skv
     if score_bytes <= DENSE_REF_BYTES:
         plain_name, plain = "dense ref.flash_attention_ref", ref.flash_attention_ref
     else:
@@ -1751,6 +1808,7 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)
     else:
+        require(skv == s, f"{name}: a window case needs Sq = Skv")
         pos = torch.arange(s, device=dev)
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
         kt, vt = (t.repeat_interleave(h // kvh, dim=1) for t in (kt, vt))
@@ -1759,7 +1817,7 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
     library_ms = cuda_ms(library, iters)
-    pairs = attention_pairs(s, s, causal, window)
+    pairs = attention_pairs(s, skv, causal, window)
     flops = 4 * b * h * d * pairs
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
@@ -1767,7 +1825,8 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
-    print(f"flash_attention {name}: B {b}, S {s}, {h}/{kvh} heads, d {d}, "
+    print(f"flash_attention {name}: B {b}, S {s}"
+          f"{'' if skv == s else f' against Skv {skv}'}, {h}/{kvh} heads, d {d}, "
           f"{str(dtype).removeprefix('torch.')}, causal {causal}, window {window}: "
           f"max_abs_err {err:.3g} vs {plain_name} (<= {tol} x {scale:.3g}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max_abs_err "
@@ -1779,8 +1838,9 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters) -> dict
     return row
 
 
-def serve_phase(dev) -> dict:
-    """Phase 8; returns the attention kernel's entry of the kernels line."""
+def serve_phase(dev) -> tuple[dict, dict]:
+    """Phase 8; returns the attention kernel's entry of the kernels line and
+    phase 8a's row of the bf16 Whisper encoder case."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1790,6 +1850,7 @@ def serve_phase(dev) -> dict:
     # -- 8a. the kernel against its plain version at the path's shapes -------
     rows = [flash_case(dev, *case) for case in FLASH_CASES]
     main_case = rows[0]
+    whisper_case = rows[[case[0] for case in FLASH_CASES].index("whisper-small encoder")]
     torch.cuda.empty_cache()
 
     # -- 8b. the serve at full width -------------------------------------------
@@ -1897,7 +1958,7 @@ def serve_phase(dev) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:91",
-            "launches": after_decode["flash_attention"], **main_case}
+            "launches": after_decode["flash_attention"], **main_case}, whisper_case
 
 
 @contextlib.contextmanager
@@ -3147,6 +3208,8 @@ def fleet_phase(dev, train, test) -> list[dict]:
         check_fleet(eng, hist, cpu, f"13c {label}")
         runs[label] = {"wall": wall, "solve": sum(solve_s), "hist": hist,
                        "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if label == "warm":
+            warm_eng = eng
         del eng
         if label == "first":
             merge_err, n_merged = merge_error(merges, len(mats) * 2)
@@ -3180,6 +3243,9 @@ def fleet_phase(dev, train, test) -> list[dict]:
     for name, ms, calls in split[:8]:
         print(f"  {ms:9.3f} ms {calls:6d} x  {name[:90]}")
     fleet_counts = counts
+    fleet_mesh_phase(dev, train, (ex, ey), cfg, bp, warm_eng, warm["hist"], want_counts)
+    del warm_eng
+    torch.cuda.empty_cache()
 
     # F = 64: the kernels' models and accuracy against the plain path's
     small = pop_problems(POP_SMALL_F)
@@ -3271,6 +3337,253 @@ def fleet_phase(dev, train, test) -> list[dict]:
          "plain_ms": fa_plain_ms, "bound_ms": fa_bound_ms, "bound_by": "bytes",
          "library_ms": fa_lib_ms},
     ]
+
+
+def fleet_mesh_phase(dev, train, eval_batch, cfg, bp, want_eng, want_hist,
+                     want_counts) -> None:
+    """Phase 13e: phase 13c's population and rounds over ``host_mesh()`` in a
+    one-rank NCCL process group (no network: the group meets through a
+    ``HashStore``): the merge's ``all_reduce`` and
+    the solve's ``all_gather`` run, and every row, version, dispatch and
+    model must be 13c's warm engine's (``want_eng``) bit for bit, with its
+    launches (``want_counts``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fed.fleet import FleetEngine
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models import mlp
+
+    # NCCL binds the group to one card, named with its index
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = host_mesh()
+        eng = FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, device=dev), seed=SEED, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = eng.run(train, POP_ROUNDS, eval_fn=mlp.accuracy, eval_batch=eval_batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        try:
+            FleetEngine(cfg, bp, mlp.loss, mlp.init(SEED, device="cpu"), seed=SEED)
+            refused = False
+        except ValueError as e:
+            refused = "cannot move" in str(e)
+    finally:
+        dist.destroy_process_group()
+    require(refused, "13e: a CPU engine on the NCCL group's default mesh was not refused")
+    require(mesh.device_mesh is not None, "13e: host_mesh() built no DeviceMesh")
+    require(counts == want_counts, f"13e: launches {counts}, not {want_counts}")
+    check_rows(hist, want_hist, "13e")
+    require(eng.global_version == want_eng.global_version
+            and all(np.array_equal(getattr(eng, key), getattr(want_eng, key))
+                    for key in ("pull_version", "tau", "d")),
+            "13e: versions or the next dispatch differ from 13c's")
+    for tree in ("global_params", "fleet_params"):
+        require(all(torch.equal(a[k], b[k]) for a, b in zip(getattr(eng, tree),
+                                                            getattr(want_eng, tree))
+                    for k in b), f"13e: the mesh engine's {tree} differ from 13c's")
+    print(f"fleet 13e F={POP_F} K={POP_K} over host_mesh() in a one-rank nccl group: "
+          f"mesh_devices {eng.mesh.size}, fleet_axes {list(eng.fleet_axes)}; rows, "
+          f"accuracies, versions, dispatch and every model bitwise 13c's; launches {counts}; "
+          f"a CPU engine on that mesh refused; {1e3 * wall / POP_ROUNDS:.1f} ms a round "
+          "(host clock, warm)")
+
+
+def whisper_phase(dev, enc_row: dict) -> dict:
+    """Phase 14: the Whisper-small serve at full width and published depth,
+    bf16, with the attention kernel non-causal over the frames (encoder) and
+    with Sq != Skv (cross-attention), held to the plain attention; then its
+    float32 gate, card against CPU. Returns the Whisper path's entry of the
+    kernels line (phase 8a's bf16 encoder case, ``enc_row``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    b, s, gen = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = serve.prompt_batch(cfg, b, s, SEED, dev)
+    per_prefill = cfg.num_encoder_layers + 2 * cfg.num_layers
+    with torch.inference_mode():
+        serve.prefill(model, params, batch, s + gen)        # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, tok = serve.prefill(model, params, batch, s + gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = read_launches()
+        rest, _ = serve.decode(model, params, cache, tok, s, gen - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after_decode = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        tokens_out = torch.cat([tok, rest], dim=1)
+        nothing = {name: 0 for name in after_decode}
+        require(after_prefill == {**nothing, "flash_attention": per_prefill},
+                f"14: the prefill's kernel launches were {after_prefill}, want {per_prefill} "
+                "flash_attention (one an encoder layer, two a decoder layer) and no other")
+        require(after_decode == after_prefill, f"14: decode launched kernels: {after_prefill} "
+                f"after the prefill, {after_decode} after decode")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "14: the prefill's logits are not "
+                f"finite of shape ({b}, 1, {cfg.vocab_size})")
+        require(tuple(tokens_out.shape) == (b, gen) and int(tokens_out.min()) >= 0
+                and int(tokens_out.max()) < cfg.vocab_size, "14: generated tokens out of range")
+        require(all(bool(torch.isfinite(t).all()) for part in cache.values()
+                    for t in part.values()), "14: the caches are not finite")
+        serve_breakdown(WHISPER_ARCH, model, params, cache, batch, tok, t0, t1, t2, gen)
+        with plain_attention():
+            p_logits, p_cache, p_tok = serve.prefill(model, params, batch, s + gen)
+            p_rest, _ = serve.decode(model, params, p_cache, p_tok, s, gen - 1)
+        del p_cache
+        err = (logits.float() - p_logits.float()).abs().max().item()
+        scale = p_logits.float().abs().max().item()
+        require(err <= SERVE_BF16_TOL * scale, f"14: the bf16 serve's logits differ from the "
+                f"plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
+    agree = float((tokens_out == torch.cat([p_tok, p_rest], dim=1)).float().mean().item())
+    n_params = model.param_count()
+    del cache, params, model
+    torch.cuda.empty_cache()
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
+    print(f"serve {WHISPER_ARCH} ({n_params} params, {cfg.param_dtype}, "
+          f"{cfg.num_encoder_layers} + {cfg.num_layers} layers, {cfg.encoder_seq} frames): "
+          f"init {init_s:.1f} s; prefill "
+          f"{b}x{s} {prefill_ms:.1f} ms; decode {gen - 1} steps {decode_ms:.2f} ms a step "
+          f"({b * 1e3 / decode_ms:.1f} tok/s); peak memory {peak_gb:.2f} GB; launches prefill "
+          f"{after_prefill['flash_attention']}, decode "
+          f"{after_decode['flash_attention'] - after_prefill['flash_attention']}; "
+          f"last-position logits vs plain attention max_abs_err {err:.3g}, {err / scale:.3g} "
+          f"of their scale {scale:.3g} (<= {SERVE_BF16_TOL}); greedy agreement with plain "
+          f"{agree:.3f}; sample {tokens_out[0, :8].tolist()}")
+
+    # -- 14, float32 gate: the same seed on the card and on the CPU ------------
+    cfg32 = dataclasses.replace(cfg, num_layers=WHISPER_E2E_LAYERS,
+                                num_encoder_layers=WHISPER_E2E_LAYERS,
+                                param_dtype="float32", compute_dtype="float32")
+    steps = WHISPER_E2E_STEPS
+    runs = {}
+    for device in ("cpu", dev):
+        m32 = Model(cfg32, device=device)
+        p32 = m32.init(SEED)
+        bt = serve.prompt_batch(cfg32, WHISPER_E2E_BATCH, s, SEED, device)
+        reset_launches()
+        with torch.inference_mode():
+            lg, c32, t = serve.prefill(m32, p32, bt, s + steps)
+            more, _ = serve.decode(m32, p32, c32, t, s, steps - 1)
+        runs[str(device)] = (lg.float().cpu(), torch.cat([t, more], dim=1).cpu(),
+                             read_launches()["flash_attention"])
+        del m32, p32, c32
+    (cpu_l, cpu_t, _), (card_l, card_t, card_n) = runs["cpu"], runs[str(dev)]
+    torch.cuda.empty_cache()
+    want_n = WHISPER_E2E_LAYERS + 2 * WHISPER_E2E_LAYERS
+    require(card_n == want_n, f"14 float32: {card_n} flash_attention launches, not {want_n}")
+    e2e_err = (card_l - cpu_l).abs().max().item() / cpu_l.abs().max().item()
+    require(e2e_err <= E2E_TOL, f"14 float32: the card's logits differ from the CPU's by "
+            f"{e2e_err:g} of their scale > {E2E_TOL}")
+    require(torch.equal(card_t, cpu_t), f"14 float32: greedy tokens differ from the CPU's: "
+            f"{card_t.tolist()} vs {cpu_t.tolist()}")
+    print(f"float32 {WHISPER_ARCH} at full width, {WHISPER_E2E_LAYERS} + {WHISPER_E2E_LAYERS} "
+          f"layers, {WHISPER_E2E_BATCH}x{s}, card vs CPU: prefill logits max relative error "
+          f"{e2e_err:.3g} (<= {E2E_TOL}), {steps} greedy tokens equal; {card_n} kernel "
+          f"launches; phase 14 {time.perf_counter() - t_phase:.1f} s")
+    return {"name": f"flash_attention ({WHISPER_ARCH} encoder)", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:91",
+            "launches": after_decode["flash_attention"], **enc_row}
+
+
+def vlm_phase(dev) -> None:
+    """Phase 14b: InternVL2-76B's vlm path at full width, its depth cut to
+    VLM_LAYERS: image embeddings ahead of a text prompt, a bf16 prefill
+    and greedy decode from position N_img + S_text, held to the plain
+    attention."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    b, s, gen = VLM_BATCH, VLM_PROMPT, VLM_GEN
+    require(cfg.num_image_tokens == VLM_IMAGE_TOKENS,
+            f"14b: {VLM_ARCH} has {cfg.num_image_tokens} image tokens, phase 8a checks "
+            f"{VLM_IMAGE_TOKENS}")
+    model = Model(cfg, device=dev)
+    print(f"serve {VLM_ARCH} vlm path: d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, d_ff {cfg.d_ff}, {cfg.num_image_tokens} image tokens ahead of {s} text "
+          f"tokens; depth cut from {full.num_layers} to {cfg.num_layers} layers ({VLM_ARCH} "
+          f"holds {Model(full, device='cpu').param_count()} params, ~"
+          f"{2 * Model(full, device='cpu').param_count() / 1e9:.0f} GB in bf16; the card 80)")
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = serve.prompt_batch(cfg, b, s, SEED, dev)
+    start = serve.start_position(cfg, batch)
+    with torch.inference_mode():
+        serve.prefill(model, params, batch, start + gen)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, tok = serve.prefill(model, params, batch, start + gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = read_launches()
+        rest, _ = serve.decode(model, params, cache, tok, start, gen - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after_decode = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        tokens_out = torch.cat([tok, rest], dim=1)
+        nothing = {name: 0 for name in after_decode}
+        require(after_prefill == {**nothing, "flash_attention": cfg.num_layers},
+                f"14b: the prefill's kernel launches were {after_prefill}, want "
+                f"{cfg.num_layers} flash_attention and no other")
+        require(after_decode == after_prefill, f"14b: decode launched kernels: "
+                f"{after_prefill} after the prefill, {after_decode} after decode")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "14b: the prefill's logits are not "
+                f"finite of shape ({b}, 1, {cfg.vocab_size})")
+        require(tuple(tokens_out.shape) == (b, gen) and int(tokens_out.min()) >= 0
+                and int(tokens_out.max()) < cfg.vocab_size, "14b: tokens out of range")
+        serve_breakdown(VLM_ARCH, model, params, cache, batch, tok, t0, t1, t2, gen)
+        with plain_attention():
+            p_logits, p_cache, p_tok = serve.prefill(model, params, batch, start + gen)
+        del p_cache
+        err = (logits.float() - p_logits.float()).abs().max().item()
+        scale = p_logits.float().abs().max().item()
+        require(err <= SERVE_BF16_TOL * scale, f"14b: the bf16 serve's logits differ from "
+                f"the plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
+    first = float((tok == p_tok).float().mean().item())
+    n_params = model.param_count()
+    del cache, params, model
+    torch.cuda.empty_cache()
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
+    print(f"serve {VLM_ARCH} ({n_params} params, {cfg.param_dtype}, {cfg.num_layers} layers): "
+          f"init {init_s:.1f} s; prefill {b}x({cfg.num_image_tokens}+{s}) {prefill_ms:.1f} ms; "
+          f"decode {gen - 1} steps from position {start} {decode_ms:.2f} ms a step "
+          f"({b * 1e3 / decode_ms:.1f} tok/s); peak memory {peak_gb:.2f} GB; launches prefill "
+          f"{after_prefill['flash_attention']}, decode 0; last-position logits vs plain "
+          f"attention max_abs_err {err:.3g}, {err / scale:.3g} of their scale {scale:.3g} "
+          f"(<= {SERVE_BF16_TOL}); first token agreement {first:.2f}; sample "
+          f"{tokens_out[0, :8].tolist()}; phase 14b {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

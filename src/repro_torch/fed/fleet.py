@@ -3,38 +3,53 @@
 Everything below this module simulates ONE edge fleet of K learners. This
 is the population-scale layer: F fleets of K learners, as an (F, K)
 ``BatchedProblems`` population, (F K, d_cap, features) staged samples and
-a parameter set per fleet with a leading F axis. On one device the fleet
-axis is a batch axis, and a global round is:
+a parameter set per fleet with a leading F axis. The fleet axis is split
+over a mesh of ranks (``launch.mesh``, ``sharding.rules.FLEET_RULES``):
+F is padded to a multiple of the mesh's size with all-invalid fleets, and
+each rank holds and trains its block of F_pad / n fleets. A global round:
 
   1. every fleet runs its paper-scheme cycle: its K learners train from
      the fleet's parameters for their tau steps and the fleet server
-     aggregates them, staleness-weighted. All F K learners go through ONE
-     ``kernels.ops.train_agg_step`` call grouped by fleet: on the card one
-     training-kernel launch and one grouped ``fed_agg`` launch, on the CPU
-     their plain versions;
+     aggregates them, staleness-weighted. All of a rank's fleets go through
+     ONE ``kernels.ops.train_agg_step`` call grouped by fleet: on the card
+     one training-kernel launch and one grouped ``fed_agg`` launch, on the
+     CPU their plain versions. A loss other than ``mlp.loss`` trains on
+     the CPU only, through the plain autograd round
+     (``orchestrator.local_train_stacked`` and each fleet's weighted sum),
+     as the reference's unfused round does; on the card it is refused;
   2. the global server merges the round's SAMPLED fleets (FedAST-style
      partial participation): each sampled fleet's model is weighted by its
      data volume times the version-staleness discount
      ``staleness_factor(g - pull_version)``, normalised, and mixed into the
-     global model at ``server_mix`` (1 selects the merged model). The merge
-     is one ``ops.fed_agg_leaves`` call over the F axis;
+     global model at ``server_mix`` (1 selects the merged model). Each rank
+     sums its own fleets in one ``ops.fed_agg_leaves`` call, and one
+     ``all_reduce`` over the mesh axes the fleet axis is split over adds
+     the ranks' sums (the reference's ``psum``);
   3. the next dispatch is solved for the sampled fleets with ONE
      ``batched_policy`` call on the sampling-masked (F, K) problem
      (``apply_sampling_mask``: a sampled-out fleet is exactly an all-offline
      fleet is exactly a row of padded slots), while unsampled fleets keep
-     training on their stale dispatch. On the card every bisection step of
-     the solve launches the water-filling kernel.
+     training on their stale dispatch. The solve runs through
+     ``compat.shard_map``: each rank solves its block of rows (a row's
+     bisection stops on its own test, so its (tau, d) does not depend on
+     the rows beside it) and the rows are gathered. On the card every
+     bisection step launches the water-filling kernel.
 
-Exactness: with F = 1 and full participation every stage degenerates to
-the single-fleet path (one group, a merge weight of exactly 1.0,
-``server_mix = 1`` selecting the merged model), so the engine reproduces
-``Orchestrator.run_fused`` record for record and parameter for parameter.
-Fleet f's partitioner seed is drawn from the engine rng in fleet order, so
-fleet 0 draws the orchestrator's shards.
+The schedule (sampling, staleness, weights, (tau, d)) is host NumPy and
+whole on every rank, so every rank writes the same records. Fleet f's
+partitioner seed is drawn from the engine rng in fleet order on every
+rank, so fleet f draws the same shards whatever the mesh.
 
-The engine runs on the device that holds ``init_params``. The reference's
-mesh (a fleet axis split over devices by ``shard_map``) has no counterpart
-yet: one device holds every fleet, and ``_pad_problems`` pads nothing.
+Exactness: with F = 1, full participation and a one-rank mesh every stage
+degenerates to the single-fleet path (one group, a merge weight of exactly
+1.0, ``server_mix = 1`` selecting the merged model), so the engine
+reproduces ``Orchestrator.run_fused`` record for record and parameter for
+parameter. On n ranks the records are the one-rank engine's bit for bit;
+the models differ by the order of the merge's sums.
+
+The engine runs on the device that holds ``init_params``; the mesh's
+collectives run on the process group's backend (NCCL on the card, gloo on
+the CPU).
 """
 
 from __future__ import annotations
@@ -54,12 +69,16 @@ from repro_torch.core import (
     fedavg_weights,
     staleness_weights,
 )
+from repro_torch import compat
+from repro_torch.compat import PartitionSpec as P
 from repro_torch.core.solver_batched import POLICIES, cross_model_weights
 from repro_torch.core.staleness import STALENESS_FNS, staleness_factor
 from repro_torch.data.pipeline import Dataset, FederatedPartitioner
-from repro_torch.fed.orchestrator import ENERGY_SCHEMES
+from repro_torch.fed.orchestrator import ENERGY_SCHEMES, local_train_stacked
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.models import mlp
+from repro_torch.sharding.rules import fleet_partition_axes
 
 __all__ = ["FleetConfig", "FleetEngine", "build_fleet_problems"]
 
@@ -138,40 +157,68 @@ def build_fleet_problems(
     )
 
 
+
+
+def _fleet_spec(axes: tuple[str, ...], extra: int = 0) -> P:
+    """The spec of a tensor whose LEADING dimension is the fleet axis, split
+    over ``axes``, and whose ``extra`` other dimensions are whole."""
+    lead = None if not axes else (axes[0] if len(axes) == 1 else tuple(axes))
+    return P(lead, *([None] * extra))
+
+
 class FleetEngine:
     """F fleets x K learners, two-tier servers, on the device that holds
-    ``init_params`` (a list of ``{"w", "b"}`` leaves of ``mlp``).
+    ``init_params`` (a list of ``{"w", "b"}`` leaves of ``mlp``), over
+    ``mesh`` (default ``launch.mesh.host_mesh()``: the (2, 4) ``"test"``
+    mesh in a process group of 8 ranks or more, else one rank).
 
     ``problems`` is the (F, K) ``BatchedProblems`` population (build one
-    with ``build_fleet_problems``). Training goes through the MLP's
-    train+aggregate kernel, so ``loss_fn`` must be ``mlp.loss``."""
+    with ``build_fleet_problems``); F is padded up to a multiple of the
+    mesh's size with all-invalid fleets (never sampled, zero weight, zero
+    work: the padded-slot semantics lifted one axis up). ``tau``, ``d``,
+    ``pull_version`` and the records cover every fleet on every rank;
+    ``fleet_params`` holds this rank's block of fleets only. ``loss_fn`` is
+    ``mlp.loss`` (the train+aggregate kernel) or, on the CPU, any
+    ``(params, batch) -> scalar`` of the MLP's parameters."""
 
     def __init__(self, cfg: FleetConfig, problems: BatchedProblems, loss_fn,
-                 init_params, *, seed: int = 0):
-        if loss_fn is not mlp.loss:
-            raise ValueError("the fleet engine trains mlp.loss only (through "
-                             "ops.train_agg_step)")
+                 init_params, *, seed: int = 0, mesh=None):
+        self.device = init_params[0]["w"].device
+        if loss_fn is not mlp.loss and self.device.type != "cpu":
+            raise ValueError("on the card the fleet engine trains mlp.loss only (through "
+                             "ops.train_agg_step); another loss trains on the CPU")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.global_params = init_params
-        self.device = init_params[0]["w"].device
         self.seed = int(seed)
         self.rng = np.random.default_rng(seed)
+        self.mesh = host_mesh() if mesh is None else mesh
+        if self.mesh.device_mesh is not None and self.mesh.device_type != self.device.type:
+            raise ValueError(f"a {self.mesh.device_type} mesh cannot move the engine's "
+                             f"{self.device.type} tensors")
 
         self.num_fleets = problems.num_problems
-        self.problems = problems
+        n_dev = self.mesh.size
+        f_pad = -(-self.num_fleets // n_dev) * n_dev
+        self.problems = self._pad_problems(problems, f_pad)
+        self.fleet_axes = fleet_partition_axes(f_pad, self.mesh)
+        self._real = np.zeros(f_pad, bool)
+        self._real[: self.num_fleets] = True
+        index, count = self.mesh.block(self.fleet_axes)
+        size = f_pad // count
+        self._block = slice(index * size, (index + 1) * size)
         self._args = self._solve_args()
         self._energy = self._energy_args()
 
         self.global_version = 0
-        self.pull_version = np.zeros(self.num_fleets, np.int64)
+        self.pull_version = np.zeros(f_pad, np.int64)
         self.rounds_run = 0
-        every = np.ones(self.num_fleets, bool)
-        self.tau, self.d = self._solve(every)
-        self._check_feasible(every, self._last_feasible, "initial dispatch")
-        # every fleet starts from the global model (version-0 dispatch)
+        self.tau, self.d = self._solve(self._real)
+        self._check_feasible(self._real, self._last_feasible, "initial dispatch")
+        # every fleet of this rank's block starts from the global model
+        # (version-0 dispatch)
         self.fleet_params = [
-            {n: leaf[None].expand((self.num_fleets,) + leaf.shape) for n, leaf in layer.items()}
+            {n: leaf[None].expand((size,) + leaf.shape) for n, leaf in layer.items()}
             for layer in init_params
         ]
 
@@ -179,8 +226,7 @@ class FleetEngine:
     def _pad_problems(bp: BatchedProblems, f_pad: int) -> BatchedProblems:
         """``bp`` padded with all-invalid fleets up to ``f_pad`` (never
         sampled, zero weight, zero work: the padded-slot semantics lifted
-        one axis up), as the reference pads F to a multiple of its mesh's
-        devices; one device needs no padding."""
+        one axis up), so that the fleet axis splits evenly over the mesh."""
         f = bp.num_problems
         if f == f_pad:
             return bp
@@ -229,21 +275,31 @@ class FleetEngine:
         return tuple(torch.as_tensor(np.array(np.broadcast_to(r, (f, k)), np.float64),
                                      device=self.device) for r in rows)
 
-    def _policy_solve(self, c2, c1, c0, T, total, lo, hi, valid, sampled, en):
-        """ONE ``batched_policy`` call on the sampling-masked rows; returns
-        host (tau, d, feasible)."""
+    def _policy_solve(self, args, sampled, en, axes):
+        """ONE ``batched_policy`` call on the sampling-masked rows, each
+        rank solving its block of them (split over the mesh axes ``axes``)
+        and the rows gathered; returns host (tau, d, feasible)."""
         policy = batched_policy(self.cfg.scheme)
-        tot_m, lo_m, hi_m, valid_m = apply_sampling_mask(
-            total, lo, hi, valid, torch.as_tensor(np.asarray(sampled, bool), device=self.device))
-        extra = (en,) if en else ()
-        tau, d, feas = policy(c2, c1, c0, T, tot_m, lo_m, hi_m, valid_m, *extra)
+
+        def body(c2, c1, c0, T, total, lo, hi, valid, sampled, *en):
+            tot_m, lo_m, hi_m, valid_m = apply_sampling_mask(total, lo, hi, valid, sampled)
+            extra = (en,) if en else ()
+            return policy(c2, c1, c0, T, tot_m, lo_m, hi_m, valid_m, *extra)
+
+        row, vec = _fleet_spec(axes, 1), _fleet_spec(axes)
+        tau, d, feas = compat.shard_map(
+            body, mesh=self.mesh,
+            in_specs=(row, row, row, vec, vec, row, row, row, vec) + (row,) * len(en),
+            out_specs=(row, row, vec),
+        )(*args, torch.as_tensor(np.asarray(sampled, bool), device=self.device), *en)
         return (tau.cpu().numpy().astype(np.int64), d.cpu().numpy().astype(np.int64),
                 feas.cpu().numpy().astype(bool))
 
     def _solve(self, sampled: np.ndarray):
         """(tau, d) int64 host arrays for the sampled fleets (zeros in the
-        rest), one batched policy call."""
-        tau, d, self._last_feasible = self._policy_solve(*self._args, sampled, self._energy)
+        rest), one batched policy call over the mesh."""
+        tau, d, self._last_feasible = self._policy_solve(self._args, sampled, self._energy,
+                                                         self.fleet_axes)
         return tau, d
 
     def solve_multimodel(self, deficits, *, split: str = "deficit",
@@ -257,18 +313,18 @@ class FleetEngine:
         splitting every fleet's deadline ``T_f`` (and the joule budgets,
         for the energy-aware schemes), each model's sample budget is
         ``round(w_s * total_f)``, and cells whose share cannot cover
-        ``c0 + c1 d_lo`` at tau = 0 degrade to padded slots. The S x F
-        problems are flattened model-major to (S F, K) and solved with ONE
-        batched policy call. The reference computes this split outside a
-        jit, each operation rounded on its own, and so does this one: the
-        floored share ``(1 - S floor) p + floor`` and the degrade test's
-        ``c0 + c1 d_lo`` round twice here, where ``multimodel_policy`` (a
-        jit in the reference) rounds them once.
+        ``c0 + c1 d_lo`` at tau = 0 degrade to padded slots. The S x F_pad
+        problems are flattened model-major to (S F_pad, K) and solved with
+        ONE batched policy call over the mesh (``fleet_partition_axes`` of
+        S F_pad). The reference computes this split outside a jit, each
+        operation rounded on its own, and so does this one: the floored
+        share ``(1 - S floor) p + floor`` and the degrade test's ``c0 + c1
+        d_lo`` round twice here, where ``multimodel_policy`` (a jit in the
+        reference) rounds them once.
 
-        Returns ``(tau, d, w)`` with tau, d (S, F, K) int64. S = 1 is
+        Returns ``(tau, d, w)`` with tau, d (S, F_pad, K) int64. S = 1 is
         ``_solve``'s call, bitwise."""
-        sampled = (np.ones(self.num_fleets, bool) if sampled is None
-                   else np.asarray(sampled, bool))
+        sampled = self._real if sampled is None else np.asarray(sampled, bool)
         deficits = np.asarray(deficits, np.float64)
         s = int(deficits.shape[0])
         if s == 1:
@@ -289,15 +345,16 @@ class FleetEngine:
         if en:
             e2, e1, e0, eb = (tile(e) for e in en)
             en = (e2, e1, e0, torch.where(torch.isinf(eb), eb, w_f[:, None] * eb))
-        tau, d, feas = self._policy_solve(c2_t, c1_t, c0_t, T_s, total_s, lo_t, hi_t,
-                                          valid_t, np.tile(sampled, s), en)
+        tau, d, feas = self._policy_solve(
+            (c2_t, c1_t, c0_t, T_s, total_s, lo_t, hi_t, valid_t), np.tile(sampled, s), en,
+            fleet_partition_axes(s * f, self.mesh))
         for si in range(s):
             self._check_feasible(sampled, feas.reshape(s, f)[si],
                                  f"multimodel solve, model {si}")
         return tau.reshape(s, f, k), d.reshape(s, f, k), w.numpy()
 
     def _check_feasible(self, sampled, feas, label: str):
-        bad = np.asarray(sampled, bool) & ~np.asarray(feas, bool)
+        bad = self._real & np.asarray(sampled, bool) & ~np.asarray(feas, bool)
         if bad.any():
             raise ValueError(
                 "infeasible: even with tau=0 the deadline T cannot absorb "
@@ -307,9 +364,10 @@ class FleetEngine:
     # -- per-round staging --------------------------------------------------
     def _sample_mask(self, r: int) -> np.ndarray:
         f = self.num_fleets
+        mask = np.zeros(self._real.size, bool)
         if self.cfg.participation >= 1.0:
-            return np.ones(f, bool)
-        mask = np.zeros(f, bool)
+            mask[:f] = True
+            return mask
         n = max(1, int(round(self.cfg.participation * f)))
         rng = np.random.default_rng(
             np.random.SeedSequence((self.seed, _SAMPLE_STREAM, r))
@@ -318,29 +376,73 @@ class FleetEngine:
         return mask
 
     def _stage(self, parts, n_train: int, d_cap: int) -> np.ndarray:
-        """(F, K, d_cap) row indices into the training set for this round's
-        dispatch: fleet f's draw of ``d[f].sum()`` samples split over its
-        learners in order, each learner's rows past its d_k pointing at
-        ``n_train``, the zero row the caller appends (the reference's
-        zero-padded shards)."""
-        f, k = self.d.shape
-        draws = [parts[i].draw_indices(int(self.d[i].sum())) for i in range(self.num_fleets)]
+        """(F_b, K, d_cap) row indices into the training set for this
+        round's dispatch of this rank's block of fleets: fleet f's draw of
+        ``d[f].sum()`` samples split over its learners in order, each
+        learner's rows past its d_k pointing at ``n_train``, the zero row
+        the caller appends (the reference's zero-padded shards)."""
+        d = self.d[self._block]
+        draws = [parts[i].draw_indices(int(self.d[i].sum())) if self._real[i]
+                 else np.zeros(0, np.int64)
+                 for i in range(self._block.start, self._block.stop)]
         flat = np.concatenate(draws + [np.full(1, n_train)])
         sizes = np.asarray([x.size for x in draws], np.int64)
-        first = (np.cumsum(sizes) - sizes)[:, None] + (np.cumsum(self.d, axis=1) - self.d)
+        first = (np.cumsum(sizes) - sizes)[:, None] + (np.cumsum(d, axis=1) - d)
         j = np.arange(d_cap)
-        return flat[np.where(j < self.d[..., None], first[..., None] + j, flat.size - 1)]
+        return flat[np.where(j < d[..., None], first[..., None] + j, flat.size - 1)]
 
     def _weights(self) -> np.ndarray:
-        """(F, K) float32 intra-fleet aggregation weights: each fleet's
-        ``staleness_weights`` (or ``fedavg_weights``) in float64, then
-        float32, as the orchestrator computes them."""
-        if self.cfg.aggregation == "staleness":
-            rows = [staleness_weights(t, d, gamma=self.cfg.staleness_gamma)
-                    for t, d in zip(self.tau, self.d)]
-        else:
-            rows = [fedavg_weights(d) for d in self.d]
+        """(F_b, K) float32 intra-fleet aggregation weights of this rank's
+        block: each fleet's ``staleness_weights`` (or ``fedavg_weights``)
+        in float64, then float32, as the orchestrator computes them; a
+        padded fleet's are 0 (its learners do no work)."""
+        k = self.d.shape[1]
+        rows = []
+        for i in range(self._block.start, self._block.stop):
+            if not self._real[i]:
+                rows.append(np.zeros(k))
+            elif self.cfg.aggregation == "staleness":
+                rows.append(staleness_weights(self.tau[i], self.d[i],
+                                              gamma=self.cfg.staleness_gamma))
+            else:
+                rows.append(fedavg_weights(self.d[i]))
         return np.stack(rows).astype(np.float32)
+
+    # -- one round's two tiers ------------------------------------------------
+    def _plain_round(self, x, y, m, tau, w, max_tau: int) -> list[dict]:
+        """Tier 1 through autograd, for a loss the training kernel does not
+        take (the CPU only): each learner's tau GD steps from its fleet's
+        parameters (``orchestrator.local_train_stacked``), then each
+        fleet's weighted sum over its K learners (the contraction of
+        ``core.aggregation.aggregate``). Returns (F_b, ...) leaves."""
+        fb, k = self._block.stop - self._block.start, self.d.shape[1]
+        stacked = [{n: leaf[:, None].expand((fb, k) + leaf.shape[1:]).reshape(
+                        (fb * k,) + leaf.shape[1:]) for n, leaf in layer.items()}
+                   for layer in self.fleet_params]
+        learners = local_train_stacked(stacked, x, y, m, tau, self.cfg.lr, max_tau=max_tau,
+                                       loss_fn=self.loss_fn)
+        ww = w.reshape(fb, k)
+
+        def wsum(leaf):
+            leaf = leaf.reshape((fb, k) + leaf.shape[1:])
+            return (leaf * ww.reshape((fb, k) + (1,) * (leaf.dim() - 2))).sum(dim=1)
+
+        return [{n: wsum(leaf) for n, leaf in layer.items()} for layer in learners]
+
+    def _merge(self, fleet_new, wg: np.ndarray) -> list[dict]:
+        """The sampled fleets' weighted sum: this rank's fleets in one
+        ``ops.fed_agg_leaves`` call, then one ``all_reduce`` over the mesh
+        axes the fleet axis is split over."""
+        keys = [(l, n) for l, layer in enumerate(fleet_new) for n in layer]
+        sums = ops.fed_agg_leaves([fleet_new[l][n] for l, n in keys],
+                                  torch.from_numpy(wg[self._block]).to(self.device))
+        if self.fleet_axes and self.mesh.device_mesh is not None:
+            flat = torch.cat([t.reshape(-1) for t in sums])
+            compat.psum([flat], self.fleet_axes, self.mesh)
+            sums = [part.view(t.shape) for part, t in
+                    zip(torch.split(flat, [t.numel() for t in sums]), sums)]
+        merged = iter(sums)
+        return [{n: next(merged) for n in layer} for layer in fleet_new]
 
     # -- full run -----------------------------------------------------------
     def run(self, train: Dataset, rounds: int, *, eval_fn=None,
@@ -352,8 +454,8 @@ class FleetEngine:
         partitioners, as ``Orchestrator.run``)."""
         if eval_fn is not None and eval_batch is None:
             raise ValueError("eval_fn needs eval_batch=(x, y)")
-        cfg, dev = self.cfg, self.device
-        f, k = self.d.shape
+        cfg, dev, real, blk = self.cfg, self.device, self._real, self._block
+        fb, k = blk.stop - blk.start, self.d.shape[1]
         parts = [
             FederatedPartitioner(train, seed=int(self.rng.integers(2**31)))
             for _ in range(self.num_fleets)
@@ -366,42 +468,43 @@ class FleetEngine:
             [train.y, np.zeros(1, train.y.dtype)]).astype(np.int32)).to(dev)
         if eval_fn is not None:
             ex, ey = (torch.as_tensor(a, device=dev) for a in eval_batch)
-        t_round = float(self.problems.T.max())
+        t_round = float(self.problems.T[real].max())
         history: list[dict] = []
         for r in range(self.rounds_run, self.rounds_run + rounds):
             sampled = self._sample_mask(r)
-            d_cap = max(1, int(self.d.max()))
-            max_tau = max(1, int(self.tau.max()))
-            idx = torch.from_numpy(self._stage(parts, train.size, d_cap).reshape(f * k, d_cap))
+            d_cap = max(1, int(self.d[real].max()))
+            max_tau = max(1, int(self.tau[real].max()))
+            idx = torch.from_numpy(self._stage(parts, train.size, d_cap).reshape(fb * k, d_cap))
             idx = idx.to(dev)
             stale = np.maximum(self.global_version - self.pull_version, 0)
             phi = staleness_factor(
                 stale, kind=cfg.staleness_fn, a=cfg.staleness_a, b=cfg.staleness_b,
             )
             n_f = self.d.sum(axis=1).astype(np.float64)
-            base_w = n_f * phi
+            base_w = np.where(real, n_f * phi, 0.0)
 
             # -- tier 1: each fleet trains its K learners and aggregates ----
             m = (torch.arange(d_cap, device=dev)[None, :]
-                 < torch.as_tensor(self.d.reshape(-1), device=dev)[:, None]).to(torch.float32)
-            fleet_new, _ = ops.train_agg_step(
-                self.fleet_params, tx[idx], ty[idx], m,
-                torch.as_tensor(self.tau.reshape(-1), dtype=torch.int32, device=dev),
-                torch.as_tensor(self._weights().reshape(-1), device=dev), cfg.lr,
-                max_tau=max_tau, groups=f,
-            )
-            fleet_new = [{n: leaf.reshape((f,) + self.global_params[l][n].shape)
-                          for n, leaf in layer.items()} for l, layer in enumerate(fleet_new)]
+                 < torch.as_tensor(self.d[blk].reshape(-1), device=dev)[:, None]
+                 ).to(torch.float32)
+            tau_t = torch.as_tensor(self.tau[blk].reshape(-1), dtype=torch.int32, device=dev)
+            w_t = torch.as_tensor(self._weights().reshape(-1), device=dev)
+            if self.loss_fn is mlp.loss:
+                fleet_new, _ = ops.train_agg_step(self.fleet_params, tx[idx], ty[idx], m,
+                                                  tau_t, w_t, cfg.lr, max_tau=max_tau,
+                                                  groups=fb)
+                fleet_new = [{n: leaf.reshape((fb,) + self.global_params[l][n].shape)
+                              for n, leaf in layer.items()}
+                             for l, layer in enumerate(fleet_new)]
+            else:
+                fleet_new = self._plain_round(tx[idx], ty[idx], m, tau_t, w_t, max_tau)
 
             # -- tier 2: staleness-discounted merge of the sampled fleets ---
             bw = np.where(sampled, base_w, 0.0)
             norm = bw.sum()
             any_sampled = bool(norm > 0.0)
             wg = (bw / (norm if any_sampled else 1.0)).astype(np.float32)
-            keys = [(l, n) for l, layer in enumerate(fleet_new) for n in layer]
-            merged = iter(ops.fed_agg_leaves([fleet_new[l][n] for l, n in keys],
-                                             torch.from_numpy(wg).to(dev)))
-            merged = [{n: next(merged) for n in layer} for layer in fleet_new]
+            merged = self._merge(fleet_new, wg)
             new_g = self.global_params
             if any_sampled and cfg.server_mix == 1.0:
                 # server_mix == 1 SELECTS the merged model (no 0 g + 1 m
@@ -417,7 +520,7 @@ class FleetEngine:
             self._check_feasible(sampled, self._last_feasible, f"round {r}")
 
             # sampled fleets pull the new global; the rest keep training stale
-            keep = torch.as_tensor(sampled, device=dev)
+            keep = torch.as_tensor(sampled[blk], device=dev)
             fleet_out = [{n: torch.where(keep.reshape((-1,) + (1,) * g[n].dim()), g[n][None],
                                          fn[n])
                           for n in fn} for fn, g in zip(fleet_new, new_g)]
@@ -430,10 +533,10 @@ class FleetEngine:
                 "wall_clock_s": t_round,
                 "fleets": int(self.num_fleets),
                 "sampled_fleets": int(sampled.sum()),
-                "tau": self.tau.copy(),
-                "d": self.d.copy(),
-                "max_staleness": batched_max_staleness(self.tau, self.problems.valid),
-                "avg_staleness": batched_avg_staleness(self.tau, self.problems.valid),
+                "tau": self.tau[real].copy(),
+                "d": self.d[real].copy(),
+                "max_staleness": batched_max_staleness(self.tau[real], self.problems.valid[real]),
+                "avg_staleness": batched_avg_staleness(self.tau[real], self.problems.valid[real]),
                 "fleet_staleness_max": int(stale[sampled].max()),
                 "fleet_staleness_mean": float(stale[sampled].mean()),
             }

@@ -700,6 +700,7 @@ def fleet_scale_sweep(
     hidden: int = 32,
     seed: int = 0,
     device=None,
+    mesh=None,
     train: Dataset | None = None,
     test: Dataset | None = None,
 ) -> list[dict]:
@@ -707,12 +708,14 @@ def fleet_scale_sweep(
     count F, F fleets x ``k`` learners, FedAST partial participation at
     ``participation``, a compact ``[features, hidden, 10]`` model so the
     per-round cost is the fleet machinery's rather than one product's, on
-    ``device`` (``None``: the card).
+    ``device`` (``None``: the card) over ``mesh`` (``None``: the engine's
+    default, ``launch.mesh.host_mesh()``).
 
     Every fleet trains every round (unsampled fleets keep working on their
     stale pull), so one global round of virtual time T simulates F x k
-    busy learners: ``learners_per_vtu`` is exactly F x k. One device holds
-    every fleet: ``mesh_devices`` is 1 and ``fleet_axes`` empty."""
+    busy learners: ``learners_per_vtu`` is exactly F x k.
+    ``mesh_devices`` is the mesh's rank count and ``fleet_axes`` the mesh
+    axes the fleet axis was split over."""
     from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
 
     device = resolve_device(device)
@@ -723,7 +726,7 @@ def fleet_scale_sweep(
     rows: list[dict] = []
     for f in fleet_counts:
         bp = build_fleet_problems(int(f), k, T=T, total_samples=total_samples, seed=seed)
-        eng = FleetEngine(cfg, bp, mlp.loss, params, seed=seed)
+        eng = FleetEngine(cfg, bp, mlp.loss, params, seed=seed, mesh=mesh)
         t0 = time.time()
         hist = eng.run(train, rounds, eval_fn=mlp.accuracy,
                        eval_batch=(test.x[:1000], test.y[:1000]))
@@ -735,8 +738,8 @@ def fleet_scale_sweep(
             "learners": learners,
             "rounds": rounds,
             "participation": participation,
-            "mesh_devices": 1,
-            "fleet_axes": [],
+            "mesh_devices": eng.mesh.size,
+            "fleet_axes": list(eng.fleet_axes),
             "learners_per_vtu": learners,
             "final_accuracy": float(hist[-1]["accuracy"]),
             "fleet_staleness_max": max(r["fleet_staleness_max"] for r in hist),

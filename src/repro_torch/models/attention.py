@@ -1,5 +1,6 @@
 """Attention mixer: GQA + RoPE + optional sliding window, train/prefill/decode
-(``repro/models/attention.py``).
+(``repro/models/attention.py``), causal self-attention, an encoder's
+non-causal attention and cross-attention to pre-projected K/V.
 
 Prefill attends through ``kernels.ops.flash_attention``: the hand-written
 kernel on the card, the chunked scan on the CPU. Decode attends with the
@@ -54,13 +55,18 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     }
 
 
-def _project_qkv(cfg: ArchConfig, p, x, positions):
+def _project_q(cfg: ArchConfig, p, x):
+    return torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cfg.cdtype())).contiguous()
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions, *, use_rope: bool = True):
     cd = cfg.cdtype()
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
     k = torch.einsum("bsd,dke->bske", x, p["wk"].to(cd))
     v = torch.einsum("bsd,dke->bske", x, p["wv"].to(cd))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -92,31 +98,51 @@ def apply(
     mode: str = "train",
     cache=None,
     cache_len=None,
+    causal: bool = True,
+    use_rope: bool = True,
+    kv_override=None,
     max_len: int | None = None,
 ):
-    """Run the causal self-attention mixer.
+    """Run the attention mixer.
 
     mode: "train" | "prefill" (returns the cache; written into ``cache``
     when one is given) | "decode" (``cache`` required; updated in place).
-    The reference's encoder and cross-attention options (``causal``,
-    ``use_rope``, ``kv_override``) come with the encoder-decoder model.
+    ``causal=False`` is an encoder's attention; ``kv_override``, (k, v)
+    (B, Skv, KV, hd) from an encoder (pre-projected), is cross-attention:
+    the queries attend to every one of them, in every mode, and no cache is
+    written.
     """
     cd = cfg.cdtype()
     if mode in ("train", "prefill"):
-        q, k, v = _project_qkv(cfg, p, x, positions)
-        out = kops.flash_attention(
-            q, k, v, causal=True, window=cfg.sliding_window, chunk=cfg.attn_chunk,
-            p_bf16=cfg.attn_p_bf16, q_block=cfg.attn_q_block)
-        new_cache = _prefill_cache(cfg, k, v, max_len, out=cache) if mode == "prefill" else None
+        if kv_override is not None:
+            q = _project_q(cfg, p, x)
+            k, v = (t.contiguous() for t in kv_override)
+            out = kops.flash_attention(q, k, v, causal=False, window=None,
+                                       chunk=cfg.attn_chunk)
+            new_cache = None
+        else:
+            q, k, v = _project_qkv(cfg, p, x, positions, use_rope=use_rope)
+            out = kops.flash_attention(
+                q, k, v, causal=causal, window=cfg.sliding_window, chunk=cfg.attn_chunk,
+                p_bf16=cfg.attn_p_bf16, q_block=cfg.attn_q_block)
+            new_cache = (_prefill_cache(cfg, k, v, max_len, out=cache) if mode == "prefill"
+                         else None)
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
         return y, new_cache
 
     # -- decode: single token ------------------------------------------------
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
-    if cache is None or cache_len is None:
-        raise ValueError("decode needs a cache and cache_len")
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    if cache_len is None:
+        raise ValueError("decode needs cache_len")
+    if kv_override is not None:
+        q = _project_q(cfg, p, x)
+        k, v = kv_override
+        out = decode_attention(q, k, v, k.shape[1])
+        return torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd)), cache
+    if cache is None:
+        raise ValueError("decode needs a cache")
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, use_rope=use_rope)
     s_cache = cache["k"].shape[1]
     write_pos = int(cache_len) % s_cache
     cache["k"][:, write_pos] = k_new[:, 0].to(cache["k"].dtype)

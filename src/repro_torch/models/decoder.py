@@ -21,11 +21,10 @@ Params tree:
   final_norm       (d,)
   lm_head          (d, V)  (absent when tied)
 
-Token inputs, the attention, Mamba and RWKV-6 mixers, dense and
-Mixture-of-Experts FFNs and the RWKV-6 channel-mix run here; a prefill
-returns the MoE load-balance loss summed over layers, as the reference's
-does. Embedding inputs (the vlm), ``lm_loss`` and the train mode come
-with later slices.
+Token or embedding inputs (the vlm's image embeddings ahead of its text),
+the attention, Mamba and RWKV-6 mixers, dense and Mixture-of-Experts FFNs
+and the RWKV-6 channel-mix run here; a prefill returns the MoE
+load-balance loss summed over layers, as the reference's does.
 """
 
 from __future__ import annotations
@@ -225,9 +224,10 @@ def _apply_layer(cfg: ArchConfig, p, x, *, kind: str, is_moe: bool, mode: str, p
     return x + y, aux
 
 
-def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=None,
-            cache_len=None, max_len: int | None = None):
-    """Run the trunk.
+def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "prefill",
+            cache=None, cache_len=None, max_len: int | None = None):
+    """Run the trunk on ``tokens`` (B, S) or, when given, ``embeds`` (B, S,
+    d) in their place.
 
     prefill: returns (logits of the last position, cache, aux_loss), the
              aux_loss the MoE load-balance loss summed over layers (0
@@ -241,7 +241,7 @@ def forward(params, cfg: ArchConfig, *, tokens, mode: str = "prefill", cache=Non
                                   "(prefill, decode)")
     lay = layout_for(cfg)
     cd = cfg.cdtype()
-    x = params["embed"][tokens].to(cd)
+    x = (params["embed"][tokens] if embeds is None else embeds).to(cd)
     b, s, _ = x.shape
     dev = x.device
 

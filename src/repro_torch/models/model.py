@@ -1,12 +1,18 @@
 """Public model API (``repro/models/model.py``), serving: the dense, MoE,
-ssm (RWKV-6 and Mamba) and hybrid (Jamba) families.
+ssm (RWKV-6 and Mamba), hybrid (Jamba), vlm (InternVL2) and audio
+(Whisper) families.
 
     m = Model(cfg)                                     # on the card
     params = m.init(seed)
-    logits, cache, aux = m.prefill(params, {"tokens": tokens}, max_len=...)
+    logits, cache, aux = m.prefill(params, batch, max_len=...)
     logits, cache = m.decode(params, cache, token, cache_len)
 
-Tokens are int (B, S) tensors on the model's device. On the card the
+Batches (tokens int (B, S) tensors on the model's device):
+  dense/moe/ssm/hybrid: {tokens}
+  vlm:   {tokens (B, S_text), image_embeds (B, N_img, d)}: the image
+         embeddings (the stubbed vision encoder's output) go ahead of the
+         text, so decode starts at position N_img + S_text
+  audio: {tokens (B, S), encoder_embeds (B, S_enc, d)} (``models.encdec``) On the card the
 prefill's attention runs the hand-written CUDA kernel
 (``kernels/flash_attention.py``), RWKV-6's recurrence runs its kernel
 (``kernels/wkv6.py``) in prefill and decode, and the Mamba scan its kernel
@@ -14,16 +20,17 @@ prefill's attention runs the hand-written CUDA kernel
 ``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU they run the
 plain versions, the reference's default. There is no switch between them.
 Decode updates the cache it is given in place and returns it. The prefill's
-``aux`` is the MoE load-balance loss summed over layers.
-
-The audio and vlm families and ``loss`` come with later slices.
+``aux`` is the MoE load-balance loss summed over layers. ``loss`` (training)
+is ROADMAP Queue 1 item 12e.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import decoder
+from repro_torch.models import decoder, encdec
 from repro_torch.models.params import (
     abstract_params,
     init_params,
@@ -33,7 +40,7 @@ from repro_torch.models.params import (
 
 __all__ = ["Model"]
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 SSM_KINDS = ("rwkv6", "mamba")
 
 
@@ -47,7 +54,8 @@ class Model:
                                       f"the port runs (its ssm mixers: {', '.join(SSM_KINDS)})")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.specs = decoder.build_specs(cfg)
+        self.specs = (encdec.build_specs(cfg) if cfg.family == "audio"
+                      else decoder.build_specs(cfg))
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int):
@@ -66,6 +74,8 @@ class Model:
 
     # -- caches ------------------------------------------------------------
     def cache_specs(self, batch: int, seq_len: int):
+        if self.cfg.family == "audio":
+            return encdec.init_cache_specs(self.cfg, batch, seq_len)
         return decoder.init_cache_specs(self.cfg, batch, seq_len)
 
     def cache_axes(self, batch: int, seq_len: int):
@@ -78,11 +88,29 @@ class Model:
         return init_params(self.cache_specs(batch, seq_len), 0, device=self.device)
 
     # -- serving -------------------------------------------------------------
+    def _embeds(self, params, batch):
+        """The vlm's input embeddings: the image embeddings, then the text's
+        token embeddings; None for the other families."""
+        if self.cfg.family != "vlm":
+            return None
+        cd = self.cfg.cdtype()
+        tok = params["embed"][batch["tokens"]].to(cd)
+        return torch.cat([batch["image_embeds"].to(cd), tok], dim=1)
+
     def prefill(self, params, batch, *, max_len: int | None = None):
         """Returns (logits of the last position (B, 1, V), cache, aux)."""
-        return decoder.forward(params, self.cfg, tokens=batch["tokens"], mode="prefill",
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return encdec.forward(params, cfg, tokens=batch["tokens"],
+                                  encoder_embeds=batch["encoder_embeds"], mode="prefill",
+                                  max_len=max_len)
+        embeds = self._embeds(params, batch)
+        return decoder.forward(params, cfg, tokens=None if embeds is not None
+                               else batch["tokens"], embeds=embeds, mode="prefill",
                                max_len=max_len)
 
     def decode(self, params, cache, token, cache_len, extras=None):
         """token (B, 1) at position ``cache_len``; returns (logits, cache)."""
+        if self.cfg.family == "audio":
+            return encdec.decode_step(params, self.cfg, cache, token, cache_len)
         return decoder.decode_step(params, self.cfg, cache, token, cache_len)

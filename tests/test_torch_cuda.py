@@ -87,6 +87,13 @@ training and ``accum_flush`` kernels once a group and the water-filling
 kernel once for each residual the CPU run evaluated; at S = 1 it gives
 ``AsyncFedEngine.run_events``'s rows and parameters on the card bitwise.
 
+The fleet engine refuses on the card a loss the training kernel does not
+take; over ``host_mesh()`` in a one-rank NCCL group it gives the engine
+without a group its rows and models bit for bit. The attention kernel
+takes Whisper's encoder (1500 frames, non-causal) and cross-attention
+(queries against 1500 keys) shapes; Whisper at full width (2 + 2 layers)
+and the reduced InternVL2 serve on the card as on the CPU, float32.
+
 At the paper's widths the check is one step. Over several steps there, a
 hidden pre-activation within float32 rounding of zero can take the other
 side of the ReLU in the kernel than in the plain version, and that unit's
@@ -770,6 +777,10 @@ FLASH_CASES = {
     "causal_skv_gt_sq": (2, 70, 300, 6, 2, 80, True, None),
     "window_narrower_than_a_tile": (1, 260, 260, 8, 2, 128, True, 5),
     "fully_masked_rows": (2, 300, 100, 4, 1, 64, True, 8),
+    # Whisper's encoder (1500 frames, the last key tile partial) and its
+    # cross-attention (a prompt's queries against the frames)
+    "whisper_encoder": (1, 1500, 1500, 12, 12, 64, False, None),
+    "whisper_cross": (2, 64, 1500, 12, 12, 64, False, None),
 }
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -1449,3 +1460,101 @@ def test_fleet_on_the_card_gives_the_cpu_schedule(dev):
     np.testing.assert_allclose([r["accuracy"] for r in card_hist],
                                [r["accuracy"] for r in cpu_hist], rtol=0, atol=0.01)
     np.testing.assert_array_equal(card.pull_version, cpu.pull_version)
+
+
+def test_fleet_engine_refuses_another_loss_on_the_card(dev):
+    """A loss the training kernel does not take trains on the CPU only
+    (the plain round); on the card the engine refuses it."""
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+
+    def decayed(params, batch):
+        return mlp.loss(params, batch) + 1e-2 * sum((layer["w"] ** 2).sum() for layer in params)
+
+    with pytest.raises(ValueError, match="mlp.loss only"):
+        FleetEngine(FleetConfig(), build_fleet_problems(2, 3), decayed,
+                    mlp.init(0, FLEET_LAYERS, device=dev))
+
+
+def test_fleet_engine_on_a_one_rank_nccl_mesh_is_bitwise(dev):
+    """The fleet engine over ``host_mesh()`` in a one-rank NCCL process
+    group (its merge an ``all_reduce``, its solve's rows an
+    ``all_gather``) gives the engine without a group its rows, versions,
+    dispatch and models bit for bit; a CPU engine on that group's default
+    mesh is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import synthetic_mnist
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+    from repro_torch.launch.mesh import host_mesh
+
+    train, test = synthetic_mnist(1200, n_test=200, features=16, seed=0)
+    batch = (torch.from_numpy(test.x).to(dev), torch.from_numpy(test.y).to(dev))
+
+    def run(mesh):
+        eng = FleetEngine(FleetConfig(participation=0.5),
+                          build_fleet_problems(5, 3, T=6.0, total_samples=30, seed=2),
+                          mlp.loss, mlp.init(0, FLEET_LAYERS, device=dev), seed=1, mesh=mesh)
+        return eng, eng.run(train, 3, eval_fn=mlp.accuracy, eval_batch=batch)
+
+    alone, alone_hist = run(None)
+    assert alone.mesh.device_mesh is None
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = host_mesh()
+        assert mesh.device_mesh is not None and mesh.device_type == "cuda"
+        train_step.launches = fed_agg.launches = 0
+        meshed, meshed_hist = run(mesh)
+        assert (train_step.launches, fed_agg.launches) == (3, 6)
+        with pytest.raises(ValueError, match="cuda mesh cannot move the engine's cpu"):
+            FleetEngine(FleetConfig(), build_fleet_problems(2, 3, T=6.0, total_samples=30,
+                                                            seed=2),
+                        mlp.loss, mlp.init(0, FLEET_LAYERS, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert meshed.fleet_axes == ("data", "model") and meshed.mesh.size == 1
+    _rows_equal(meshed_hist, alone_hist, skip=())
+    for key in ("tau", "d", "pull_version"):
+        np.testing.assert_array_equal(getattr(meshed, key), getattr(alone, key))
+    for tree in ("global_params", "fleet_params"):
+        for g, w in zip(getattr(meshed, tree), getattr(alone, tree)):
+            for name in w:
+                assert torch.equal(g[name], w[name]), (tree, name)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
+def test_encdec_and_vlm_serves_on_the_card_match_the_cpu(dev, arch):
+    """Whisper at full width cut to 2 + 2 layers (the reduced config's head
+    dim, 32, is not one the attention kernel takes) and the reduced
+    InternVL2, float32, from one seed on the card and on the CPU: the
+    prefill's logits within 1e-4 of their scale and four greedy tokens
+    equal; a Whisper prefill launches the attention kernel for each
+    encoder layer and twice for each decoder layer, decode never."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    if arch == "whisper-small":
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, num_encoder_layers=2,
+                                  param_dtype="float32", compute_dtype="float32")
+        launches = cfg.num_encoder_layers + 2 * cfg.num_layers
+    else:
+        cfg = get_reduced(arch)
+        launches = cfg.num_layers
+    runs = {}
+    for device in ("cpu", dev):
+        model = Model(cfg, device=device)
+        params = model.init(0)
+        batch = serve.prompt_batch(cfg, 2, 16, 0, device)
+        flash_attention.launches = 0
+        with torch.inference_mode():
+            logits, cache, tok = serve.prefill(model, params, batch, 16 + 5 + (
+                cfg.num_image_tokens if cfg.family == "vlm" else 0))
+            counted = flash_attention.launches
+            rest, _ = serve.decode(model, params, cache, tok,
+                                   serve.start_position(cfg, batch), 3)
+        runs[str(device)] = (logits.float().cpu(), torch.cat([tok, rest], 1).cpu(), counted,
+                             flash_attention.launches)
+    (cl, ct, *_), (gl, gt, prefill_n, total_n) = runs["cpu"], runs[str(dev)]
+    assert (prefill_n, total_n) == (launches, launches)
+    assert (gl - cl).abs().max().item() <= 1e-4 * cl.abs().max().item()
+    assert torch.equal(gt, ct)

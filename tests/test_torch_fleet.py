@@ -16,7 +16,10 @@ reference, at narrow widths (a [16, 8, 10] MLP, F <= 4 fleets of K <= 4).
   reference's eager split differs from a fused one, and with energy rows,
   bitwise.
 * The grouped plain ``fed_agg`` equals one call a group;
-  ``fleet_scale_sweep`` rows equal the reference's but for the timings.
+  ``fleet_scale_sweep`` rows equal the reference's but for the timings,
+  the mesh's size and axes among them.
+* F5: a loss other than ``mlp.loss`` trains on the CPU (the plain
+  autograd round) and matches the reference's unfused engine.
 """
 
 from __future__ import annotations
@@ -208,38 +211,32 @@ def test_fleet_config_refusals_match(kw):
         pt_fleet.FleetConfig(**kw)
 
 
-def test_engine_refuses_another_loss():
-    bp = pt_fleet.build_fleet_problems(2, 3)
-    with pytest.raises(ValueError, match="mlp.loss"):
-        pt_fleet.FleetEngine(pt_fleet.FleetConfig(), bp, lambda p, b: 0.0,
-                             pt_mlp.init(0, LAYERS, device="cpu"))
-
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
-def _jax_engine(cfg_kw, bp, init, seed):
+def _jax_engine(cfg_kw, bp, init, seed, loss=jx_mlp.loss):
     fl = _jx_fleet()
-    return fl.FleetEngine(fl.FleetConfig(**cfg_kw), bp, jx_mlp.loss, init, seed=seed,
+    return fl.FleetEngine(fl.FleetConfig(**cfg_kw), bp, loss, init, seed=seed,
                           mesh=_cpu_mesh())
 
 
-def _run_both(cfg_kw, build, init, seed):
-    """The reference's engine and the port's on the same population, data
-    and initial weights: (history, params) of each."""
+def _run_both(cfg_kw, build, init, seed, losses=(jx_mlp.loss, pt_mlp.loss)):
+    """The reference's engine (unfused) and the port's on the same
+    population, data and initial weights, each training its own of
+    ``losses``: (history, params) of each."""
     out = {}
     for pkg in ("jax", "port"):
         train, test = _data(pkg)
         if pkg == "jax":
-            eng = _jax_engine(cfg_kw, build(jx_sim, _jx_fleet()), init, seed)
+            eng = _jax_engine(cfg_kw, build(jx_sim, _jx_fleet()), init, seed, losses[0])
             hist = eng.run(train, ROUNDS, eval_fn=jx_mlp.accuracy,
                            eval_batch=(test.x, test.y))
             params = [{n: np.asarray(v) for n, v in layer.items()}
                       for layer in eng.global_params]
         else:
             eng = pt_fleet.FleetEngine(pt_fleet.FleetConfig(**cfg_kw),
-                                       build(pt_sim, pt_fleet), pt_mlp.loss,
+                                       build(pt_sim, pt_fleet), losses[1],
                                        params_from_jax(init, "cpu"), seed=seed)
             hist = eng.run(train, ROUNDS, eval_fn=pt_mlp.accuracy,
                            eval_batch=(test.x, test.y))
@@ -313,6 +310,42 @@ def test_partial_participation_schedule_equals_the_reference(partial):
     np.testing.assert_array_equal(pt.d, jx.d)
     assert max(r["fleet_staleness_max"] for r in partial["port"]["hist"]) >= 1
     _assert_params_close(partial["port"]["params"], partial["jax"]["params"])
+
+
+L2 = 1e-2   # the weight-decay term of the other loss below
+
+
+def _jx_l2_loss(params, batch):
+    """``mlp.loss`` plus an L2 term on the weights, in the reference."""
+    return jx_mlp.loss(params, batch) + L2 * sum(jnp.sum(layer["w"] ** 2) for layer in params)
+
+
+def _pt_l2_loss(params, batch):
+    """The same loss, written the same way, in the port."""
+    return pt_mlp.loss(params, batch) + L2 * sum((layer["w"] ** 2).sum() for layer in params)
+
+
+def test_engine_refuses_another_loss(init):
+    """A loss other than ``mlp.loss``, which the training kernel does not
+    take, trains on the CPU through the plain autograd round, as the
+    reference's unfused round trains any loss: F = 4 at participation 0.5,
+    the rows bitwise the reference's and the global model within PARAM_TOL
+    of each leaf's scale; the decay term moves the model off the
+    ``mlp.loss`` run's. (On the card the engine refuses such a loss:
+    ``tests/test_torch_cuda.py``.)"""
+    got = _run_both({"participation": 0.5}, _population, init, seed=1,
+                    losses=(_jx_l2_loss, _pt_l2_loss))
+    _assert_rows_equal(got["port"]["hist"], got["jax"]["hist"])
+    _assert_params_close(got["port"]["params"], got["jax"]["params"])
+    for g, w in zip(got["port"]["hist"], got["jax"]["hist"]):
+        assert abs(g["accuracy"] - w["accuracy"]) <= ACC_TOL
+    plain = pt_fleet.FleetEngine(pt_fleet.FleetConfig(participation=0.5),
+                                 _population(pt_sim, pt_fleet), pt_mlp.loss,
+                                 params_from_jax(init, "cpu"), seed=1)
+    plain.run(_data("port")[0], ROUNDS)
+    decayed = params_to_numpy(plain.global_params)
+    assert max(np.abs(a["w"] - b["w"]).max() for a, b in
+               zip(decayed, got["port"]["params"])) > 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -419,11 +452,11 @@ def test_fleet_scale_sweep_equals_the_reference(monkeypatch):
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         assert g.keys() == w.keys()
-        for key in g.keys() - {"wall_s", "learner_rounds_per_s", "mesh_devices",
-                               "fleet_axes", "final_accuracy"}:
+        for key in g.keys() - {"wall_s", "learner_rounds_per_s", "final_accuracy"}:
             assert g[key] == w[key], key
         assert round(g["final_accuracy"] * 1000) == round(w["final_accuracy"] * 1000)
-        assert g["mesh_devices"] == 1 and g["fleet_axes"] == []
+        # the one-rank mesh, split over both of its axes as the reference's is
+        assert g["mesh_devices"] == 1 and g["fleet_axes"] == ["data", "model"]
 
 
 def test_fleet_scale_sweep_needs_a_device_or_the_card():

@@ -31,6 +31,7 @@ ITEM_12E = "ROADMAP Queue 1 item 12e (training)"
 ITEM_13 = "ROADMAP Queue 1 item 13 (dry-run, roofline)"
 
 DEFERRED = {
+    "repro_torch.compat": {"cost_analysis_dict": ITEM_13},
     "repro_torch.core": {"transformer_cost": ITEM_12E},
     "repro_torch.core.complexity": {"transformer_cost": ITEM_12E},
     "repro_torch.data.pipeline": {"token_batches": ITEM_12E},
@@ -57,6 +58,8 @@ REPLACED = {
     },
     # TPU compiler parameters; the port's kernels build with nvcc's flags
     "repro_torch.kernels": {"tpu_compiler_params": "_build"},
+    # fake XLA host devices by a flag; the port starts real gloo ranks
+    "repro_torch.launch.mesh": {"host_device_flags": "run_ranks"},
 }
 
 
