@@ -218,10 +218,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
         bf16), 256 image embeddings ahead of 256 text tokens, batch 4,
         prefill and 31 greedy decode steps from position 512 (2 launches a
         prefill, none in decode), held to the plain attention.
+ 15. training:
+     a. attention's backward kernel (``csrc/flash_attention_bwd.cu``, no TPU
+        counterpart) against its plain versions (the written-out
+        ``ref.flash_attention_bwd_ref`` and autograd of the dense oracle,
+        float32) at Llama-3.2-3B's training shape (bf16 and float32), d 80
+        with a window narrower than a tile, Whisper's encoder and cross
+        shapes and rows that see no key; timed against the plain backward,
+        its bound (2.5x the forward's FLOPs) and SDPA's backward;
+     b. ``launch.steps.build_train`` on Llama-3.2-3B at full width, its
+        depth cut to 4 layers (phase 8's weights), bf16, remat, AdamW at
+        3e-4, 8 steps of 4 x 2048 tokens from ``token_batches``: losses
+        finite and falling, every leaf's gradient nonzero, 8 forward and 4
+        backward attention launches a step; step ms, tokens/s, the share of
+        989 TFLOP/s, peak memory and the device time by kernel;
+     c. float32 at 2 layers, one step on the card and one on the CPU from
+        the same weights and batch: the loss, every gradient leaf, and the
+        card's AdamW step against the CPU's on the same gradients;
+     d. a train step of ``rwkv6-7b`` and of Jamba's period refuses on the
+        card, naming the ROADMAP item of its missing backward kernel.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14 and 14b each set the
-kernels' launch counters to 0 just before the run they check and read them
-just after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b and 15b-d each
+set the kernels' launch counters to 0 just before the run they check and
+read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -334,6 +353,50 @@ FLASH_CASES = [
     ("internvl2-76b prefill", VLM_BATCH, VLM_IMAGE_TOKENS + VLM_PROMPT, 64, 8, 128, "float32",
      True, None, 10),
 ]
+# phase 15: training. Llama-3.2-3B at full width with its depth cut to
+# TRAIN_LAYERS (phase 8's weights), bf16 parameters, AdamW at the config's
+# 3e-4, remat on, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from
+# token_batches. 15c: TRAIN_F32_LAYERS in float32, one step on the card and
+# one on the CPU (B x S small enough for the CPU's step).
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "llama3.2-3b", 4, 4, 2048, 8
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 1, 256
+# the loss of one float32 step, card vs CPU (relative), and each gradient
+# leaf (of its scale): the same arithmetic in other orders; a leaf's
+# gradient sums over every position of the batch
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-4
+# the parameters after the card's AdamW step against the CPU's AdamW step
+# from the card's own clipped gradients (of their scale): elementwise
+# float32 on both sides. The card's and the CPU's steps are compared
+# through their gradients: Adam's first step divides a gradient by its own
+# size plus eps (1e-8), so where a gradient is near eps a rounding of it
+# moves its parameter by a share of the learning rate (the direct distance
+# is printed)
+TRAIN_F32_STEP_TOL = 1e-5
+# 15a: attention's backward kernel against its plain versions: float32 to
+# 1e-4 of a gradient's scale (dk and dv sum G x Sq terms in another
+# order), bf16 to 1e-2 (one bf16 step of the outputs, and D taken from the
+# forward's bf16 output); a scale is at least 1e-3 max|dO| max|v|, the
+# size of dP and D whose difference dS is. The two plain versions (the
+# written-out backward and autograd of the dense oracle, both float32)
+# agree to 1e-5.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_PLAIN_TOL = 1e-5
+# name, B, Sq, heads, kv heads, d, dtype, causal, window, Skv (None: Sq),
+# timed calls; the first is the training shape and gives the kernels line
+# its row
+BWD_CASES = [
+    ("llama3.2-3b train", TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128, "bfloat16", True, None, None, 3),
+    ("llama3.2-3b train", TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128, "float32", True, None, None, 2),
+    ("d80, window 40", 1, 2048, 32, 8, 80, "bfloat16", True, 40, None, 3),
+    ("whisper-small encoder", WHISPER_BATCH, 1500, 12, 12, 64, "bfloat16", False, None, None,
+     3),
+    ("whisper-small cross", WHISPER_BATCH, WHISPER_PROMPT, 12, 12, 64, "bfloat16", False, None,
+     1500, 3),
+    ("fully masked rows", 2, 300, 4, 1, 64, "float32", True, 8, 100, 3),
+]
+# 15d: families whose kernels have no backward yet, with the ROADMAP item
+# their refusal names
+REFUSED = [("rwkv6-7b", "12g"), ("jamba-v0.1-52b", "12h")]
 # phase 9: the RWKV-6 serve at the dense serve's batch and lengths. The WKV
 # kernel and the step loop take every product in float32 from the same
 # inputs and sum over i in other orders; the output is float32 for bf16
@@ -554,7 +617,7 @@ def reset_launches() -> None:
 
     waterfill.launches = waterfill.energy_launches = 0
     train_step.launches = fed_agg.launches = accum_flush.launches = 0
-    flash_attention.launches = wkv6.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = wkv6.launches = 0
     mamba_scan.launches = swiglu.launches = 0
 
 
@@ -565,7 +628,8 @@ def read_launches() -> dict:
     return {"train_agg_step": train_step.launches, "accum_flush": accum_flush.launches,
             "fed_agg": fed_agg.launches, "waterfill_residual": waterfill.launches,
             "waterfill_energy_residual": waterfill.energy_launches,
-            "flash_attention": flash_attention.launches, "wkv6": wkv6.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches, "wkv6": wkv6.launches,
             "mamba_scan": mamba_scan.launches, "swiglu": swiglu.launches}
 
 
@@ -784,7 +848,7 @@ def main() -> int:
     wf = realloc_phase(dev, train, test)
     async_rows = async_phase(dev, train, test, row_flops=row_flops)
     energy_row = energy_phase(dev, train, test)
-    attention_row, whisper_case = serve_phase(dev)
+    attention_row, whisper_case, train_weights = serve_phase(dev)
     wkv_row = rwkv_phase(dev)
     mamba_row = jamba_phase(dev)
     swiglu_row = swiglu_phase(dev)
@@ -792,6 +856,8 @@ def main() -> int:
     fleet_rows = fleet_phase(dev, train, test)
     whisper_row = whisper_phase(dev, whisper_case)
     vlm_phase(dev)
+    bwd_row = train_phase(dev, train_weights)
+    del train_weights
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -815,6 +881,7 @@ def main() -> int:
         swiglu_row,
         *fleet_rows,
         whisper_row,
+        bwd_row,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1213,7 +1280,8 @@ def async_phase(dev, train, test, *, row_flops: int) -> list[dict]:
         n_groups = len(cpu[mode]["groups"])
         n_wf = cpu[mode]["solves"]
         fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
-                 "flash_attention": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0}
+                 "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0,
+                 "swiglu": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups, **fixed}}
         runs = {}
@@ -1525,8 +1593,8 @@ def energy_phase(dev, train, test) -> dict:
             key = path.split()[0]
             require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
                                "waterfill_energy_residual": cpu_s["solves"],
-                               "flash_attention": 0, "wkv6": 0, "mamba_scan": 0,
-                               "swiglu": 0},
+                               "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
+                               "mamba_scan": 0, "swiglu": 0},
                     f"{mode} energy {path}: kernel launches {counts}, CPU solves "
                     f"{cpu_s['solves']}")
             hist = res["history"]
@@ -1606,8 +1674,8 @@ def energy_phase(dev, train, test) -> dict:
     counts = read_launches()
     require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
-                       "waterfill_energy_residual": 0, "flash_attention": 0, "wkv6": 0,
-                       "mamba_scan": 0, "swiglu": 0},
+                       "waterfill_energy_residual": 0, "flash_attention": 0,
+                       "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0},
             f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
     check_rows(res["history"], cpu_s["rows"], "churn run")
     require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
@@ -1663,7 +1731,8 @@ def pgd_step(dev, prob) -> int:
     counts = read_launches()
     require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
                        "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES,
-                       "flash_attention": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0},
+                       "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
+                       "mamba_scan": 0, "swiglu": 0},
             f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
             f"water-filling each of {PGD_RESOLVES}")
     cpu, cpu_ms = resolves("cpu")
@@ -1838,9 +1907,11 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters, skv=Non
     return row
 
 
-def serve_phase(dev) -> tuple[dict, dict]:
-    """Phase 8; returns the attention kernel's entry of the kernels line and
-    phase 8a's row of the bf16 Whisper encoder case."""
+def serve_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 8; returns the attention kernel's entry of the kernels line,
+    phase 8a's row of the bf16 Whisper encoder case, and the first
+    ``TRAIN_LAYERS`` layers of the serve's weights (with its embedding,
+    head and final norm) copied to the host, which phase 15 trains."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1918,6 +1989,8 @@ def serve_phase(dev) -> tuple[dict, dict]:
           f"{err / scale:.3g} of their scale {scale:.3g} (<= {SERVE_BF16_TOL}); greedy agreement with plain: first token "
           f"{first:.2f}, all {gen} tokens {agree:.3f}; sample {tokens_out[0, :8].tolist()}")
 
+    train_weights = cut_layers(params, TRAIN_LAYERS, "cpu")
+
     # -- 8c. float32 at 2 layers: kernel vs plain, tight -----------------------
     cfg32 = dataclasses.replace(cfg, num_layers=E2E_LAYERS, param_dtype="float32",
                                 compute_dtype="float32")
@@ -1958,7 +2031,7 @@ def serve_phase(dev) -> tuple[dict, dict]:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:91",
-            "launches": after_decode["flash_attention"], **main_case}, whisper_case
+            "launches": after_decode["flash_attention"], **main_case}, whisper_case, train_weights
 
 
 @contextlib.contextmanager
@@ -3584,6 +3657,308 @@ def vlm_phase(dev) -> None:
           f"attention max_abs_err {err:.3g}, {err / scale:.3g} of their scale {scale:.3g} "
           f"(<= {SERVE_BF16_TOL}); first token agreement {first:.2f}; sample "
           f"{tokens_out[0, :8].tolist()}; phase 14b {time.perf_counter() - t_phase:.1f} s")
+
+
+def cut_layers(params, layers: int, device) -> dict:
+    """A decoder's params with the first ``layers`` periods of every
+    stacked leaf of ``blocks``, copied to ``device``."""
+    import torch
+
+    def cut(t):
+        return t[:layers].to(device, copy=True) if torch.is_tensor(t) else cut_tree(t)
+
+    def cut_tree(tree):
+        return {k: cut(v) for k, v in tree.items()}
+
+    out = {k: (v.to(device, copy=True) if torch.is_tensor(v) else v)
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [cut_tree(blk) for blk in params["blocks"]]
+    return out
+
+
+def bwd_case(dev, name, b, s, h, kvh, d, dtype, causal, window, skv, iters) -> dict:
+    """Phase 15a, one case: attention's backward kernel against its plain
+    versions, timed with the plain backward, its bound and the backward of
+    ``scaled_dot_product_attention`` (the library column)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import layers
+
+    dtype = getattr(torch, dtype)
+    skv = s if skv is None else skv
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 * s + d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, skv, kvh, d), (b, skv, kvh, d),
+                                 (b, s, h, d)))
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    plain = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
+    # autograd of the dense oracle (whose rows with no key are NaN: the
+    # chunked scan there, which gives them 0)
+    masked = causal and window is not None and s > skv + window
+    fwd = layers.flash_attention if masked else ref.flash_attention_ref
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(fwd(*leaves, **kw), leaves, do.float())
+    del leaves
+    torch.cuda.synchronize()
+    floor = 1e-3 * do.float().abs().max().item() * v.float().abs().max().item()
+    tol = BWD_TOL[str(dtype).removeprefix("torch.")]
+    err, plain_err = 0.0, 0.0
+    for what, g, w, a in zip(("dq", "dk", "dv"), got, plain, auto):
+        require(bool(torch.isfinite(g).all()), f"15a {name}: {what} is not finite")
+        scale = max(w.abs().max().item(), floor)
+        e = (g.float() - w).abs().max().item()
+        require(e <= tol * scale, f"15a {name}: the backward kernel's {what} differs from "
+                f"the plain backward by {e:g} > {tol} x {scale:g}")
+        pe = (a - w).abs().max().item()
+        require(pe <= BWD_PLAIN_TOL * scale, f"15a {name}: the two plain backwards' {what} "
+                f"differ by {pe:g} > {BWD_PLAIN_TOL} x {scale:g}")
+        err, plain_err = max(err, e), max(plain_err, pe / scale)
+    del auto
+    if masked:
+        require(bool((got[0][:, skv - 1 + window:] == 0).all()),
+                f"15a {name}: rows with no key have a nonzero dq")
+    ms = cuda_ms(lambda: flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw),
+                 iters)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw), 2)
+    del plain
+    # the library: the backward alone of scaled_dot_product_attention at
+    # the same shape, (B, H, S, d), its graph kept between calls
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    if window is None and not (causal and s != skv):
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_inputs = (qt, kt, vt)
+    else:
+        qpos, kpos = torch.arange(s, device=dev)[:, None], torch.arange(skv, device=dev)[None]
+        mask = torch.ones((s, skv), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos >= kpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        kr, vr = (t.repeat_interleave(h // kvh, dim=1) for t in (kt, vt))
+        o = F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask)
+        lib_inputs = (qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, lib_inputs, dot, retain_graph=True),
+                         iters)
+    del o
+    pairs = attention_pairs(s, skv, causal, window)
+    flops = 10 * b * h * d * pairs   # 2.5 x the forward's 4 B H d pairs
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"flash_attention_bwd {name}: B {b}, S {s}"
+          f"{'' if skv == s else f' against Skv {skv}'}, {h}/{kvh} heads, d {d}, "
+          f"{str(dtype).removeprefix('torch.')}, causal {causal}, window {window}: "
+          f"max_abs_err {err:.3g} (<= {tol} of each gradient's scale), plain backwards "
+          f"agree to {plain_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"backward {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}:"
+          f" {flops:.4g} FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s of the gradient's 2.5x-forward FLOPs, sdpa at "
+          f"{flops / (library_ms * 1e9):.1f}")
+    return row
+
+
+def train_step_capturing(model):
+    """``build_train``'s step, and a list that receives each call's clipped
+    gradients (captured where the step clips them)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_by_name
+
+    clipped = []
+    clip = steps.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        out = clip(grads, max_norm)
+        clipped.append(out[0])
+        return out
+
+    step = steps.build_train(model, make_mesh_by_name("cpu"))[0]
+
+    def run(*args):
+        steps.clip_by_global_norm = capture
+        try:
+            return step(*args)
+        finally:
+            steps.clip_by_global_norm = clip
+
+    return run, clipped
+
+
+def train_phase(dev, host_weights) -> dict:
+    """Phase 15: training on the card. Returns the backward kernel's entry
+    of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import get_optimizer
+
+    t_phase = time.perf_counter()
+    # -- 15a. the backward kernel against its plain versions -------------------
+    rows = [bwd_case(dev, *case) for case in BWD_CASES]
+    torch.cuda.empty_cache()
+
+    # -- 15b. Llama-3.2-3B at full width, TRAIN_LAYERS layers, TRAIN_STEPS steps
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    require(cfg.remat and cfg.param_dtype == "bfloat16" and cfg.optimizer == "adamw",
+            f"15b: {TRAIN_ARCH} is not the bf16, remat, AdamW config it was")
+    model = Model(cfg, device=dev)
+    params = tree.map(lambda t: t.to(dev), host_weights)
+    require([tuple(p.shape) for p in tree.leaves(params)]
+            == [tuple(p.shape) for p in tree.leaves(model.abstract_params())],
+            "15b: phase 8's weights do not fit the cut config")
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    state = opt.init(params)
+    step, clipped = train_step_capturing(model)
+    gen = token_batches(np.random.default_rng(SEED), TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab_size)
+    batches = [{k: torch.as_tensor(a, device=dev) for k, a in next(gen).items()}
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, gnorms, step_ms, zero_grads = [], [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(met["loss"].item())
+        gnorms.append(met["grad_norm"].item())
+        grads = clipped.pop()
+        zero_grads.append([tree.path_str(p) for p, g in tree.leaves_with_path(grads)
+                           if not bool((g != 0).any())])
+        del grads
+    counts = train_counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd_want, bwd_want = 2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS
+    require(counts == {**{name: 0 for name in counts}, "flash_attention": fwd_want,
+                       "flash_attention_bwd": bwd_want},
+            f"15b: kernel launches {counts}, want {fwd_want} flash_attention (the forward "
+            f"twice a layer under remat) and {bwd_want} flash_attention_bwd, no other")
+    require(all(math.isfinite(x) for x in losses + gnorms), f"15b: losses {losses}, "
+            f"gradient norms {gnorms}")
+    require(losses[-1] < losses[0], f"15b: the loss did not fall: {losses}")
+    require(not any(zero_grads), f"15b: leaves with an all-zero gradient: {zero_grads}")
+    warm_ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mat_params = sum(p.numel() for p, name in ((p, tree.path_str(path)) for path, p in
+                                               tree.leaves_with_path(params))
+                     if p.dim() > 1 and name != "['embed']")
+    pairs = attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    attn_flops = 3 * 4 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * pairs
+    model_flops = 6 * mat_params * tokens + cfg.num_layers * attn_flops
+    share = model_flops / (warm_ms * 1e-3 * PEAK_BF16_FLOPS)
+    print(f"15b train {TRAIN_ARCH} at full width, {cfg.num_layers} layers "
+          f"({model.param_count()} params, bf16, remat, AdamW lr {cfg.learning_rate}), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+          f"{[round(x, 4) for x in losses]}, gradient norms {[round(x, 4) for x in gnorms]}; "
+          f"step ms {[round(x, 1) for x in step_ms]} (first includes torch's own warm-up), "
+          f"warm median {warm_ms:.1f} ms, {tokens / (warm_ms * 1e-3):.0f} tokens/s, "
+          f"{model_flops:.4g} model FLOPs a step ({mat_params} matrix params x 6 x tokens + "
+          f"attention 3 x forward), {100 * share:.1f}% of {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s; "
+          f"peak memory {peak_gb:.2f} GB; launches a step: flash_attention "
+          f"{counts['flash_attention'] // TRAIN_STEPS}, flash_attention_bwd "
+          f"{counts['flash_attention_bwd'] // TRAIN_STEPS}")
+    # where a step's device time goes (one more step, from the same state;
+    # its launches are not the counted run's)
+    rows_t = device_time_by_kernel(lambda: step(params, state, batches[0]),
+                                   expect="dkdv_kernel")
+    clipped.clear()
+    busy = sum(ms for _, ms, _ in rows_t)
+    print(f"15b step device time by kernel (torch.profiler): {busy:.1f} ms busy of "
+          f"{warm_ms:.1f} ms warm wall ({100 * (1 - busy / warm_ms):.0f}% idle)" if rows_t
+          else "15b step device time by kernel: not measured (no device events)")
+    for kname, ms, calls in rows_t[:12] + [r for r in rows_t[12:]
+                                          if "(anonymous namespace)::" in r[0]]:
+        print(f"  {ms:9.3f} ms {calls:6d} x  {kname[:90]}")
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+    # -- 15c. the float32 gate: one step on the card and on the CPU -----------
+    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    host32 = tree.map(lambda t: t.float(), cut_layers(host_weights, TRAIN_F32_LAYERS, "cpu"))
+    nb = next(token_batches(np.random.default_rng(SEED + 1), TRAIN_F32_BATCH,
+                            TRAIN_F32_SEQ + 1, cfg.vocab_size))
+    opt32 = get_optimizer(cfg32.optimizer, cfg32.learning_rate)
+    runs = {}
+    t0 = time.perf_counter()
+    for device in ("cpu", dev):
+        m32 = Model(cfg32, device=device)
+        p32 = tree.map(lambda t: t.to(device), host32)
+        step32, clipped32 = train_step_capturing(m32)
+        reset_launches()
+        new, _, met = step32(p32, opt32.init(p32), {k: torch.as_tensor(a, device=device)
+                                                    for k, a in nb.items()})
+        runs["cpu" if device == "cpu" else "card"] = (
+            tree.map(lambda t: t.cpu(), new), tree.map(lambda t: t.cpu(), clipped32.pop()),
+            met["loss"].item(), read_launches())
+        del new, p32, m32
+    cpu_s = time.perf_counter() - t0
+    (cp, cg, cl, cpu_counts), (gp, gg, gl, card_counts) = runs["cpu"], runs["card"]
+    require(card_counts["flash_attention"] == 2 * TRAIN_F32_LAYERS
+            and card_counts["flash_attention_bwd"] == TRAIN_F32_LAYERS
+            and cpu_counts["flash_attention"] == 0,
+            f"15c: launches card {card_counts}, CPU {cpu_counts}")
+    loss_err = abs(gl - cl) / abs(cl)
+    require(loss_err <= TRAIN_F32_LOSS_TOL, f"15c: the float32 loss card {gl} vs CPU {cl}")
+    grad_err = max((g - w).abs().max().item() / w.abs().max().item()
+                   for g, w in zip(tree.leaves(gg), tree.leaves(cg)))
+    require(grad_err <= TRAIN_F32_GRAD_TOL, f"15c: a gradient leaf differs card vs CPU by "
+            f"{grad_err:g} of its scale > {TRAIN_F32_GRAD_TOL}")
+    want, _ = opt32.apply(gg, opt32.init(host32), host32)
+    step_err = max((g - w).abs().max().item() / w.abs().max().item()
+                   for g, w in zip(tree.leaves(gp), tree.leaves(want)))
+    require(step_err <= TRAIN_F32_STEP_TOL, f"15c: the card's AdamW step differs from the "
+            f"CPU's on the same gradients by {step_err:g} of a leaf's scale")
+    direct = max((g - w).abs().max().item() / w.abs().max().item()
+                 for g, w in zip(tree.leaves(gp), tree.leaves(cp)))
+    print(f"15c float32 {TRAIN_F32_LAYERS}-layer {TRAIN_ARCH} step, {TRAIN_F32_BATCH} x "
+          f"{TRAIN_F32_SEQ} tokens, card vs CPU: loss {gl:.6f} vs {cl:.6f} ({loss_err:.3g} "
+          f"relative, <= {TRAIN_F32_LOSS_TOL}); gradient leaves within {grad_err:.3g} of "
+          f"their scale (<= {TRAIN_F32_GRAD_TOL}); the AdamW step from the card's gradients "
+          f"within {step_err:.3g} of the CPU's (<= {TRAIN_F32_STEP_TOL}); parameters after "
+          f"the two steps within {direct:.3g} of their scale (not a gate); {cpu_s:.1f} s")
+    del runs, want, host32
+
+    # -- 15d. the families whose kernels have no backward refuse to train ------
+    for arch, item in REFUSED:
+        rcfg = get_reduced(arch)
+        rm = Model(rcfg, device=dev)
+        rp = rm.init(SEED)
+        rstep, _ = train_step_capturing(rm)
+        tok = torch.as_tensor(np.random.default_rng(SEED).integers(0, rcfg.vocab_size,
+                                                                   (2, 64)), device=dev)
+        reset_launches()
+        try:
+            rstep(rp, get_optimizer(rcfg.optimizer, rcfg.learning_rate).init(rp),
+                  {"tokens": tok, "labels": tok})
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            msg = None
+        counts = read_launches()
+        require(msg is not None and f"ROADMAP Queue 1 item {item}" in msg,
+                f"15d: a train step of {arch} on the card did not refuse naming item {item}: "
+                f"{msg!r}")
+        require(counts["wkv6"] == counts["mamba_scan"] == 0,
+                f"15d: {arch}'s refused step launched {counts}")
+        print(f"15d {arch} (reduced) train step on the card refused: {msg}")
+    print(f"training phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu", "replaces": None,
+            "launches": train_counts["flash_attention_bwd"], **rows[0]}
 
 
 if __name__ == "__main__":

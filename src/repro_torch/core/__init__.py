@@ -20,7 +20,7 @@ from repro_torch.core.availability import (
     has_availability,
 )
 from repro_torch.core.baselines import solve_eta, solve_synchronous
-from repro_torch.core.complexity import ModelCost, mlp_cost, mnist_dnn_cost
+from repro_torch.core.complexity import ModelCost, mlp_cost, mnist_dnn_cost, transformer_cost
 from repro_torch.core.energy import BatteryDrift, EnergyModel
 from repro_torch.core.solver_batched import (
     POLICIES,
@@ -97,6 +97,7 @@ __all__ = [
     "max_staleness",
     "mlp_cost",
     "mnist_dnn_cost",
+    "transformer_cost",
     "pod_slice_profile",
     "solve_energy_batched",
     "solve_eta",

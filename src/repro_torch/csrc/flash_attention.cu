@@ -97,6 +97,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -111,6 +112,22 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int skv, int causal,
   if (causal) ok = ok && qpos >= kpos;
   if (window > 0) ok = ok && qpos - kpos < window;
   return ok;
+}
+
+__global__ void fill_kernel(float* __restrict__ x, long long n, float value) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = value;
+}
+
+// No key at all: every output row is 0 and every lse -inf.
+int empty_keys(void* out, float* lse, size_t out_bytes, long long rows, cudaStream_t stream) {
+  cudaError_t e = cudaMemsetAsync(out, 0, out_bytes, stream);
+  if (e != cudaSuccess || lse == nullptr) return (int)e;
+  const long long blocks = (rows + 255) / 256;
+  fill_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(lse, rows,
+                                                                             -INFINITY);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -166,8 +183,9 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ x, long long
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int sq, int skv,
-                 int h, int kvh, int causal, int window) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int sq, int skv, int h, int kvh, int causal,
+                 int window) {
   constexpr int NJ = D / 16;  // output columns a thread
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);  // [D][BQ]
@@ -284,8 +302,10 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float li = l[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    li = fmaxf(li, 1e-30f);
     const int qpos = q_start + ty * 4 + i;
+    if (lse != nullptr && tx == 0 && qpos < sq)
+      lse[(long long)bh * sq + qpos] = li > 0.0f ? m[i] + logf(li) : -INFINITY;
+    li = fmaxf(li, 1e-30f);
     if (qpos < sq) {
       float* o = out + (((long long)b * sq + qpos) * h + hh) * D;
 #pragma unroll
@@ -295,8 +315,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv,
-           int h, int kvh, int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
+           int skv, int h, int kvh, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -305,7 +325,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + BQ - 1) / BQ));
   attention_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), sq, skv, h, kvh, causal, window);
+      static_cast<float*>(out), lse, sq, skv, h, kvh, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -532,8 +552,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-                 int sq, int skv, int h, int kvh, int d, int causal, int window,
-                 float scale_log2) {
+                 float* __restrict__ lse, int sq, int skv, int h, int kvh, int d, int causal,
+                 int window, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   Smem<NC>& sm = *reinterpret_cast<Smem<NC>*>(smem_raw + (((base + 1023) & ~1023u) - base));
@@ -688,8 +708,12 @@ attention_kernel(const __grid_constant__ CUtensorMap q_map,
       float lr = l[r];
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      lr = fmaxf(lr, 1e-30f);
       const int qpos = row0 + 8 * r;
+      // m is in the log2 domain of the scaled scores: lse = ln 2 (m + log2 l)
+      if (lse != nullptr && cq == 0 && qpos < sq)
+        lse[(long long)bh * sq + qpos] =
+            lr > 0.0f ? (m[r] + log2f(lr)) * 0.6931471805599453f : -INFINITY;
+      lr = fmaxf(lr, 1e-30f);
       if (qpos < sq) {
         __nv_bfloat16* orow = out + (((long long)b * sq + qpos) * h + hh) * d;
 #pragma unroll
@@ -724,10 +748,10 @@ int encode(CUtensorMap* map, const void* base, int b, int s, int heads, int d) {
 }
 
 template <int KSTEPS, int NC>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv,
-           int h, int kvh, int d, int causal, int window, cudaStream_t stream) {
-  if (skv <= 0)  // nothing to attend to: every row is 0
-    return (int)cudaMemsetAsync(out, 0, (size_t)b * sq * h * d * 2, stream);
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
+           int skv, int h, int kvh, int d, int causal, int window, cudaStream_t stream) {
+  if (skv <= 0)  // nothing to attend to: every row is 0 (and its lse -inf)
+    return empty_keys(out, lse, (size_t)b * sq * h * d * 2, (long long)b * h * sq, stream);
   CUtensorMap q_map, k_map, v_map;
   int err = encode(&q_map, q, b, sq, h, d);
   if (err == 0) err = encode(&k_map, k, b, skv, kvh, d);
@@ -740,29 +764,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + BQ - 1) / BQ));
   attention_kernel<KSTEPS, NC><<<grid, THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), sq, skv, h, kvh, d, causal, window,
-      scale_log2);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, sq, skv, h, kvh, d, causal,
+      window, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-int dispatch_f32(int d, const void* q, const void* k, const void* v, void* out, int b, int sq,
-                 int skv, int h, int kvh, int causal, int window, cudaStream_t s) {
+int dispatch_f32(int d, const void* q, const void* k, const void* v, void* out, float* lse,
+                 int b, int sq, int skv, int h, int kvh, int causal, int window,
+                 cudaStream_t s) {
+  if (skv <= 0) return empty_keys(out, lse, (size_t)b * sq * h * d * 4, (long long)b * h * sq, s);
   switch (d) {
-    case 64: return cc::launch<64>(q, k, v, out, b, sq, skv, h, kvh, causal, window, s);
-    case 80: return cc::launch<80>(q, k, v, out, b, sq, skv, h, kvh, causal, window, s);
-    case 128: return cc::launch<128>(q, k, v, out, b, sq, skv, h, kvh, causal, window, s);
+    case 64: return cc::launch<64>(q, k, v, out, lse, b, sq, skv, h, kvh, causal, window, s);
+    case 80: return cc::launch<80>(q, k, v, out, lse, b, sq, skv, h, kvh, causal, window, s);
+    case 128: return cc::launch<128>(q, k, v, out, lse, b, sq, skv, h, kvh, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch_bf16(int d, const void* q, const void* k, const void* v, void* out, int b, int sq,
-                  int skv, int h, int kvh, int causal, int window, cudaStream_t s) {
+int dispatch_bf16(int d, const void* q, const void* k, const void* v, void* out, float* lse,
+                  int b, int sq, int skv, int h, int kvh, int causal, int window,
+                  cudaStream_t s) {
   switch (d) {
-    case 64: return tc::launch<4, 1>(q, k, v, out, b, sq, skv, h, kvh, d, causal, window, s);
-    case 80: return tc::launch<5, 2>(q, k, v, out, b, sq, skv, h, kvh, d, causal, window, s);
-    case 128: return tc::launch<8, 2>(q, k, v, out, b, sq, skv, h, kvh, d, causal, window, s);
+    case 64: return tc::launch<4, 1>(q, k, v, out, lse, b, sq, skv, h, kvh, d, causal, window, s);
+    case 80: return tc::launch<5, 2>(q, k, v, out, lse, b, sq, skv, h, kvh, d, causal, window, s);
+    case 128: return tc::launch<8, 2>(q, k, v, out, lse, b, sq, skv, h, kvh, d, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -771,16 +798,20 @@ int dispatch_bf16(int d, const void* q, const void* k, const void* v, void* out,
 
 // q: (b, sq, h, d), k and v: (b, skv, kvh, d), out: (b, sq, h, d), all
 // contiguous and 16-byte aligned, float32 (bf16 = 0) or bfloat16 (bf16 = 1).
-// window <= 0 means no window.
+// window <= 0 means no window. lse, when not null, receives each row's
+// log-sum-exp of its scaled scores, float32 (b, h, sq), -inf for a row with
+// no key to attend to: what the backward (flash_attention_bwd.cu) rebuilds
+// the probabilities from. The serve passes null.
 extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k, const void* v,
                                    void* out, int b, int sq, int skv, int h, int kvh, int d,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, void* lse, void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
   if ((long long)(sq + 63) / 64 > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch_bf16(d, q, k, v, out, b, sq, skv, h, kvh, causal, window, s)
-              : dispatch_f32(d, q, k, v, out, b, sq, skv, h, kvh, causal, window, s);
+  float* l = static_cast<float*>(lse);
+  return bf16 ? dispatch_bf16(d, q, k, v, out, l, b, sq, skv, h, kvh, causal, window, s)
+              : dispatch_f32(d, q, k, v, out, l, b, sq, skv, h, kvh, causal, window, s);
 }
 
 extern "C" const char* kernel_error_string(int code) {

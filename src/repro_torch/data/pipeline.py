@@ -1,8 +1,8 @@
 """Data pipeline: synthetic MNIST-class data + per-learner partitioning.
 
 A NumPy copy of ``repro/data/pipeline.py`` (``Dataset``,
-``synthetic_mnist``, ``FederatedPartitioner``): the same seed gives the
-same samples and the same shard indices, bit for bit.
+``synthetic_mnist``, ``token_batches``, ``FederatedPartitioner``): the same
+seed gives the same samples, token batches and shard indices, bit for bit.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Dataset", "synthetic_mnist", "FederatedPartitioner"]
+__all__ = ["Dataset", "synthetic_mnist", "token_batches", "FederatedPartitioner"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,26 @@ def synthetic_mnist(
         return Dataset(x.astype(np.float32), y)
 
     return make(n, 1), make(n_test, 2)
+
+
+def token_batches(rng: np.random.Generator, batch: int, seq: int, vocab: int):
+    """Endless synthetic LM batches with a learnable bigram structure:
+    ``{"tokens", "labels"}`` int32 (batch, seq - 1), the labels the tokens
+    shifted by one. Each token follows its predecessor's fixed successor
+    with probability 0.7, else is uniform."""
+    perm = rng.permutation(vocab)
+    while True:
+        first = rng.integers(0, vocab, size=(batch, 1))
+        toks = [first]
+        for _ in range(seq - 1):
+            prev = toks[-1]
+            nxt = np.where(
+                rng.random((batch, 1)) < 0.7, perm[prev] % vocab,
+                rng.integers(0, vocab, size=(batch, 1)),
+            )
+            toks.append(nxt)
+        tokens = np.concatenate(toks, axis=1).astype(np.int32)
+        yield {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
 class FederatedPartitioner:

@@ -7,6 +7,11 @@ design, is ``csrc/mamba_scan.cu``. The plain torch version is the step
 loop ``repro_torch.kernels.ref.mamba_scan_ref`` (the oracle, and what
 ``ops.mamba_scan`` runs for a CPU tensor).
 
+The kernel has no backward yet: called where a gradient is needed (grad
+mode on and an input that requires grad) ``mamba_scan_cuda`` raises,
+naming ``BACKWARD_ITEM``; the CPU trains through autograd of the plain
+version.
+
 ``launches`` counts the kernel's launches in this process; set it to 0 to
 start a count.
 """
@@ -20,7 +25,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["STATE_DIMS", "launches", "mamba_scan_cuda"]
+__all__ = ["BACKWARD_ITEM", "STATE_DIMS", "launches", "mamba_scan_cuda"]
+
+BACKWARD_ITEM = "ROADMAP Queue 1 item 12h (the Mamba-scan backward kernel)"
 
 launches = 0
 STATE_DIMS = (4, 8, 16, 32)
@@ -85,6 +92,10 @@ def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch
     given, which may be ``h0`` itself (the state is then updated in
     place)."""
     global launches
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (dt, x, b, c, a, h0)):
+        raise NotImplementedError("mamba_scan_cuda has no backward kernel yet: training Mamba "
+                                  f"layers on the card waits for {BACKWARD_ITEM}")
     _check(dt, x, b, c, a, h0, out_state)
     bsz, s, d = dt.shape
     n = b.shape[-1]

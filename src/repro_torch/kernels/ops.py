@@ -4,9 +4,12 @@ A CPU tensor takes the plain torch version in ``ref`` (attention: the
 chunked scan in ``models.layers``, as the reference's CPU path does; the
 WKV recurrence: the step loop, or its chunked matmul form in
 ``models.rwkv6`` when asked for; the Mamba scan: the step loop; the fused
-SwiGLU: ``layers.swiglu``). A CUDA tensor
-launches the hand-written kernel, or the call raises: there is no switch
-and no fallback to the plain version.
+SwiGLU: ``layers.swiglu``), under autograd where a gradient is asked
+for. A CUDA tensor launches the hand-written kernel, or the call raises:
+there is no switch and no fallback to the plain version. Where a gradient
+is needed on the card, attention runs ``flash_attention.FlashAttention``
+(the forward kernel, then the backward kernel); the WKV-6 and Mamba-scan
+kernels have no backward yet and raise.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda, fed_agg_leaves_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.swiglu import swiglu_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
@@ -35,11 +38,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=Fals
     """GQA attention, q (B, Sq, H, d), k and v (B, Skv, KV, d), positions
     from 0, causal and an optional sliding window. On the CPU the chunked
     online-softmax scan ``models.layers.flash_attention`` with its
-    ``chunk``/``p_bf16``/``q_block`` knobs; on the card the kernel, which
-    ignores them, as the TPU kernel does."""
+    ``chunk``/``p_bf16``/``q_block`` knobs, differentiated by autograd; on
+    the card the kernel, which ignores them, as the TPU kernel does, and
+    when a gradient is needed ``FlashAttention``, whose backward is the
+    backward kernel."""
     if q.device.type == "cpu":
         return layers.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                                       p_bf16=p_bf16, q_block=q_block)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 

@@ -5,7 +5,9 @@ the oracle the CUDA kernels are held to on the card.
 function, so it stays independent of the kernel's hand-derived backward.
 ``flash_attention_ref`` is dense O(S^2) attention, not the chunked scan of
 ``models.layers.flash_attention``: an independent formulation, so that the
-two and the CUDA kernel cross-check. ``wkv6_ref`` is the RWKV-6 recurrence
+two and the CUDA kernel cross-check; ``flash_attention_bwd_ref`` is its
+gradient written out (dQ, dK, dV from q, k, v and dO), the plain version of
+the backward kernel. ``wkv6_ref`` is the RWKV-6 recurrence
 step by step, and ``models.rwkv6.wkv_chunked`` its matmul form;
 ``mamba_scan_ref`` the Mamba (S6) selective scan step by step.
 ``swiglu_ref`` is ``models.layers.swiglu``, in its inputs' dtype.
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.models import layers, mlp
 
-__all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_ref", "mamba_scan_ref",
+__all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_bwd_ref", "flash_attention_ref",
+           "mamba_scan_ref",
            "sum_in_order", "swiglu_ref", "train_agg_step_ref",
            "waterfill_energy_residual_ref", "waterfill_residual_ref", "wkv6_ref"]
 
@@ -46,6 +49,42 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(torch.float32))
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=None):
+    """The gradient of ``flash_attention_ref``, written out densely in
+    float32: returns (dq, dk, dv) in q's dtype. With the scaled scores s,
+    P = exp(s - lse) over the allowed keys, D = rowsum(dO * out):
+    dV = P^T dO and dK = dS^T q / sqrt(d), summed over each kv head's G
+    query heads, dQ = dS k / sqrt(d), dS = P (dO v^T - D). A row with no
+    key to attend to has lse -inf and gradients 0."""
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv, g, d).to(torch.float32)
+    dog = dout.reshape(b, sq, kv, g, d).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, kf) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    mask = mask[None, :, None, None, :]
+    s = torch.where(mask, s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(mask & torch.isfinite(lse), torch.exp(s - lse), 0.0)
+    out = torch.einsum("bqkgc,bckd->bqkgd", p, vf)
+    delta = (dog * out).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqkgd,bckd->bqkgc", dog, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bqkgc,bckd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bqkgc,bqkgd->bckd", ds, qg) * scale
+    dv = torch.einsum("bqkgc,bqkgd->bckd", p, dog)
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def wkv6_ref(r, k, v, w, u, s0=None):

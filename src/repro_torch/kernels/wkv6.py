@@ -9,6 +9,10 @@ one of them, chosen by S alone. The plain torch versions are the step loop
 runs for a CPU tensor) and the chunked matmul form
 ``repro_torch.models.rwkv6.wkv_chunked``.
 
+The kernels have no backward yet: called where a gradient is needed (grad
+mode on and an input that requires grad) ``wkv6_cuda`` raises, naming
+``BACKWARD_ITEM``; the CPU trains through autograd of the plain version.
+
 ``launches`` counts the kernels' launches in this process (either kernel);
 set it to 0 to start a count. ``last_kernel`` names the kernel the last
 launch ran, "step" or "chunked".
@@ -23,8 +27,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["CHUNK", "CHUNKED_MIN_SEQ", "HEAD_DIMS", "PIECES", "SUB_CHUNK", "last_kernel",
-           "launches", "wkv6_cuda"]
+__all__ = ["BACKWARD_ITEM", "CHUNK", "CHUNKED_MIN_SEQ", "HEAD_DIMS", "PIECES", "SUB_CHUNK",
+           "last_kernel", "launches", "wkv6_cuda"]
+
+BACKWARD_ITEM = "ROADMAP Queue 1 item 12g (the WKV-6 backward kernel)"
 
 launches = 0
 last_kernel: str | None = None
@@ -103,6 +109,10 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     launches that kernel whatever S is, for measuring the two against each
     other; None (what the model runs) lets the C entry choose by S."""
     global launches, last_kernel
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, w, u, s0)):
+        raise NotImplementedError("wkv6_cuda has no backward kernel yet: training RWKV-6 on "
+                                  f"the card waits for {BACKWARD_ITEM}")
     _check(r, k, v, w, u, s0, out_state)
     if kernel is not None and kernel not in _KERNELS:
         raise ValueError(f"kernel must be one of {sorted(_KERNELS)} or None, got {kernel!r}")

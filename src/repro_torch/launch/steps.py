@@ -1,0 +1,109 @@
+"""Step functions (train / prefill / decode) and their sharding trees
+(``repro/launch/steps.py``).
+
+``build_train``'s step is one optimizer step: the loss and its gradient
+(autograd; on the card attention's gradient is the backward kernel's), the
+gradients clipped to a global norm, then the optimizer's update. It takes
+and returns plain tensors: the parameters it returns are new tensors, and
+it leaves the ones it was given as they were. The shardings are the port's
+DTensor placements (``sharding.rules.tree_shardings``) of each tree on the
+given mesh, where the reference gives ``NamedSharding``s; on the one-rank
+``"cpu"`` mesh every leaf is replicated. Nothing here places a tensor: the
+trees describe how a multi-card run would lay them out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree
+from repro_torch.compat import PartitionSpec as P
+from repro_torch.configs.base import InputShape
+from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import clip_by_global_norm, get_optimizer
+from repro_torch.sharding.rules import (
+    SERVE_RULES,
+    TRAIN_RULES,
+    input_shardings,
+    placements,
+    resolve_spec,
+    tree_shardings,
+)
+
+__all__ = ["opt_state_axes", "build_train", "build_prefill", "build_decode"]
+
+
+def opt_state_axes(opt_name: str, param_axes):
+    if opt_name == "sgd":
+        return ()
+    if opt_name == "momentum":
+        return param_axes
+    return {"m": param_axes, "v": param_axes, "t": ()}
+
+
+def build_train(model: Model, mesh, rules=None, *, grad_clip: float = 1.0):
+    """Returns (step_fn, in_shardings, out_shardings, (abstract params,
+    abstract optimizer state)); ``step_fn(params, opt_state, batch)`` gives
+    ``(params, opt_state, {"loss", "grad_norm"})``, both metrics float32
+    0-d tensors on the model's device."""
+    cfg = model.cfg
+    rules = rules or TRAIN_RULES
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+
+    def step(params, opt_state, batch):
+        live = tree.map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = model.loss(live, batch)
+            loss.backward()
+        with torch.no_grad():
+            grads = tree.map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, live)
+            grads, gn = clip_by_global_norm(grads, grad_clip)
+            params, opt_state = opt.apply(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gn}
+
+    aparams = model.abstract_params()
+    aopt = opt.init(aparams)
+    pshard = tree_shardings(model.param_axes(), aparams, mesh, rules)
+    oshard = (() if cfg.optimizer == "sgd" else
+              tree_shardings(opt_state_axes(cfg.optimizer, model.param_axes()), aopt, mesh,
+                             rules))
+
+    def batch_shardings(input_specs):
+        return input_shardings(input_specs, mesh, rules)
+
+    metrics_shard = {"loss": placements(P(), mesh), "grad_norm": placements(P(), mesh)}
+    return step, (pshard, oshard, batch_shardings), (pshard, oshard, metrics_shard), (aparams, aopt)
+
+
+def build_prefill(model: Model, mesh, shape: InputShape, rules=None):
+    rules = rules or SERVE_RULES
+
+    @torch.no_grad()
+    def step(params, batch):
+        return model.prefill(params, batch, max_len=shape.seq_len)
+
+    aparams = model.abstract_params()
+    pshard = tree_shardings(model.param_axes(), aparams, mesh, rules)
+
+    def batch_shardings(input_specs):
+        return input_shardings(input_specs, mesh, rules)
+
+    return step, (pshard, batch_shardings), aparams
+
+
+def build_decode(model: Model, mesh, shape: InputShape, rules=None):
+    rules = rules or SERVE_RULES
+
+    @torch.no_grad()
+    def step(params, cache, token, cache_len):
+        return model.decode(params, cache, token, cache_len)
+
+    aparams = model.abstract_params()
+    pshard = tree_shardings(model.param_axes(), aparams, mesh, rules)
+    b = shape.global_batch
+    cache_axes = model.cache_axes(b, shape.seq_len)
+    acache = model.abstract_cache(b, shape.seq_len)
+    cshard = tree_shardings(cache_axes, acache, mesh, rules)
+    tshard = placements(resolve_spec(("batch", None), (b, 1), mesh, rules), mesh)
+    lshard = placements(P(), mesh)
+    return step, (pshard, cshard, tshard, lshard), (aparams, acache)

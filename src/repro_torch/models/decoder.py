@@ -25,6 +25,16 @@ Token or embedding inputs (the vlm's image embeddings ahead of its text),
 the attention, Mamba and RWKV-6 mixers, dense and Mixture-of-Experts FFNs
 and the RWKV-6 channel-mix run here; a prefill returns the MoE
 load-balance loss summed over layers, as the reference's does.
+
+Training: mode ``"train"`` returns the hidden states after the final norm
+and that loss, writes no cache, and with ``cfg.remat`` runs each period
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+its scan body), so a period's activations are recomputed in the backward.
+``lm_loss`` takes the next-token cross entropy a sequence chunk at a time,
+each chunk's logits under ``torch.utils.checkpoint``, so the (B, S, V)
+logits never live whole. In training the stacked leaves of
+``params["blocks"]`` are split with ``torch.unbind``, whose backward
+stacks the periods' gradients once.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, ffn, mamba, rwkv6
@@ -47,6 +58,7 @@ __all__ = [
     "forward",
     "decode_step",
     "lm_logits",
+    "lm_loss",
 ]
 
 
@@ -180,6 +192,19 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """Period views of a tree of stacked leaves, ``[_index(tree, i) for i
+    in range(n)]``, split with one ``torch.unbind`` a leaf: its backward
+    stacks the n gradients once, where n ``select``s would each add a full
+    stacked leaf of zeros."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        subs = {key: _unstack(sub, n) for key, sub in tree.items()}
+        return [{key: sub[i] for key, sub in subs.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _zeros(spec_tree, device):
     """Zeros of a spec tree's shapes and dtypes, made on ``device``."""
     if spec_tree is None:
@@ -229,6 +254,9 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
     """Run the trunk on ``tokens`` (B, S) or, when given, ``embeds`` (B, S,
     d) in their place.
 
+    train:   returns (hidden states after the final norm (B, S, d),
+             aux_loss); no cache, each period rematerialized when
+             ``cfg.remat``;
     prefill: returns (logits of the last position, cache, aux_loss), the
              aux_loss the MoE load-balance loss summed over layers (0
              without MoE); the cache holds ``max(max_len, S)`` positions (the window, for a
@@ -236,9 +264,9 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
     decode:  tokens (B, 1) at position ``cache_len``; returns (logits,
              cache), the cache updated in place.
     """
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not a mode the port runs "
-                                  "(prefill, decode)")
+                                  "(train, prefill, decode)")
     lay = layout_for(cfg)
     cd = cfg.cdtype()
     x = (params["embed"][tokens] if embeds is None else embeds).to(cd)
@@ -250,6 +278,9 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
             raise ValueError("decode needs a cache and cache_len")
         cache_len = int(cache_len)
         positions = torch.full((b, 1), cache_len, dtype=torch.int32, device=dev)
+    elif mode == "train":
+        positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        cache = {"prefix": [None] * len(lay.prefix), "blocks": [None] * lay.p}
     else:
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
         seq = max(max_len or s, s)
@@ -260,21 +291,38 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
         }
 
     kw = dict(mode=mode, positions=positions, cache_len=cache_len, max_len=max_len)
-    # the load-balance losses summed in layer order, as the reference's scan does
+
+    def period(x, aux_total, block_params, block_caches):
+        # the load-balance losses summed in layer order, as the reference's
+        # scan carries them
+        for j, (kind, is_moe) in enumerate(lay.period):
+            x, aux = _apply_layer(cfg, block_params[j], x, kind=kind, is_moe=is_moe,
+                                  cache=block_caches[j], **kw)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (kind, is_moe) in enumerate(lay.prefix):
         x, aux = _apply_layer(cfg, params["prefix"][i], x, kind=kind, is_moe=is_moe,
                               cache=cache["prefix"][i], **kw)
         if aux is not None:
             aux_total = aux_total + aux
+    split = _unstack if mode == "train" else (lambda t, n: [_index(t, i) for i in range(n)])
+    blocks = [split(leaves, lay.n_periods) for leaves in params["blocks"]]
+    caches = [split(c, lay.n_periods) for c in cache["blocks"]]
     for n in range(lay.n_periods):
-        for j, (kind, is_moe) in enumerate(lay.period):
-            x, aux = _apply_layer(cfg, _index(params["blocks"][j], n), x, kind=kind,
-                                  is_moe=is_moe, cache=_index(cache["blocks"][j], n), **kw)
-            if aux is not None:
-                aux_total = aux_total + aux
+        args = (x, aux_total, [blk[n] for blk in blocks], [c[n] for c in caches])
+        if mode == "train" and cfg.remat:
+            x, aux_total = checkpoint(period, *args, use_reentrant=False)
+        else:
+            x, aux_total = period(*args)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "train":
+        # hidden states, not logits: lm_loss makes the (B, S, V) logits a
+        # chunk at a time
+        return x, aux_total
     if mode == "prefill":
         # only the last position's logits are needed to start decoding
         return lm_logits(params, cfg, x[:, -1:]), cache, aux_total
@@ -287,6 +335,43 @@ def lm_logits(params, cfg: ArchConfig, hidden):
     if head is None:
         return torch.einsum("bsd,vd->bsv", hidden, params["embed"].to(cd))
     return torch.einsum("bsd,dv->bsv", hidden, head.to(cd))
+
+
+def _chunk_nll(head, tied: bool, cd, hidden, labels, mask):
+    """(sum of the masked next-token losses, sum of the mask) of one chunk."""
+    eq = "bsd,vd->bsv" if tied else "bsd,dv->bsv"
+    logits = torch.einsum(eq, hidden, head.to(cd)).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: ArchConfig, hidden, labels, mask=None, *, chunk: int = 512):
+    """Chunked next-token cross entropy (``repro/models/decoder.py:294``):
+    the mean over the masked positions of ``logsumexp(logits) - logit of
+    the label``, float32. The sequence is cut into chunks of the largest
+    length not above ``chunk`` that divides S; each chunk's logits are
+    made, and remade in the backward, under ``torch.utils.checkpoint``, so
+    that only one chunk's (B, chunk, V) logits live at a time."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=hidden.device)
+    head = params.get("lm_head")
+    tied = head is None
+    head = params["embed"] if tied else head
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(s // chunk):
+        cut = slice(c * chunk, (c + 1) * chunk)
+        nll, m = checkpoint(_chunk_nll, head, tied, cfg.cdtype(), hidden[:, cut],
+                            labels[:, cut], mask[:, cut].to(torch.float32),
+                            use_reentrant=False)
+        total = total + nll
+        count = count + m
+    return total / torch.clamp_min(count, 1.0)
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, cache_len):

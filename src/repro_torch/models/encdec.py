@@ -21,16 +21,20 @@ port keeps that tree layout (a leading layer axis on every leaf of
 ``params["encoder"]["layers"]``, ``params["decoder"]["layers"]`` and the
 caches) and loops over views of it. A prefill allocates each stacked cache
 once and every layer writes its slice; a decode step updates the
-self-attention slices in place.
+self-attention slices in place. In training (mode ``"train"``) each
+decoder layer, its cross-attention K/V projection included, runs under
+``torch.utils.checkpoint`` when ``cfg.remat``, as the reference's
+``jax.checkpoint`` of its scan body; the encoder runs without.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, ffn
-from repro_torch.models.decoder import _index, _stack, _zeros
+from repro_torch.models.decoder import _index, _stack, _unstack, _zeros
 from repro_torch.models.layers import layer_norm
 from repro_torch.models.params import ParamSpec
 
@@ -110,9 +114,7 @@ def encode(params, cfg: ArchConfig, encoder_embeds):
     x = encoder_embeds.to(cfg.cdtype())
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    layers = params["encoder"]["layers"]
-    for i in range(cfg.num_encoder_layers):
-        lp = _index(layers, i)
+    for lp in _unstack(params["encoder"]["layers"], cfg.num_encoder_layers):
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         y, _ = attention.apply(cfg, lp["attn"], h, positions=positions, mode="train",
                                causal=False, use_rope=False)
@@ -133,6 +135,30 @@ def _cross_kv(cfg: ArchConfig, lp, enc_out, out=None):
     out[0].copy_(k)
     out[1].copy_(v)
     return out
+
+
+def _dec_layer(cfg: ArchConfig, lp, x, positions, kv, *, mode: str, self_c=None,
+               cache_len=None, max_len: int | None = None):
+    """One decoder layer: causal self-attention (writing ``self_c`` in a
+    prefill or decode), cross-attention to ``kv``, the MLP."""
+    h = _ln(x, lp["ln1"], cfg.norm_eps)
+    y, _ = attention.apply(cfg, lp["self_attn"], h, positions=positions, mode=mode,
+                           cache=self_c, cache_len=cache_len, causal=True, use_rope=False,
+                           max_len=max_len)
+    x = x + y
+    h = _ln(x, lp["ln_cross"], cfg.norm_eps)
+    y, _ = attention.apply(cfg, lp["cross_attn"], h, positions=positions,
+                           mode="decode" if mode == "decode" else "train",
+                           cache_len=cache_len, kv_override=kv, use_rope=False)
+    x = x + y
+    h = _ln(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn.dense_apply(cfg, lp["mlp"], h)
+
+
+def _train_layer(cfg: ArchConfig, lp, x, positions, enc_out):
+    """A decoder layer in training, its cross-attention K/V made inside
+    (and so remade in the backward under remat, as the reference's are)."""
+    return _dec_layer(cfg, lp, x, positions, _cross_kv(cfg, lp, enc_out), mode="train")
 
 
 def forward(
@@ -168,32 +194,28 @@ def forward(
             enc_out = encode(params, cfg, encoder_embeds)
         positions = _positions(b, s, dev)
     x = params["embed"][tokens].to(cd) + params["pos_embed"][positions].to(cd)
-    layers = params["decoder"]["layers"]
     if mode == "prefill":
         cache = _zeros(init_cache_specs(cfg, b, max(max_len or s, s)), dev)
 
-    for i in range(cfg.num_layers):
-        lp = _index(layers, i)
-        self_c = _index(cache["self"], i) if cache is not None else None
-        h = _ln(x, lp["ln1"], cfg.norm_eps)
-        y, _ = attention.apply(cfg, lp["self_attn"], h, positions=positions, mode=mode,
-                               cache=self_c, cache_len=cache_len, causal=True,
-                               use_rope=False, max_len=max_len)
-        x = x + y
-        h = _ln(x, lp["ln_cross"], cfg.norm_eps)
-        if mode == "decode":
-            kv = (cache["cross"]["k"][i], cache["cross"]["v"][i])
-        elif mode == "prefill":
-            kv = _cross_kv(cfg, lp, enc_out, out=(cache["cross"]["k"][i],
-                                                  cache["cross"]["v"][i]))
-        else:
-            kv = _cross_kv(cfg, lp, enc_out)
-        y, _ = attention.apply(cfg, lp["cross_attn"], h, positions=positions,
-                               mode="decode" if mode == "decode" else "train",
-                               cache_len=cache_len, kv_override=kv, use_rope=False)
-        x = x + y
-        h = _ln(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn.dense_apply(cfg, lp["mlp"], h)
+    if mode == "train":
+        for lp in _unstack(params["decoder"]["layers"], cfg.num_layers):
+            if cfg.remat:
+                x = checkpoint(_train_layer, cfg, lp, x, positions, enc_out,
+                               use_reentrant=False)
+            else:
+                x = _train_layer(cfg, lp, x, positions, enc_out)
+    else:
+        layers = params["decoder"]["layers"]
+        for i in range(cfg.num_layers):
+            lp = _index(layers, i)
+            if mode == "decode":
+                kv = (cache["cross"]["k"][i], cache["cross"]["v"][i])
+            else:
+                kv = _cross_kv(cfg, lp, enc_out, out=(cache["cross"]["k"][i],
+                                                      cache["cross"]["v"][i]))
+            x = _dec_layer(cfg, lp, x, positions, kv, mode=mode,
+                           self_c=_index(cache["self"], i), cache_len=cache_len,
+                           max_len=max_len)
 
     x = _ln(x, params["decoder"]["ln_post"], cfg.norm_eps)
     embed = params["embed"].to(cd)

@@ -1,13 +1,15 @@
-"""Public model API (``repro/models/model.py``), serving: the dense, MoE,
-ssm (RWKV-6 and Mamba), hybrid (Jamba), vlm (InternVL2) and audio
-(Whisper) families.
+"""Public model API (``repro/models/model.py``), training and serving: the
+dense, MoE, ssm (RWKV-6 and Mamba), hybrid (Jamba), vlm (InternVL2) and
+audio (Whisper) families.
 
     m = Model(cfg)                                     # on the card
     params = m.init(seed)
+    loss = m.loss(params, batch)                       # train
     logits, cache, aux = m.prefill(params, batch, max_len=...)
     logits, cache = m.decode(params, cache, token, cache_len)
 
-Batches (tokens int (B, S) tensors on the model's device):
+Batches (tokens int (B, S) tensors on the model's device; training adds
+``labels`` of the tokens' shape):
   dense/moe/ssm/hybrid: {tokens}
   vlm:   {tokens (B, S_text), image_embeds (B, N_img, d)}: the image
          embeddings (the stubbed vision encoder's output) go ahead of the
@@ -20,8 +22,12 @@ prefill's attention runs the hand-written CUDA kernel
 ``Model(cfg, use_pallas=True)`` does on a TPU; on the CPU they run the
 plain versions, the reference's default. There is no switch between them.
 Decode updates the cache it is given in place and returns it. The prefill's
-``aux`` is the MoE load-balance loss summed over layers. ``loss`` (training)
-is ROADMAP Queue 1 item 12e.
+``aux`` is the MoE load-balance loss summed over layers; ``loss`` adds it,
+weighted by ``MOE_AUX_WEIGHT``, to the next-token loss of an MoE model. On
+the card ``loss`` differentiates through the attention kernel's backward
+kernel (``kernels.flash_attention.FlashAttention``); the WKV-6 and Mamba
+kernels have no backward yet and raise under a gradient, so the ssm and
+hybrid families train on the CPU only.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from repro_torch.models.params import (
 )
 
 __all__ = ["Model"]
+
+MOE_AUX_WEIGHT = 0.01
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 SSM_KINDS = ("rwkv6", "mamba")
@@ -96,6 +104,25 @@ class Model:
         cd = self.cfg.cdtype()
         tok = params["embed"][batch["tokens"]].to(cd)
         return torch.cat([batch["image_embeds"].to(cd), tok], dim=1)
+
+    def loss(self, params, batch):
+        """The mean next-token cross entropy of ``batch["labels"]`` (float32,
+        0-d), plus ``MOE_AUX_WEIGHT`` times the load-balance loss for an
+        MoE model; the vlm's image positions carry no loss."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            hidden, _ = encdec.forward(params, cfg, tokens=batch["tokens"],
+                                       encoder_embeds=batch["encoder_embeds"], mode="train")
+            return decoder.lm_loss(params, cfg, hidden, batch["labels"], chunk=cfg.loss_chunk)
+        embeds = self._embeds(params, batch)
+        hidden, aux = decoder.forward(params, cfg, tokens=None if embeds is not None
+                                      else batch["tokens"], embeds=embeds, mode="train")
+        if cfg.family == "vlm":
+            hidden = hidden[:, cfg.num_image_tokens:]
+        loss = decoder.lm_loss(params, cfg, hidden, batch["labels"], chunk=cfg.loss_chunk)
+        if cfg.num_experts:
+            loss = loss + MOE_AUX_WEIGHT * aux
+        return loss
 
     def prefill(self, params, batch, *, max_len: int | None = None):
         """Returns (logits of the last position (B, 1, V), cache, aux)."""

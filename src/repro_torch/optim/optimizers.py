@@ -1,0 +1,116 @@
+"""Optimizers over trees of tensors (``repro/optim/optimizers.py``).
+
+Functional, as the reference's: ``init(params) -> state`` and
+``update(grads, state, params) -> (updates, state)``; ``apply`` adds the
+updates and returns new tensors. The moments are float32 whatever the
+parameters' dtype; the step counter is an int32 0-d tensor on the
+parameters' device, so nothing waits for the host. Three details keep the
+port on the reference's numbers:
+
+* ``clip_by_global_norm`` sums the squares in ``jax.tree_util``'s leaf
+  order (``repro_torch.tree``), and scales each gradient in float32 before
+  casting it back;
+* Adam's bias corrections ``1 - b ** t`` are float32, from ``t`` cast to
+  float32 (``optimizers.py:73-74``), not Python doubles;
+* an update is cast to the parameter's dtype before it is added
+  (``optimizers.py:26, 80``), which decides the bits of bf16 parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import tree
+
+__all__ = ["Optimizer", "sgd", "momentum", "adam", "adamw", "get_optimizer", "clip_by_global_norm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable          # params -> state
+    update: Callable        # (grads, state, params) -> (updates, state)
+
+    def apply(self, grads, state, params):
+        updates, state = self.update(grads, state, params)
+        new_params = tree.map(lambda p, u: (p + u).to(p.dtype), params, updates)
+        return new_params, state
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by ``min(1, max_norm / |grads|)``, |grads|), the norm
+    float32 over every leaf."""
+    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree.leaves(grads)))
+    scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-12), 1.0)
+    return tree.map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
+
+
+def _zeros32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def sgd(lr: float) -> Optimizer:
+    return Optimizer(
+        init=lambda params: (),
+        update=lambda g, s, p: (tree.map(lambda x: -lr * x, g), s),
+    )
+
+
+def momentum(lr: float, beta: float = 0.9) -> Optimizer:
+    def init(params):
+        return tree.map(_zeros32, params)
+
+    def update(g, m, p):
+        m = tree.map(lambda mi, gi: beta * mi + gi.to(torch.float32), m, g)
+        return tree.map(lambda mi: -lr * mi, m), m
+
+    return Optimizer(init=init, update=update)
+
+
+def _adam_core(lr, b1, b2, eps, wd):
+    def init(params):
+        device = next(iter(tree.leaves(params)), torch.empty(())).device
+        return {
+            "m": tree.map(_zeros32, params),
+            "v": tree.map(_zeros32, params),
+            "t": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def update(g, state, params):
+        t = state["t"] + 1
+        m = tree.map(lambda mi, gi: b1 * mi + (1 - b1) * gi.to(torch.float32), state["m"], g)
+        v = tree.map(lambda vi, gi: b2 * vi + (1 - b2) * torch.square(gi.to(torch.float32)),
+                     state["v"], g)
+        tf = t.to(torch.float32)
+        bc1 = 1 - b1 ** tf
+        bc2 = 1 - b2 ** tf
+
+        def upd(mi, vi, pi):
+            step = (mi / bc1) / (torch.sqrt(vi / bc2) + eps)
+            if wd:
+                step = step + wd * pi.to(torch.float32)
+            return (-lr * step).to(pi.dtype)
+
+        updates = tree.map(upd, m, v, params)
+        return updates, {"m": m, "v": v, "t": t}
+
+    return Optimizer(init=init, update=update)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    return _adam_core(lr, b1, b2, eps, 0.0)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, wd: float = 0.01) -> Optimizer:
+    return _adam_core(lr, b1, b2, eps, wd)
+
+
+def get_optimizer(name: str, lr: float) -> Optimizer:
+    return {
+        "sgd": lambda: sgd(lr),
+        "momentum": lambda: momentum(lr),
+        "adam": lambda: adam(lr),
+        "adamw": lambda: adamw(lr),
+    }[name]()

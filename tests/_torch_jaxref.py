@@ -46,6 +46,11 @@ with _enable_x64_alias():
     from repro.data import pipeline
     from repro.fed import async_engine, multimodel, orchestrator, simulation
     from repro import configs
+    from repro.checkpoint import checkpoint
+    from repro.launch import mesh as launch_mesh
+    from repro.launch import steps as launch_steps
+    from repro.models import encdec
+    from repro.optim import optimizers, schedules
     from repro.kernels import flash_attention as kernels_flash_attention
     from repro.kernels import mamba_scan as kernels_mamba_scan
     from repro.kernels import ops as kernels_ops
@@ -56,12 +61,13 @@ with _enable_x64_alias():
     from repro.models import (attention, decoder, ffn, layers, mamba, mlp, model, params,
                               rwkv6)
 
-__all__ = ["aggregation", "async_engine", "attention", "availability", "configs", "core",
-           "decoder", "energy", "ffn", "kernels_flash_attention", "kernels_mamba_scan",
+__all__ = ["aggregation", "async_engine", "attention", "availability", "checkpoint", "configs",
+           "core", "decoder", "encdec", "energy", "ffn", "kernels_flash_attention", "kernels_mamba_scan",
            "kernels_ops", "kernels_ref", "kernels_swiglu", "kernels_waterfill",
-           "kernels_wkv6", "layers", "loaded", "mamba", "mlp", "model", "multimodel",
-           "orchestrator", "params", "pipeline", "rwkv6", "simulation", "solver_batched",
-           "solver_kkt", "solver_numeric", "staleness", "time_model"]
+           "kernels_wkv6", "launch_mesh", "launch_steps", "layers", "loaded", "mamba", "mlp",
+           "model", "multimodel", "optimizers", "orchestrator", "params", "pipeline", "rwkv6",
+           "schedules", "simulation", "solver_batched", "solver_kkt", "solver_numeric",
+           "staleness", "time_model"]
 
 
 def _is_reference(name: str) -> bool:

@@ -41,6 +41,20 @@ on the same inputs give the same bits. A reduced-width 28-layer dense
 prefill on the card launches it once a layer and decode never, and its
 logits match the CPU's run of the same weights.
 
+Attention's backward kernel (``csrc/flash_attention_bwd.cu``) runs under
+``ops.flash_attention`` whenever a gradient is needed, once a call after
+one forward launch; its dq, dk, dv are held to the dense plain backward
+``ref.flash_attention_bwd_ref`` on every ``FLASH_CASES`` shape, 1e-4 of a
+gradient's scale in float32 and 1e-2 in bf16, and repeat their bits (no
+atomics); the forward's log-sum-exp is held to the dense scores'. One
+``launch.steps.build_train`` step of the reduced dense, MoE and vlm
+configs (head dim 64), remat off and on, runs on the card and on the CPU
+from the same weights: the loss, the gradient norm and every clipped
+gradient leaf agree, the card's parameters are the CPU's AdamW step from
+the card's gradients, and the attention launches are the counts remat
+implies. A train step of RWKV-6 or Jamba on the card raises, naming the
+ROADMAP item of the backward kernel it lacks.
+
 The all-leaf ``fed_agg`` launch sums over k in order with every product
 rounded, so each leaf is bitwise the in-order per-leaf sum, and the
 single-leaf launch; a fused cycle aggregates every leaf in one launch.
@@ -1558,3 +1572,169 @@ def test_encdec_and_vlm_serves_on_the_card_match_the_cpu(dev, arch):
     assert (prefill_n, total_n) == (launches, launches)
     assert (gl - cl).abs().max().item() <= 1e-4 * cl.abs().max().item()
     assert torch.equal(gt, ct)
+
+
+# -- attention's gradient and training ---------------------------------------
+
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _flash_grads(q, k, v, do, causal, window):
+    """(out, dq, dk, dv) through ``ops.flash_attention`` under autograd."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out.backward(do)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_backward_matches_plain(dev, case, dtype):
+    """``ops.flash_attention`` under a gradient runs the forward kernel once
+    and the backward kernel once; dq, dk, dv are held to the dense plain
+    backward ``ref.flash_attention_bwd_ref`` on the same inputs: 1e-4 of each
+    gradient's scale in float32 (dk and dv sum G * Sq terms, in another
+    order), 1e-2 in bf16 (one bf16 step of the outputs, and D taken from the
+    kernel's bf16 output where the plain version uses its float32 one). A
+    gradient's scale is at least 1e-3 max |dO| max |v|, the size of dP and
+    D whose difference dS is: with one key dS, dq and dk are 0 but for
+    rounding. Rows with no key give 0, not NaN."""
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
+    (do,) = _qkv(b, sq, sq, h, h, d, dtype, seed=sq + 1, dev=dev)[:1]
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    _, *got = _flash_grads(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (1, 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    floor = 1e-3 * do.float().abs().max().item() * v.float().abs().max().item()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all()), name
+        scale = max(w.float().abs().max().item(), floor)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= FLASH_BWD_TOL[dtype] * scale, (name, err, scale)
+    if case == "fully_masked_rows":
+        assert bool((got[0][:, 107:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["llama_gqa3_causal", "window_narrower_than_a_tile",
+                                  "whisper_cross"])
+def test_flash_attention_backward_repeats_its_bits(dev, case, dtype):
+    """No atomics: dk and dv of a kv head are summed by one CTA in one order."""
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
+    (do,) = _qkv(b, sq, sq, h, h, d, dtype, seed=sq + 1, dev=dev)[:1]
+    first = _flash_grads(q, k, v, do, causal, window)
+    second = _flash_grads(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_flash_attention_lse_is_the_rows_log_sum_exp(dev):
+    """The forward's lse (what the backward rebuilds p from) against the
+    dense scores' logsumexp, in both kernels; -inf for a row with no key."""
+    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES["fully_masked_rows"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=3, dev=dev)
+        _, lse = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                                      return_lse=True)
+        g = h // kvh
+        s = torch.einsum("bqkgd,bckd->bkgqc", q.float().reshape(b, sq, kvh, g, d),
+                         k.float()) / math.sqrt(d)
+        qp, kp = torch.arange(sq, device=dev)[:, None], torch.arange(skv, device=dev)[None]
+        s = torch.where((qp >= kp) & (qp - kp < window), s, -math.inf)
+        want = torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+        finite = torch.isfinite(want)
+        assert torch.equal(finite, torch.isfinite(lse)) and not bool(finite.all())
+        assert (lse[finite] - want[finite]).abs().max().item() <= 1e-5
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(1, 8, 8, 4, 2, 64, torch.float32, seed=0, dev=dev)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="dout must be like q"):
+        flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, out.bfloat16())
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse[:, :2].contiguous(), out)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_bwd_cuda(*(t[..., :32].contiguous()
+                                                   for t in (q, k, v, out)), lse, out)
+
+
+@pytest.mark.parametrize("arch,remat", [("llama3.2-3b", False), ("llama3.2-3b", True),
+                                        ("qwen2-moe-a2.7b", False),
+                                        ("internvl2-76b", False)])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
+    """One ``build_train`` step (AdamW, clip 1.0) of a reduced config (head
+    dim 64) on the card and on the CPU from the same weights and batch: the
+    loss within 1e-5 relative, the gradient norm within 1e-4, every
+    gradient leaf (captured where the step clips it) within 1e-4 of its
+    scale. The parameters after the step are held to the CPU's AdamW step
+    from the card's own clipped gradients, within 1e-5 of their scale: the
+    first Adam step divides each gradient by its own size (plus eps
+    1e-8), so where a gradient is near eps a rounding of it moves the
+    parameter by a share of the learning rate, and the two devices' steps
+    are compared through their gradients instead. On the card the
+    attention kernel's forward runs once a layer (twice under remat) and
+    its backward once."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_mesh_by_name
+    from repro_torch.optim.optimizers import get_optimizer
+
+    clipped = []
+    clip = steps.clip_by_global_norm
+
+    def capture(grads, max_norm):
+        out = clip(grads, max_norm)
+        clipped.append(out[0])
+        return out
+
+    monkeypatch.setattr(steps, "clip_by_global_norm", capture)
+    cfg = dataclasses.replace(get_reduced(arch), remat=remat)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    rng = np.random.default_rng(0)
+    nb = train.with_extras(cfg, next(token_batches(rng, 2, 65, cfg.vocab_size)), rng, 64)
+    runs = {}
+    for device in ("cpu", dev):
+        model = Model(cfg, device=device)
+        params = model.init(0)
+        step = steps.build_train(model, make_mesh_by_name("cpu"))[0]
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        new, _, met = step(params, opt.init(params), {k: torch.as_tensor(a, device=device)
+                                                      for k, a in nb.items()})
+        runs[str(device)] = (new, clipped[-1], met["loss"].item(), met["grad_norm"].item(),
+                             flash_attention.launches, flash_attention.bwd_launches)
+    (cp, cgr, cl, cg, *cpu_counts), (gp, ggr, gl, gg, fwd, bwd) = runs["cpu"], runs[str(dev)]
+    assert cpu_counts == [0, 0]
+    assert (fwd, bwd) == ((2 if remat else 1) * cfg.num_layers, cfg.num_layers)
+    assert abs(gl - cl) <= 1e-5 * abs(cl) and abs(gg - cg) <= 1e-4 * cg
+    for g, w in zip(tree.leaves(ggr), tree.leaves(cgr)):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+        assert w.abs().max().item() > 0
+    params = Model(cfg, device="cpu").init(0)
+    want, _ = opt.apply(tree.map(lambda g: g.cpu(), ggr), opt.init(params), params)
+    for g, w in zip(tree.leaves(gp), tree.leaves(want)):
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("arch,item", [("rwkv6-7b", "12g"), ("jamba-v0.1-52b", "12h")])
+def test_ssm_and_hybrid_training_refuses_on_the_card(dev, arch, item):
+    """The WKV-6 and Mamba-scan kernels have no backward yet: a train step
+    on the card raises, naming the ROADMAP item that brings it, instead of
+    training with a gradient missing. Without a gradient they still serve."""
+    from repro_torch import tree
+
+    cfg = get_reduced(arch)
+    model = Model(cfg, device=dev)
+    params = tree.map(lambda p: p.requires_grad_(True), model.init(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)),
+                             device=dev)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+        model.loss(params, {"tokens": tokens, "labels": tokens})
+    with torch.no_grad():
+        logits, _, _ = model.prefill(params, {"tokens": tokens})
+    assert bool(torch.isfinite(logits).all())
