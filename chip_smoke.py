@@ -224,13 +224,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
         ``ref.flash_attention_bwd_ref`` and autograd of the dense oracle,
         float32) at Llama-3.2-3B's training shape (bf16 and float32), d 80
         with a window narrower than a tile, Whisper's encoder and cross
-        shapes and rows that see no key; timed against the plain backward,
-        its bound (2.5x the forward's FLOPs) and SDPA's backward;
+        shapes and rows that see no key; bf16 must run the tensor-core
+        kernels and float32 the CUDA-core ones (``last_bwd_kernel``);
+        timed against the plain backward, its bound (2.5x the forward's
+        FLOPs) and SDPA's backward, with the FLOPs it executes and its
+        kernels' ptxas registers (15b's profile splits it by pass);
      b. ``launch.steps.build_train`` on Llama-3.2-3B at full width, its
         depth cut to 4 layers (phase 8's weights), bf16, remat, AdamW at
         3e-4, 8 steps of 4 x 2048 tokens from ``token_batches``: losses
         finite and falling, every leaf's gradient nonzero, 8 forward and 4
-        backward attention launches a step; step ms, tokens/s, the share of
+        backward attention launches a step (the backward's on the tensor
+        cores); step ms, tokens/s, the share of
         989 TFLOP/s, peak memory and the device time by kernel;
      c. float32 at 2 layers, one step on the card and one on the CPU from
         the same weights and batch: the loss, every gradient leaf, and the
@@ -506,6 +510,30 @@ POP_FMA_CASES = [((3.0, 1.0, 0.0), 0.1), ((4.0, 1.0, 2.0), 0.1), ((0.0, 4.0, 3.0
                  ((0.0, 1.0, 3.0), 0.1)]
 
 
+# each source's nvcc output of this run's build (phase 1)
+BUILD_LOGS: dict[str, str] = {}
+
+
+def ptxas_entries(log: str) -> list[tuple[str, str]]:
+    """(kernel, ptxas line) for every register and spill line of a build
+    log, each kernel named from its mangled entry as namespace::name<args>."""
+    out, entry = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            m = re.search(r"(\d+)(tc|cc)(\d+)(\w+?)I((?:Li\d+E)+)", mangled)
+            if m:
+                args = ", ".join(re.findall(r"Li(\d+)E", m.group(5)))
+                entry = f"{m.group(2)}::{m.group(4)}<{args}>"
+            else:  # a kernel templated on its element type
+                m = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+                kind = "bf16" if "bfloat16" in mangled else "float"
+                entry = f"{m.group(1)}<{kind}>" if m else mangled
+        elif "registers" in line or "spill" in line:
+            out.append((entry, line.strip()))
+    return out
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, after one warm-up,
     from CUDA events on the current stream."""
@@ -699,6 +727,7 @@ def main() -> int:
     print(smi)
     t0 = time.perf_counter()
     logs = _build.build_all()
+    BUILD_LOGS.update(logs)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s for {', '.join(_build.SOURCES)}")
     for name, log in logs.items():
@@ -3694,7 +3723,12 @@ def bwd_case(dev, name, b, s, h, kvh, d, dtype, causal, window, skv, iters) -> d
                                  (b, s, h, d)))
     kw = dict(causal=causal, window=window)
     out, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    flash_attention.last_bwd_kernel = None
     got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    route = flash_attention.last_bwd_kernel
+    require(route == ("tc" if dtype == torch.bfloat16 else "cc"),
+            f"15a {name}: {str(dtype).removeprefix('torch.')} ran the backward's {route} "
+            f"kernels")
     plain = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), **kw)
     # autograd of the dense oracle (whose rows with no key are NaN: the
     # chunked scan there, which gives them 0)
@@ -3747,6 +3781,7 @@ def bwd_case(dev, name, b, s, h, kvh, d, dtype, causal, window, skv, iters) -> d
     del o
     pairs = attention_pairs(s, skv, causal, window)
     flops = 10 * b * h * d * pairs   # 2.5 x the forward's 4 B H d pairs
+    executed = bwd_executed_flops(b, s, skv, h, d, causal, window, route)
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
@@ -3755,14 +3790,35 @@ def bwd_case(dev, name, b, s, h, kvh, d, dtype, causal, window, skv, iters) -> d
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
     print(f"flash_attention_bwd {name}: B {b}, S {s}"
           f"{'' if skv == s else f' against Skv {skv}'}, {h}/{kvh} heads, d {d}, "
-          f"{str(dtype).removeprefix('torch.')}, causal {causal}, window {window}: "
-          f"max_abs_err {err:.3g} (<= {tol} of each gradient's scale), plain backwards "
-          f"agree to {plain_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"backward {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}:"
-          f" {flops:.4g} FLOPs at {peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at "
-          f"{flops / (ms * 1e9):.1f} TFLOP/s of the gradient's 2.5x-forward FLOPs, sdpa at "
-          f"{flops / (library_ms * 1e9):.1f}")
+          f"{str(dtype).removeprefix('torch.')}, causal {causal}, window {window}, "
+          f"{route} kernels: max_abs_err {err:.3g} (<= {tol} of each gradient's scale), "
+          f"plain backwards agree to {plain_err:.3g}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} FLOPs at "
+          f"{peak / 1e12:g} TFLOP/s, {nbytes:.4g} bytes); kernel at {flops / (ms * 1e9):.1f} "
+          f"TFLOP/s of the gradient's 2.5x-forward FLOPs, {executed / (ms * 1e9):.1f} of the "
+          f"{executed:.4g} it executes; sdpa at {flops / (library_ms * 1e9):.1f}")
     return row
+
+
+def bwd_executed_flops(b, sq, skv, h, d, causal, window, route) -> int:
+    """The FLOPs attention's backward kernels execute: every product over
+    each live 64 x 64 (query, key) tile pair of every (b, head), masked
+    entries included. "tc": S and dP (d rounded up to 16) and the five
+    products with a register operand (dV, dK, dQ; P and dS in two pieces)
+    over d rounded up to 64 columns; "cc": seven products of 64 x 64 x d."""
+    import numpy as np
+
+    qt = np.arange((sq + 63) // 64)[:, None] * 64
+    kt = np.arange((skv + 63) // 64)[None] * 64
+    live = np.ones((qt.size, kt.size), bool)
+    if causal:
+        live &= qt + 63 >= kt
+    if window:
+        live &= qt - (kt + 63) < window
+    per_pair = (2 * 64 * 64 * (4 * 16 * -(-d // 16) + 6 * 64 * -(-d // 64)) if route == "tc"
+                else 7 * 2 * 64 * 64 * d)
+    return int(live.sum()) * b * h * per_pair
 
 
 def train_step_capturing(model):
@@ -3800,11 +3856,14 @@ def train_phase(dev, host_weights) -> dict:
     from repro_torch import tree
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.pipeline import token_batches
+    from repro_torch.kernels import flash_attention
     from repro_torch.models.model import Model
     from repro_torch.optim.optimizers import get_optimizer
 
     t_phase = time.perf_counter()
     # -- 15a. the backward kernel against its plain versions -------------------
+    for kname, line in ptxas_entries(BUILD_LOGS.get("flash_attention_bwd", "")):
+        print(f"15a ptxas flash_attention_bwd {kname}: {line}")
     rows = [bwd_case(dev, *case) for case in BWD_CASES]
     torch.cuda.empty_cache()
 
@@ -3839,6 +3898,9 @@ def train_phase(dev, host_weights) -> dict:
                            if not bool((g != 0).any())])
         del grads
     counts = train_counts = read_launches()
+    require(flash_attention.last_bwd_kernel == "tc",
+            f"15b: the step's attention backward ran the {flash_attention.last_bwd_kernel} "
+            f"kernels, not the tensor-core ones")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     fwd_want, bwd_want = 2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS
     require(counts == {**{name: 0 for name in counts}, "flash_attention": fwd_want,
@@ -3956,7 +4018,8 @@ def train_phase(dev, host_weights) -> dict:
         print(f"15d {arch} (reduced) train step on the card refused: {msg}")
     print(f"training phase 15: {time.perf_counter() - t_phase:.1f} s")
 
-    return {"name": "flash_attention_bwd", "route": "cuda",
+    return {"name": "flash_attention_bwd (bf16: tc, wgmma from TMA rings, warp-specialised, "
+                    "P and dS in two bf16 pieces, no atomics)", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu", "replaces": None,
             "launches": train_counts["flash_attention_bwd"], **rows[0]}
 

@@ -362,79 +362,6 @@ constexpr size_t smem_bytes() {
   return sizeof(Smem<NC>) + 1024;  // + room to align the base to the 1024-byte swizzle atom
 }
 
-// S (64 x 128, float32) += A (64 x 16, bf16, shared memory, K-major) x
-// B (128 x 16, bf16, shared memory, K-major)^T.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// The same product written over d: its first k-step. The outputs are
-// write-only, so d's old values are dead before it.
-__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64], uint64_t desc_a,
-                                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(0));
-}
-
-// O (64 x 64, float32) += A (64 x 16, bf16, registers) x B (16 x 64, bf16,
-// shared memory, MN-major: the descriptor's transpose bit is set).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x on the MUFU; 0 below 2^-126
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers 1 and 2 order the two consumer warpgroups' wgmma phases:
 // warpgroup w issues between bar.sync on barrier 1 + w and bar.arrive on the
 // other's, so one warpgroup's products run while the other does its softmax.
@@ -525,25 +452,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&o)[NC][32]
         o[c][4 * j + 2 * r + 1] *= corr;
       }
   }
-}
-
-// p as the A operand of k-step kk (keys 16 kk .. 16 kk + 15): registers
-// {row g, cols 2cq}, {row g + 8, cols 2cq}, {row g, cols 8 + 2cq},
-// {row g + 8, cols 8 + 2cq}, each split into bf16 hi = bf16(p) and
-// lo = bf16(p - hi).
-__device__ __forceinline__ void split_p(const float (&sc)[64], uint32_t (&p_hi)[8][4],
-                                        uint32_t (&p_lo)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int idx = 4 * (2 * kk + (a >> 1)) + 2 * (a & 1);
-      const float x = sc[idx], y = sc[idx + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
-      const float2 hf = __bfloat1622float2(hi);
-      p_hi[kk][a] = bf16x2_bits(hi);
-      p_lo[kk][a] = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-    }
 }
 
 // KSTEPS: k-steps of 16 in Q K^T (d / 16); NC: 64-column boxes a row.
@@ -657,7 +565,7 @@ attention_kernel(const __grid_constant__ CUtensorMap q_map,
       release(&sm.k_empty[0]);
       softmax_tile<NC>(sc, o, m, l, row0, kb_lo * BK, cq, need_mask(kb_lo), skv, causal,
                        window, scale_log2);
-      split_p(sc, p_hi, p_lo);
+      split_bf16<8>(sc, p_hi, p_lo);
 
       for (int i = 1; i < n; ++i) {
         const int sv = (i - 1) % STAGES, sk = i % STAGES;
@@ -684,7 +592,7 @@ attention_kernel(const __grid_constant__ CUtensorMap q_map,
         release(&sm.k_empty[sk]);
         softmax_tile<NC>(sc, o, m, l, row0, (kb_lo + i) * BK, cq, need_mask(kb_lo + i), skv,
                          causal, window, scale_log2);
-        split_p(sc, p_hi, p_lo);
+        split_bf16<8>(sc, p_hi, p_lo);
       }
 
       const int sv = (n - 1) % STAGES;
@@ -730,32 +638,15 @@ attention_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// A (b, s, heads, d) bf16 tensor as dims {d, heads, s, b} with a box of 64
-// columns, one head and BK rows, 128-byte swizzled; out-of-bounds reads are 0.
-int encode(CUtensorMap* map, const void* base, int b, int s, int heads, int d) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {CHUNK, 1, BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int KSTEPS, int NC>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
            int skv, int h, int kvh, int d, int causal, int window, cudaStream_t stream) {
   if (skv <= 0)  // nothing to attend to: every row is 0 (and its lse -inf)
     return empty_keys(out, lse, (size_t)b * sq * h * d * 2, (long long)b * h * sq, stream);
   CUtensorMap q_map, k_map, v_map;
-  int err = encode(&q_map, q, b, sq, h, d);
-  if (err == 0) err = encode(&k_map, k, b, skv, kvh, d);
-  if (err == 0) err = encode(&v_map, v, b, skv, kvh, d);
+  int err = encode_bshd(&q_map, q, b, sq, h, d, BQ);
+  if (err == 0) err = encode_bshd(&k_map, k, b, skv, kvh, d, BK);
+  if (err == 0) err = encode_bshd(&v_map, v, b, skv, kvh, d, BK);
   if (err != 0) return err;
   constexpr size_t smem = smem_bytes<NC>();
   cudaError_t e = cudaFuncSetAttribute(attention_kernel<KSTEPS, NC>,

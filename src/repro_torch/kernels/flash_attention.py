@@ -14,7 +14,9 @@ chunked scan ``repro_torch.models.layers.flash_attention``, which
 
 The backward (``csrc/flash_attention_bwd.cu``) has no TPU counterpart: the
 reference trains through ``jax.grad`` of its plain attention, and JAX
-cannot differentiate the Pallas kernel. ``FlashAttention`` is the
+cannot differentiate the Pallas kernel. bf16 operands run its tensor-core
+kernels (wgmma, TMA rings), float32 operands its CUDA-core ones; nothing
+falls back from one to the other. ``FlashAttention`` is the
 ``torch.autograd.Function`` that ``ops.flash_attention`` runs on the card
 whenever a gradient is needed: its forward launches the forward kernel,
 which also writes each row's log-sum-exp, and its backward launches the
@@ -22,7 +24,10 @@ backward kernel. Its plain version is ``ref.flash_attention_bwd_ref``.
 
 ``launches`` counts the forward kernel's launches in this process and
 ``bwd_launches`` the backward's (one a call: its row pass, dK/dV and dQ
-kernels); set them to 0 to start a count.
+kernels); set them to 0 to start a count. ``last_bwd_kernel`` names the
+kernels the backward's last call launched, as its C entry reports them:
+"tc" (tensor cores) or "cc" (CUDA cores); None for a call with nothing to
+launch.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["FlashAttention", "HEAD_DIMS", "bwd_launches", "flash_attention_bwd_cuda",
-           "flash_attention_cuda", "launches"]
+           "flash_attention_cuda", "last_bwd_kernel", "launches"]
 
 launches = 0
 bwd_launches = 0
+last_bwd_kernel: str | None = None
 HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,6 +66,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                                         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.flash_attention_bwd_last_kernel.restype = ctypes.c_int
+    lib.flash_attention_bwd_last_kernel.argtypes = []
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -127,9 +135,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype and shapes from the forward's inputs, its output ``out``
     and ``lse`` (``return_lse=True``) and the output's gradient ``dout``
     (all of the forward's layouts; ``dout`` of q's dtype). Every sum is
-    taken in float32; dk and dv sum the G query heads of each kv head in
+    taken in float32 (bf16 products on the tensor cores, with P and dS in
+    two bf16 pieces); dk and dv sum the G query heads of each kv head in
     one CTA, without atomics."""
-    global bwd_launches
+    global bwd_launches, last_bwd_kernel
     _check(q, k, v, window)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -155,6 +164,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        int(causal), int(window or 0), stream)
     _build.check(lib, code, "flash_attention backward kernel launch")
     bwd_launches += 1
+    last_bwd_kernel = {0: "cc", 1: "tc"}.get(lib.flash_attention_bwd_last_kernel())
     return dq, dk, dv
 
 

@@ -45,8 +45,11 @@ Attention's backward kernel (``csrc/flash_attention_bwd.cu``) runs under
 ``ops.flash_attention`` whenever a gradient is needed, once a call after
 one forward launch; its dq, dk, dv are held to the dense plain backward
 ``ref.flash_attention_bwd_ref`` on every ``FLASH_CASES`` shape, 1e-4 of a
-gradient's scale in float32 and 1e-2 in bf16, and repeat their bits (no
-atomics); the forward's log-sum-exp is held to the dense scores'. One
+gradient's scale in float32 and 1e-2 in bf16 (bf16 on the tensor-core
+kernels, float32 on the CUDA-core ones, ``flash_attention.last_bwd_kernel``
+names which), and repeat their bits (no atomics), also at the bf16
+training shape cut to B 1; the forward's log-sum-exp is held to the dense
+scores'. One
 ``launch.steps.build_train`` step of the reduced dense, MoE and vlm
 configs (head dim 64), remat off and on, runs on the card and on the CPU
 from the same weights: the loss, the gradient norm and every clipped
@@ -795,6 +798,16 @@ FLASH_CASES = {
     # cross-attention (a prompt's queries against the frames)
     "whisper_encoder": (1, 1500, 1500, 12, 12, 64, False, None),
     "whisper_cross": (2, 64, 1500, 12, 12, 64, False, None),
+    # both sides of the backward's tensor-core tiles (64 rows, 128 a CTA),
+    # G = 8 heads on one query row, and d 80 causal past many tiles
+    "tile_edge_127": (1, 127, 127, 4, 2, 128, True, None),
+    "tile_edge_128": (2, 128, 128, 4, 2, 64, True, None),
+    "tile_edge_129": (1, 129, 129, 6, 2, 80, True, None),
+    "tile_edge_257": (1, 257, 257, 4, 1, 128, True, None),
+    "tile_edge_cross_127_257": (1, 127, 257, 4, 2, 64, False, None),
+    "tile_edge_cross_257_129": (1, 257, 129, 4, 4, 128, False, None),
+    "gqa8_one_row": (2, 1, 257, 8, 1, 128, False, None),
+    "d80_causal_1000": (1, 1000, 1000, 4, 2, 80, True, None),
 }
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -1598,14 +1611,17 @@ def test_flash_attention_backward_matches_plain(dev, case, dtype):
     kernel's bf16 output where the plain version uses its float32 one). A
     gradient's scale is at least 1e-3 max |dO| max |v|, the size of dP and
     D whose difference dS is: with one key dS, dq and dk are 0 but for
-    rounding. Rows with no key give 0, not NaN."""
+    rounding. Rows with no key give 0, not NaN. bf16 runs the tensor-core
+    kernels and float32 the CUDA-core ones, as the C entry reports."""
     b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
     q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
     (do,) = _qkv(b, sq, sq, h, h, d, dtype, seed=sq + 1, dev=dev)[:1]
     flash_attention.launches = flash_attention.bwd_launches = 0
+    flash_attention.last_bwd_kernel = None
     _, *got = _flash_grads(q, k, v, do, causal, window)
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention.bwd_launches) == (1, 1)
+    assert flash_attention.last_bwd_kernel == ("tc" if dtype == torch.bfloat16 else "cc")
     want = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
     floor = 1e-3 * do.float().abs().max().item() * v.float().abs().max().item()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1618,12 +1634,20 @@ def test_flash_attention_backward_matches_plain(dev, case, dtype):
         assert bool((got[0][:, 107:] == 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ["llama_gqa3_causal", "window_narrower_than_a_tile",
-                                  "whisper_cross"])
+# Llama-3.2-3B's training shape (chip_smoke.py phase 15) cut to B 1
+FLASH_TRAIN_B1 = (1, 2048, 2048, 24, 8, 128, True, None)
+
+
+@pytest.mark.parametrize("case,dtype", [
+    pytest.param(case, dtype, id=f"{case}-{name}")
+    for case in ("llama_gqa3_causal", "window_narrower_than_a_tile", "whisper_cross")
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+] + [pytest.param("llama_train_b1", torch.bfloat16, id="llama_train_b1-bf16")])
 def test_flash_attention_backward_repeats_its_bits(dev, case, dtype):
-    """No atomics: dk and dv of a kv head are summed by one CTA in one order."""
-    b, sq, skv, h, kvh, d, causal, window = FLASH_CASES[case]
+    """No atomics: dk and dv of a kv head are summed by one CTA in one order,
+    and dq by one CTA a query block."""
+    b, sq, skv, h, kvh, d, causal, window = (FLASH_TRAIN_B1 if case == "llama_train_b1"
+                                             else FLASH_CASES[case])
     q, k, v = _qkv(b, sq, skv, h, kvh, d, dtype, seed=sq + skv + d, dev=dev)
     (do,) = _qkv(b, sq, sq, h, h, d, dtype, seed=sq + 1, dev=dev)[:1]
     first = _flash_grads(q, k, v, do, causal, window)
