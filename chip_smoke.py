@@ -239,12 +239,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
      c. float32 at 2 layers, one step on the card and one on the CPU from
         the same weights and batch: the loss, every gradient leaf, and the
         card's AdamW step against the CPU's on the same gradients;
-     d. a train step of ``rwkv6-7b`` and of Jamba's period refuses on the
-        card, naming the ROADMAP item of its missing backward kernel.
+     d. the WKV-6 and Mamba-scan backward kernels (``csrc/wkv6_bwd.cu``,
+        ``csrc/mamba_scan_bwd.cu``, no TPU counterpart) against both their
+        plain versions (the written-out ``ref.wkv6_bwd_ref`` /
+        ``ref.mamba_scan_bwd_ref`` and autograd of the step loops) at the
+        training shapes (WKV: B 4, S 2048, 64 heads of 64; scan: B 4, S
+        2048, D 8192, N 16), bf16 and float32, S = 1001 (ragged against
+        both kernels' 8-step sub-chunks) with a starting state and a
+        final-state gradient, the decays "zero" and "one" of 9a
+        and "near1" and "underflow" of 10a: float32 gradients to 1e-4 of
+        their scale, bf16 ones to 2^-8; their bits repeat from call to
+        call; kernel (CUDA events), plain and bound times and each
+        kernel's ptxas registers and spills (no PyTorch call computes
+        either gradient);
+     e. ``launch.steps.build_train`` on RWKV-6 7B cut to 4 of 32 layers
+        (phase 9's weights) and on Jamba cut to the period's first 2
+        layers, Mamba+MoE and Mamba+dense (phase 10's), as 15b: bf16,
+        remat, AdamW at 3e-4 (the step updates the parameters and moments
+        in place, as the launcher's does), 4 steps of 4 x 2048 tokens;
+        losses finite and falling, every leaf's gradient nonzero, launches
+        exact (8 ``wkv6`` and 4 ``wkv6_bwd`` a step; 4 ``mamba_scan`` and
+        2 ``mamba_scan_bwd``); step ms, tokens/s, the share of 989 TFLOP/s,
+        peak memory and device ms by kernel;
+     f. one float32 step of each family's reduced config on the card and
+        on the CPU, gated as c.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b and 15b-d each
-set the kernels' launch counters to 0 just before the run they check and
-read them just after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b and 15b-f each
+set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd`` among
+them) to 0 just before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -398,9 +420,39 @@ BWD_CASES = [
      1500, 3),
     ("fully masked rows", 2, 300, 4, 1, 64, "float32", True, 8, 100, 3),
 ]
-# 15d: families whose kernels have no backward yet, with the ROADMAP item
-# their refusal names
-REFUSED = [("rwkv6-7b", "12g"), ("jamba-v0.1-52b", "12h")]
+# 15d: the WKV-6 and Mamba-scan backward kernels against their two plain
+# versions (the written-out backward and autograd of the step loop, both
+# float32), at the training shapes and edge cases. A gradient returned in
+# float32 to 1e-4 of its scale, one returned in bf16 to one bf16 step
+# (2^-8); a scale is at least 1e-3 max |dy|
+SSM_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8}
+# name, B, S, heads, head dim, r/k/v dtype, with s0, with ds_last, decays
+# (as 9a's), timed calls; the first is the training shape (bf16, no state,
+# as the 15e step runs it) and gives the kernels line its row
+WKV_BWD_CASES = [
+    ("rwkv6-7b train", TRAIN_BATCH, TRAIN_SEQ, 64, 64, "bfloat16", False, False, "", 5),
+    ("rwkv6-7b train", TRAIN_BATCH, TRAIN_SEQ, 64, 64, "float32", False, False, "", 3),
+    ("ragged, state", TRAIN_BATCH, 1001, 64, 64, "bfloat16", True, True, "", 3),
+    ("decay zero", TRAIN_BATCH, 1001, 64, 64, "float32", True, True, "zero", 3),
+    ("decay near 1", TRAIN_BATCH, 1001, 64, 64, "float32", True, True, "one", 3),
+]
+# name, B, S, d_inner, d_state, x dtype, with h0, with dh_last, decays (as
+# 10a's), timed calls; the first is the training shape
+MAMBA_BWD_CASES = [
+    ("jamba train", TRAIN_BATCH, TRAIN_SEQ, 8192, 16, "bfloat16", False, False, "", 5),
+    ("jamba train", TRAIN_BATCH, TRAIN_SEQ, 8192, 16, "float32", False, False, "", 3),
+    ("ragged, state", TRAIN_BATCH, 1001, 8192, 16, "bfloat16", True, True, "", 3),
+    ("decays near 1", TRAIN_BATCH, TRAIN_SEQ, 8192, 16, "float32", False, False, "near1", 3),
+    ("underflowing decays", TRAIN_BATCH, 1001, 8192, 16, "bfloat16", True, True, "underflow",
+     3),
+]
+# 15e: RWKV-6 7B and Jamba at full width, their depth cut (phase 9's and 10's
+# weights), trained as 15b's Llama: bf16, remat, AdamW at 3e-4,
+# SSM_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+RWKV_TRAIN_LAYERS, JAMBA_TRAIN_LAYERS, SSM_TRAIN_STEPS = 4, 2, 4
+# 15f: one float32 step of each family's reduced config, card vs CPU, gated
+# as 15c
+SSM_F32_BATCH, SSM_F32_SEQ = 2, 256
 # phase 9: the RWKV-6 serve at the dense serve's batch and lengths. The WKV
 # kernel and the step loop take every product in float32 from the same
 # inputs and sum over i in other orders; the output is float32 for bf16
@@ -525,13 +577,27 @@ def ptxas_entries(log: str) -> list[tuple[str, str]]:
             if m:
                 args = ", ".join(re.findall(r"Li(\d+)E", m.group(5)))
                 entry = f"{m.group(2)}::{m.group(4)}<{args}>"
-            else:  # a kernel templated on its element type
-                m = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+            else:  # a kernel templated on its element type (and sizes)
+                names = [(g.group(2), g.end(2)) for g in
+                         re.finditer(r"(?=(\d+)([a-z_][a-z0-9_]*_kernel)I)", mangled)
+                         if int(g.group(1)) == len(g.group(2))]
                 kind = "bf16" if "bfloat16" in mangled else "float"
-                entry = f"{m.group(1)}<{kind}>" if m else mangled
+                if names:
+                    name, end = names[0]
+                    sizes = re.findall(r"Li(\d+)E", mangled[end:].split("EEv")[0])
+                    entry = f"{name}<{', '.join([kind] + sizes)}>"
+                else:
+                    entry = mangled
         elif "registers" in line or "spill" in line:
             out.append((entry, line.strip()))
     return out
+
+
+def ptxas_of(lib: str, entry: str) -> str:
+    """The ptxas lines (registers, spills) of ``entry`` in ``lib``'s build
+    log, as ``ptxas_entries`` names it."""
+    lines = [line for name, line in ptxas_entries(BUILD_LOGS.get(lib, "")) if name == entry]
+    return "; ".join(lines) or "not in this run's build log"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -646,7 +712,7 @@ def reset_launches() -> None:
     waterfill.launches = waterfill.energy_launches = 0
     train_step.launches = fed_agg.launches = accum_flush.launches = 0
     flash_attention.launches = flash_attention.bwd_launches = wkv6.launches = 0
-    mamba_scan.launches = swiglu.launches = 0
+    wkv6.bwd_launches = mamba_scan.launches = mamba_scan.bwd_launches = swiglu.launches = 0
 
 
 def read_launches() -> dict:
@@ -658,7 +724,8 @@ def read_launches() -> dict:
             "waterfill_energy_residual": waterfill.energy_launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches, "wkv6": wkv6.launches,
-            "mamba_scan": mamba_scan.launches, "swiglu": swiglu.launches}
+            "wkv6_bwd": wkv6.bwd_launches, "mamba_scan": mamba_scan.launches,
+            "mamba_scan_bwd": mamba_scan.bwd_launches, "swiglu": swiglu.launches}
 
 
 def cpu_schedule(train, horizon: float, prob, cfg, drift, counted: str) -> dict:
@@ -878,15 +945,15 @@ def main() -> int:
     async_rows = async_phase(dev, train, test, row_flops=row_flops)
     energy_row = energy_phase(dev, train, test)
     attention_row, whisper_case, train_weights = serve_phase(dev)
-    wkv_row = rwkv_phase(dev)
-    mamba_row = jamba_phase(dev)
+    wkv_row, rwkv_weights = rwkv_phase(dev)
+    mamba_row, jamba_weights = jamba_phase(dev)
     swiglu_row = swiglu_phase(dev)
     multimodel_phase(dev, train, test)
     fleet_rows = fleet_phase(dev, train, test)
     whisper_row = whisper_phase(dev, whisper_case)
     vlm_phase(dev)
-    bwd_row = train_phase(dev, train_weights)
-    del train_weights
+    bwd_rows = train_phase(dev, train_weights, rwkv_weights, jamba_weights)
+    del train_weights, rwkv_weights, jamba_weights
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -910,7 +977,7 @@ def main() -> int:
         swiglu_row,
         *fleet_rows,
         whisper_row,
-        bwd_row,
+        *bwd_rows,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1309,8 +1376,8 @@ def async_phase(dev, train, test, *, row_flops: int) -> list[dict]:
         n_groups = len(cpu[mode]["groups"])
         n_wf = cpu[mode]["solves"]
         fixed = {"fed_agg": 0, "waterfill_residual": n_wf, "waterfill_energy_residual": 0,
-                 "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0,
-                 "swiglu": 0}
+                 "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0, "wkv6_bwd": 0,
+                 "mamba_scan": 0, "mamba_scan_bwd": 0, "swiglu": 0}
         want = {"eager": {"train_agg_step": 0, "accum_flush": 0, **fixed},
                 "grouped": {"train_agg_step": n_groups, "accum_flush": n_groups, **fixed}}
         runs = {}
@@ -1623,7 +1690,8 @@ def energy_phase(dev, train, test) -> dict:
             require(counts == {**want[key], "fed_agg": 0, "waterfill_residual": 0,
                                "waterfill_energy_residual": cpu_s["solves"],
                                "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
-                               "mamba_scan": 0, "swiglu": 0},
+                               "wkv6_bwd": 0, "mamba_scan": 0, "mamba_scan_bwd": 0,
+                               "swiglu": 0},
                     f"{mode} energy {path}: kernel launches {counts}, CPU solves "
                     f"{cpu_s['solves']}")
             hist = res["history"]
@@ -1704,7 +1772,8 @@ def energy_phase(dev, train, test) -> dict:
     require(counts == {"train_agg_step": n_groups, "accum_flush": n_groups,
                        "fed_agg": 0, "waterfill_residual": cpu_s["solves"],
                        "waterfill_energy_residual": 0, "flash_attention": 0,
-                       "flash_attention_bwd": 0, "wkv6": 0, "mamba_scan": 0, "swiglu": 0},
+                       "flash_attention_bwd": 0, "wkv6": 0, "wkv6_bwd": 0, "mamba_scan": 0,
+                       "mamba_scan_bwd": 0, "swiglu": 0},
             f"churn run: kernel launches {counts}, CPU solves {cpu_s['solves']}")
     check_rows(res["history"], cpu_s["rows"], "churn run")
     require(res["summary"]["faults"] == counters, "churn run: counters differ from the CPU's")
@@ -1761,7 +1830,7 @@ def pgd_step(dev, prob) -> int:
     require(counts == {"train_agg_step": 0, "accum_flush": 0, "fed_agg": 0,
                        "waterfill_residual": 0, "waterfill_energy_residual": PGD_RESOLVES,
                        "flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
-                       "mamba_scan": 0, "swiglu": 0},
+                       "wkv6_bwd": 0, "mamba_scan": 0, "mamba_scan_bwd": 0, "swiglu": 0},
             f"budgeted pgd re-solves: kernel launches {counts}, want one energy "
             f"water-filling each of {PGD_RESOLVES}")
     cpu, cpu_ms = resolves("cpu")
@@ -2218,8 +2287,11 @@ def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, decays, iters)
     return row
 
 
-def rwkv_phase(dev) -> dict:
-    """Phase 9; returns the WKV kernel's entry of the kernels line."""
+def rwkv_phase(dev) -> tuple[dict, dict]:
+    """Phase 9; returns the WKV kernel's entry of the kernels line and the
+    first ``RWKV_TRAIN_LAYERS`` layers of the serve's weights (with its
+    embedding, head and norms) copied to the host, which phase 15e
+    trains."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2297,6 +2369,8 @@ def rwkv_phase(dev) -> dict:
           f"(<= {SERVE_BF16_TOL}); greedy agreement with the step loop: first token "
           f"{first:.2f}, all {gen} tokens {agree:.3f}; sample {tokens_out[0, :8].tolist()}")
 
+    train_weights = cut_layers(params, RWKV_TRAIN_LAYERS, "cpu")
+
     # -- 9c. float32 at 2 layers: kernel vs plain, tight -----------------------
     cfg32 = dataclasses.replace(cfg, num_layers=E2E_LAYERS, param_dtype="float32",
                                 compute_dtype="float32")
@@ -2335,7 +2409,7 @@ def rwkv_phase(dev) -> dict:
 
     return {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:58",
-            "launches": after_decode["wkv6"], **main_case}
+            "launches": after_decode["wkv6"], **main_case}, train_weights
 
 
 
@@ -2482,23 +2556,26 @@ def max_sm_clock_mhz() -> float:
     return float(out[0])
 
 
-def _widened(tree, layers: int):
-    """A float32 copy of a params tree, its stacked blocks cut to their
-    first ``layers`` period positions."""
-    def widen(t):
+def _positions(tree, layers: int, fn):
+    """A params tree with every leaf through ``fn`` and its stacked blocks
+    cut to their first ``layers`` period positions."""
+    def conv(t):
         if isinstance(t, dict):
-            return {k: widen(v) for k, v in t.items()}
+            return {k: conv(v) for k, v in t.items()}
         if isinstance(t, list):
-            return [widen(v) for v in t]
-        return None if t is None else t.float()
+            return [conv(v) for v in t]
+        return None if t is None else fn(t)
 
-    out = {k: widen(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = widen(tree["blocks"][:layers])
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = conv(tree["blocks"][:layers])
     return out
 
 
-def jamba_phase(dev) -> dict:
-    """Phase 10; returns the scan kernel's entry of the kernels line."""
+def jamba_phase(dev) -> tuple[dict, dict]:
+    """Phase 10; returns the scan kernel's entry of the kernels line and the
+    period's first ``JAMBA_TRAIN_LAYERS`` layers of the serve's weights
+    (with its embedding, head and norms) copied to the host, which phase
+    15e trains."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2584,7 +2661,8 @@ def jamba_phase(dev) -> dict:
     require([(k, moe) for k, moe in zip(cfg32.layer_kinds(), cfg32.layer_is_moe())]
             == [("mamba", True), ("mamba", False)], "the float32 gate's layers are not "
             "a Mamba+MoE and a Mamba+dense layer")
-    p32 = _widened(params, E2E_LAYERS)
+    p32 = _positions(params, E2E_LAYERS, lambda t: t.float())
+    train_weights = _positions(params, JAMBA_TRAIN_LAYERS, lambda t: t.to("cpu", copy=True))
     del params
     torch.cuda.empty_cache()
     runs = {}
@@ -2620,7 +2698,7 @@ def jamba_phase(dev) -> dict:
 
     return {"name": "mamba_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:61",
-            "launches": after_decode["mamba_scan"], **main_case}
+            "launches": after_decode["mamba_scan"], **main_case}, train_weights
 
 
 def swiglu_case(dev, name, m, d, f, dtype, iters) -> dict:
@@ -3822,8 +3900,9 @@ def bwd_executed_flops(b, sq, skv, h, d, causal, window, route) -> int:
 
 
 def train_step_capturing(model):
-    """``build_train``'s step, and a list that receives each call's clipped
-    gradients (captured where the step clips them)."""
+    """``build_train``'s step (in place, as the launcher's), and a list that
+    receives each call's clipped gradients (captured where the step clips
+    them)."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh_by_name
 
@@ -3847,41 +3926,236 @@ def train_step_capturing(model):
     return run, clipped
 
 
-def train_phase(dev, host_weights) -> dict:
-    """Phase 15: training on the card. Returns the backward kernel's entry
-    of the kernels line."""
+def autograd_of(fn, inputs, cotangents) -> list:
+    """torch autograd of ``fn(*inputs)`` with the outputs' ``cotangents``;
+    None for an input that is None."""
+    import torch
+
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    grads = iter(torch.autograd.grad(fn(*leaves), [t for t in leaves if t is not None],
+                                     cotangents))
+    return [None if t is None else next(grads) for t in leaves]
+
+
+def ssm_grads_check(tag, names, got, plain, auto, floor) -> float:
+    """Phase 15d: each gradient a backward kernel returned against both
+    plain versions, within ``SSM_BWD_TOL`` of its dtype of max(scale,
+    floor); returns the largest error against the written-out one."""
+    import torch
+
+    err = 0.0
+    for name, g, p, a in zip(names, got, plain, auto):
+        if p is None:
+            require(g is None, f"{tag}: {name} returned for an input not given")
+            continue
+        require(g.dtype == p.dtype and bool(torch.isfinite(g).all()),
+                f"{tag}: {name} is not finite {p.dtype}")
+        tol = SSM_BWD_TOL[str(g.dtype).removeprefix("torch.")]
+        for which, want in (("the written-out backward", p), ("autograd of the step loop", a)):
+            scale = max(want.float().abs().max().item(), floor)
+            e = (g.float() - want.float()).abs().max().item()
+            require(e <= tol * scale, f"{tag}: the kernel's {name} differs from {which} by "
+                    f"{e:g} > {tol} x {scale:g}")
+        err = max(err, (g.float() - p.float()).abs().max().item())
+    return err
+
+
+def events_ms(fn):
+    """(fn(), its device ms by CUDA events around the one call)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
+                 iters) -> dict:
+    """Phase 15d, one case: the WKV-6 backward kernel against its plain
+    versions, its bits from call to call, timed with the written-out plain
+    backward and beside its bound."""
+    import torch
+
+    from repro_torch.kernels import ref, wkv6
+
+    kind = "bf16" if dtype == "bfloat16" else "float"
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3 * s + hd)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (randn(b, s, h, hd).mul_(0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, hd) - 1.0))
+    if decays == "zero":
+        w[..., ::7] = 0.0
+        w[:, ::13, :, 1::5] = 0.0
+    elif decays == "one":
+        w[..., 3::7] = 1.0 - 1e-7 * torch.rand(w[..., 3::7].shape, generator=gen, device=dev)
+    u = randn(h, hd).mul_(0.1)
+    s0 = randn(b, h, hd, hd).mul_(0.1) if with_state else None
+    dy = randn(b, s, h, hd)
+    dlast = randn(b, h, hd, hd) if with_dlast else None
+    args = (r, k, v, w, u, dy, s0, dlast)
+    wkv6.bwd_launches = 0
+    got = wkv6.wkv6_bwd_cuda(*args)
+    again = wkv6.wkv6_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    require(wkv6.bwd_launches == 2, f"15d wkv6_bwd {name}: {wkv6.bwd_launches} launches "
+            "for 2 calls")
+    repeats = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    require(repeats, f"15d wkv6_bwd {name}: two calls gave different bits")
+    del again
+    plain, plain_ms = events_ms(lambda: ref.wkv6_bwd_ref(*args))
+    zeros = torch.zeros((b, h, hd, hd), device=dev)
+    auto = autograd_of(ref.wkv6_ref, (r, k, v, w, u, s0), (dy, zeros if dlast is None else dlast))
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    err = ssm_grads_check(f"15d wkv6_bwd {name}", names, got, plain, auto,
+                          1e-3 * dy.abs().max().item())
+    del got, plain, auto
+    ms = min(cuda_ms(lambda: wkv6.wkv6_bwd_cuda(*args), iters) for _ in range(2))
+    # the least work: the state's recompute, G's update and the sums of dr,
+    # dk, dv and dw, 6 FMAs per (b, h, t, i, j); the least bytes: r, k, v
+    # in their dtype and w, dy in float32 read once, dr, dk, dv in r's
+    # dtype and dw written once, u and du, the states given and returned
+    n = b * s * h * hd
+    e = r.element_size()
+    nbytes = (6 * e + 12) * n + 8 * h * hd + 4 * b * h * hd * hd * (2 * with_state + with_dlast)
+    flops = 12 * b * h * s * hd * hd
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    regs = ptxas_of("wkv6_bwd", f"wkv6_bwd_kernel<{kind}, {hd}>")
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"15d wkv6_bwd {name}: B {b}, S {s}, {h} heads of {hd}, "
+          f"{str(dtype).removeprefix('torch.')} r/k/v, s0 {'given' if with_state else 'none'}, "
+          f"ds_last {'given' if with_dlast else 'none'}{', decays ' + decays if decays else ''}: "
+          f"max_abs_err {err:.3g} against the written-out backward (each gradient within "
+          f"{SSM_BWD_TOL[str(dtype).removeprefix('torch.')]:g} of its scale of both plain "
+          f"versions); bits repeat: {repeats}; kernel {ms:.4f} ms (CUDA events, the least of 2 "
+          f"timings), plain {plain_ms:.1f} ms (written out, one call), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} FP32 FLOPs at "
+          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes:.4g} bytes), {row['bound_ms'] / ms:.3f} "
+          f"of the bound; ptxas: {regs}")
+    return row
+
+
+def mamba_bwd_case(dev, name, b, s, d, n, dtype, with_state, with_dlast, decays,
+                   iters) -> dict:
+    """Phase 15d, one case: the scan's backward kernel against its plain
+    versions, its bits from call to call, timed with the written-out plain
+    backward and beside its bound and the SFU floor."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan, ref
+
+    kind = "bf16" if dtype == "bfloat16" else "float"
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3 * s + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.nn.functional.softplus(randn(b, s, d).mul_(2.0).sub_(4.6))
+    x = randn(b, s, d).to(dtype)
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    a = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32))
+                   + randn(d, n).mul_(0.1))
+    if decays == "near1":
+        dt = torch.rand(b, s, d, generator=gen, device=dev).mul_(9e-5).add_(1e-5)
+        a = -torch.rand(d, n, generator=gen, device=dev).mul_(9e-3).add_(1e-3)
+    elif decays == "underflow":
+        dt[..., ::3] = torch.rand(dt[..., ::3].shape, generator=gen, device=dev).mul_(14.0) + 6.0
+    h0 = randn(b, d, n) if with_state else None
+    dy = randn(b, s, d)
+    dlast = randn(b, d, n) if with_dlast else None
+    args = (dt, x, bm, cm, a, dy, h0, dlast)
+    mamba_scan.bwd_launches = 0
+    got = mamba_scan.mamba_scan_bwd_cuda(*args)
+    again = mamba_scan.mamba_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    require(mamba_scan.bwd_launches == 2, f"15d mamba_scan_bwd {name}: "
+            f"{mamba_scan.bwd_launches} launches for 2 calls")
+    repeats = all(t is None or torch.equal(t, y) for t, y in zip(got, again))
+    require(repeats, f"15d mamba_scan_bwd {name}: two calls gave different bits")
+    del again
+    plain, plain_ms = events_ms(lambda: ref.mamba_scan_bwd_ref(*args))
+    zeros = torch.zeros((b, d, n), device=dev)
+    auto = autograd_of(ref.mamba_scan_ref, (dt, x, bm, cm, a, h0),
+                       (dy, zeros if dlast is None else dlast))
+    names = ("ddt", "dx", "db", "dc", "da", "dh0")
+    err = ssm_grads_check(f"15d mamba_scan_bwd {name}", names, got, plain, auto,
+                          1e-3 * dy.abs().max().item())
+    del got, plain, auto
+    ms = min(cuda_ms(lambda: mamba_scan.mamba_scan_bwd_cuda(*args), iters) for _ in range(2))
+    # the least work per (b, t, d, n), the exponential counted as one: e and
+    # h_t once each (5), G *= e (1), G += dy C and the sums of dc, db and
+    # dx's sum over n (2 each), q = G e h_t-1, da += dt q and ddt's sum of
+    # a q (6); per (b, t, d) dt x, dx = dt sum_n G b and ddt += x sum_n G b
+    # (4), which shares dx's sum. The least bytes: dt, dy in
+    # float32 and x in its dtype read once, ddt and dx written once, b, c
+    # read and db, dc written, a and da, the states given and returned
+    e = x.element_size()
+    nbytes = ((12 + 2 * e) * b * s * d + 16 * b * s * n + 8 * d * n
+              + 4 * b * d * n * (2 * with_state + with_dlast))
+    flops = 20 * b * s * d * n + 4 * b * s * d
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sfu_ms = 1e3 * b * s * d * n / (16 * sms * max_sm_clock_mhz() * 1e6)
+    regs = ptxas_of("mamba_scan_bwd", f"mamba_scan_bwd_kernel<{kind}, {n}>")
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
+    print(f"15d mamba_scan_bwd {name}: B {b}, S {s}, D {d}, N {n}, "
+          f"{str(dtype).removeprefix('torch.')} x, h0 {'given' if with_state else 'none'}, "
+          f"dh_last {'given' if with_dlast else 'none'}{', decays ' + decays if decays else ''}: "
+          f"max_abs_err {err:.3g} against the written-out backward (each gradient within "
+          f"1e-4 (float32) or 2^-8 (bf16) of its scale of both plain versions); bits repeat: "
+          f"{repeats}; kernel {ms:.4f} ms (CUDA events, the least of 2 timings), plain "
+          f"{plain_ms:.1f} ms (written out, one call), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {flops:.4g} FP32 operations at {PEAK_FP32_FLOPS / 1e12:g} "
+          f"TFLOP/s, {nbytes:.4g} bytes); SFU floor {sfu_ms:.4f} ms (one exponential an "
+          f"element; the kernel takes three IEEE expf); {row['bound_ms'] / ms:.3f} of the "
+          f"bound; ptxas: {regs}")
+    return row
+
+
+def train_run(dev, tag, arch, cfg, host_weights, steps, want, extra_flops, expect) -> dict:
+    """Phases 15b and 15e: ``steps`` steps of ``launch.steps.build_train``
+    (in place, as the launcher's) on ``cfg`` (bf16, remat, AdamW) from
+    ``host_weights`` copied to the card, TRAIN_BATCH x TRAIN_SEQ tokens a
+    step from ``token_batches``: the
+    launch counts over the run held to ``want`` (every other kernel 0),
+    the losses finite and falling, every gradient leaf nonzero. Prints the
+    warm step ms, tokens/s, the share of 989 TFLOP/s by model FLOPs (6 x
+    the active matrix params x tokens, an MoE's experts by top_k / E, +
+    ``extra_flops``), peak memory and the device time by kernel of one more
+    step (a trace held to show ``expect``). Returns the counts."""
     import numpy as np
     import torch
 
     from repro_torch import tree
-    from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.pipeline import token_batches
-    from repro_torch.kernels import flash_attention
     from repro_torch.models.model import Model
     from repro_torch.optim.optimizers import get_optimizer
 
-    t_phase = time.perf_counter()
-    # -- 15a. the backward kernel against its plain versions -------------------
-    for kname, line in ptxas_entries(BUILD_LOGS.get("flash_attention_bwd", "")):
-        print(f"15a ptxas flash_attention_bwd {kname}: {line}")
-    rows = [bwd_case(dev, *case) for case in BWD_CASES]
-    torch.cuda.empty_cache()
-
-    # -- 15b. Llama-3.2-3B at full width, TRAIN_LAYERS layers, TRAIN_STEPS steps
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
     require(cfg.remat and cfg.param_dtype == "bfloat16" and cfg.optimizer == "adamw",
-            f"15b: {TRAIN_ARCH} is not the bf16, remat, AdamW config it was")
+            f"{tag}: {arch} is not the bf16, remat, AdamW config it was")
     model = Model(cfg, device=dev)
     params = tree.map(lambda t: t.to(dev), host_weights)
     require([tuple(p.shape) for p in tree.leaves(params)]
             == [tuple(p.shape) for p in tree.leaves(model.abstract_params())],
-            "15b: phase 8's weights do not fit the cut config")
+            f"{tag}: the serve's weights do not fit the cut {arch} config")
     opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
     state = opt.init(params)
     step, clipped = train_step_capturing(model)
     gen = token_batches(np.random.default_rng(SEED), TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab_size)
     batches = [{k: torch.as_tensor(a, device=dev) for k, a in next(gen).items()}
-               for _ in range(TRAIN_STEPS)]
+               for _ in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -3897,67 +4171,75 @@ def train_phase(dev, host_weights) -> dict:
         zero_grads.append([tree.path_str(p) for p, g in tree.leaves_with_path(grads)
                            if not bool((g != 0).any())])
         del grads
-    counts = train_counts = read_launches()
-    require(flash_attention.last_bwd_kernel == "tc",
-            f"15b: the step's attention backward ran the {flash_attention.last_bwd_kernel} "
-            f"kernels, not the tensor-core ones")
+    counts = read_launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    fwd_want, bwd_want = 2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS
-    require(counts == {**{name: 0 for name in counts}, "flash_attention": fwd_want,
-                       "flash_attention_bwd": bwd_want},
-            f"15b: kernel launches {counts}, want {fwd_want} flash_attention (the forward "
-            f"twice a layer under remat) and {bwd_want} flash_attention_bwd, no other")
-    require(all(math.isfinite(x) for x in losses + gnorms), f"15b: losses {losses}, "
+    require(counts == {**{name: 0 for name in counts}, **want},
+            f"{tag}: kernel launches {counts}, want {want} (remat runs each forward twice) "
+            "and no other")
+    require(all(math.isfinite(x) for x in losses + gnorms), f"{tag}: losses {losses}, "
             f"gradient norms {gnorms}")
-    require(losses[-1] < losses[0], f"15b: the loss did not fall: {losses}")
-    require(not any(zero_grads), f"15b: leaves with an all-zero gradient: {zero_grads}")
+    require(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    require(not any(zero_grads), f"{tag}: leaves with an all-zero gradient: {zero_grads}")
     warm_ms = float(np.median(step_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    mat_params = sum(p.numel() for p, name in ((p, tree.path_str(path)) for path, p in
-                                               tree.leaves_with_path(params))
-                     if p.dim() > 1 and name != "['embed']")
-    pairs = attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
-    attn_flops = 3 * 4 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * pairs
-    model_flops = 6 * mat_params * tokens + cfg.num_layers * attn_flops
+    active = 0
+    for path, p in tree.leaves_with_path(params):
+        name = tree.path_str(path)
+        if p.dim() > 1 and name != "['embed']":
+            experts = (cfg.num_experts and "['ffn']" in name and p.dim() == 4
+                       and p.shape[1] == cfg.num_experts)
+            active += p.numel() * cfg.top_k // cfg.num_experts if experts else p.numel()
+    model_flops = 6 * active * tokens + extra_flops
     share = model_flops / (warm_ms * 1e-3 * PEAK_BF16_FLOPS)
-    print(f"15b train {TRAIN_ARCH} at full width, {cfg.num_layers} layers "
-          f"({model.param_count()} params, bf16, remat, AdamW lr {cfg.learning_rate}), "
+    print(f"{tag} train {arch} at full width, {cfg.num_layers} layers "
+          f"({model.param_count()} params, bf16, remat, AdamW lr {cfg.learning_rate}"
+          f", in place), "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
           f"{[round(x, 4) for x in losses]}, gradient norms {[round(x, 4) for x in gnorms]}; "
           f"step ms {[round(x, 1) for x in step_ms]} (first includes torch's own warm-up), "
           f"warm median {warm_ms:.1f} ms, {tokens / (warm_ms * 1e-3):.0f} tokens/s, "
-          f"{model_flops:.4g} model FLOPs a step ({mat_params} matrix params x 6 x tokens + "
-          f"attention 3 x forward), {100 * share:.1f}% of {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s; "
-          f"peak memory {peak_gb:.2f} GB; launches a step: flash_attention "
-          f"{counts['flash_attention'] // TRAIN_STEPS}, flash_attention_bwd "
-          f"{counts['flash_attention_bwd'] // TRAIN_STEPS}")
+          f"{model_flops:.4g} model FLOPs a step ({active} active matrix params x 6 x tokens "
+          f"+ {extra_flops:.4g}), {100 * share:.1f}% of {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s; "
+          f"peak memory {peak_gb:.2f} GB; launches a step: "
+          + ", ".join(f"{k} {v // steps}" for k, v in want.items()))
     # where a step's device time goes (one more step, from the same state;
     # its launches are not the counted run's)
-    rows_t = device_time_by_kernel(lambda: step(params, state, batches[0]),
-                                   expect="dkdv_kernel")
+    rows_t = device_time_by_kernel(lambda: step(params, state, batches[0]), expect=expect)
     clipped.clear()
     busy = sum(ms for _, ms, _ in rows_t)
-    print(f"15b step device time by kernel (torch.profiler): {busy:.1f} ms busy of "
+    print(f"{tag} step device time by kernel (torch.profiler): {busy:.1f} ms busy of "
           f"{warm_ms:.1f} ms warm wall ({100 * (1 - busy / warm_ms):.0f}% idle)" if rows_t
-          else "15b step device time by kernel: not measured (no device events)")
+          else f"{tag} step device time by kernel: not measured (no device events)")
     for kname, ms, calls in rows_t[:12] + [r for r in rows_t[12:]
                                           if "(anonymous namespace)::" in r[0]]:
         print(f"  {ms:9.3f} ms {calls:6d} x  {kname[:90]}")
     del params, state, batches
     torch.cuda.empty_cache()
+    return counts
 
-    # -- 15c. the float32 gate: one step on the card and on the CPU -----------
-    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS, param_dtype="float32",
-                                compute_dtype="float32")
-    host32 = tree.map(lambda t: t.float(), cut_layers(host_weights, TRAIN_F32_LAYERS, "cpu"))
-    nb = next(token_batches(np.random.default_rng(SEED + 1), TRAIN_F32_BATCH,
-                            TRAIN_F32_SEQ + 1, cfg.vocab_size))
+
+def f32_card_vs_cpu(dev, tag, arch, cfg32, host32, batch, seq, want) -> None:
+    """Phases 15c and 15f: one float32 ``build_train`` step of ``cfg32`` on
+    the card and on the CPU from ``host32`` and one batch: the card's
+    launches ``want`` (every other kernel 0, none on the CPU), the loss to
+    TRAIN_F32_LOSS_TOL, every clipped gradient leaf to TRAIN_F32_GRAD_TOL
+    of its scale, and the card's AdamW step to TRAIN_F32_STEP_TOL of the
+    CPU's AdamW step from the card's own gradients."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import get_optimizer
+
+    nb = next(token_batches(np.random.default_rng(SEED + 1), batch, seq + 1, cfg32.vocab_size))
     opt32 = get_optimizer(cfg32.optimizer, cfg32.learning_rate)
     runs = {}
     t0 = time.perf_counter()
     for device in ("cpu", dev):
         m32 = Model(cfg32, device=device)
-        p32 = tree.map(lambda t: t.to(device), host32)
+        p32 = tree.map(lambda t: t.to(device, copy=True), host32)  # the step writes p32
         step32, clipped32 = train_step_capturing(m32)
         reset_launches()
         new, _, met = step32(p32, opt32.init(p32), {k: torch.as_tensor(a, device=device)
@@ -3968,60 +4250,126 @@ def train_phase(dev, host_weights) -> dict:
         del new, p32, m32
     cpu_s = time.perf_counter() - t0
     (cp, cg, cl, cpu_counts), (gp, gg, gl, card_counts) = runs["cpu"], runs["card"]
-    require(card_counts["flash_attention"] == 2 * TRAIN_F32_LAYERS
-            and card_counts["flash_attention_bwd"] == TRAIN_F32_LAYERS
-            and cpu_counts["flash_attention"] == 0,
-            f"15c: launches card {card_counts}, CPU {cpu_counts}")
-    loss_err = abs(gl - cl) / abs(cl)
-    require(loss_err <= TRAIN_F32_LOSS_TOL, f"15c: the float32 loss card {gl} vs CPU {cl}")
-    grad_err = max((g - w).abs().max().item() / w.abs().max().item()
-                   for g, w in zip(tree.leaves(gg), tree.leaves(cg)))
-    require(grad_err <= TRAIN_F32_GRAD_TOL, f"15c: a gradient leaf differs card vs CPU by "
-            f"{grad_err:g} of its scale > {TRAIN_F32_GRAD_TOL}")
-    want, _ = opt32.apply(gg, opt32.init(host32), host32)
-    step_err = max((g - w).abs().max().item() / w.abs().max().item()
-                   for g, w in zip(tree.leaves(gp), tree.leaves(want)))
-    require(step_err <= TRAIN_F32_STEP_TOL, f"15c: the card's AdamW step differs from the "
-            f"CPU's on the same gradients by {step_err:g} of a leaf's scale")
-    direct = max((g - w).abs().max().item() / w.abs().max().item()
-                 for g, w in zip(tree.leaves(gp), tree.leaves(cp)))
-    print(f"15c float32 {TRAIN_F32_LAYERS}-layer {TRAIN_ARCH} step, {TRAIN_F32_BATCH} x "
-          f"{TRAIN_F32_SEQ} tokens, card vs CPU: loss {gl:.6f} vs {cl:.6f} ({loss_err:.3g} "
-          f"relative, <= {TRAIN_F32_LOSS_TOL}); gradient leaves within {grad_err:.3g} of "
-          f"their scale (<= {TRAIN_F32_GRAD_TOL}); the AdamW step from the card's gradients "
-          f"within {step_err:.3g} of the CPU's (<= {TRAIN_F32_STEP_TOL}); parameters after "
-          f"the two steps within {direct:.3g} of their scale (not a gate); {cpu_s:.1f} s")
-    del runs, want, host32
+    require(card_counts == {**{name: 0 for name in card_counts}, **want}
+            and not any(cpu_counts.values()),
+            f"{tag}: launches card {card_counts} (want {want}), CPU {cpu_counts}")
 
-    # -- 15d. the families whose kernels have no backward refuse to train ------
-    for arch, item in REFUSED:
-        rcfg = get_reduced(arch)
-        rm = Model(rcfg, device=dev)
-        rp = rm.init(SEED)
-        rstep, _ = train_step_capturing(rm)
-        tok = torch.as_tensor(np.random.default_rng(SEED).integers(0, rcfg.vocab_size,
-                                                                   (2, 64)), device=dev)
-        reset_launches()
-        try:
-            rstep(rp, get_optimizer(rcfg.optimizer, rcfg.learning_rate).init(rp),
-                  {"tokens": tok, "labels": tok})
-        except NotImplementedError as e:
-            msg = str(e)
-        else:
-            msg = None
-        counts = read_launches()
-        require(msg is not None and f"ROADMAP Queue 1 item {item}" in msg,
-                f"15d: a train step of {arch} on the card did not refuse naming item {item}: "
-                f"{msg!r}")
-        require(counts["wkv6"] == counts["mamba_scan"] == 0,
-                f"15d: {arch}'s refused step launched {counts}")
-        print(f"15d {arch} (reduced) train step on the card refused: {msg}")
+    def rel(got, ref_):
+        return max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                   for g, w in zip(tree.leaves(got), tree.leaves(ref_)))
+
+    loss_err = abs(gl - cl) / abs(cl)
+    require(loss_err <= TRAIN_F32_LOSS_TOL, f"{tag}: the float32 loss card {gl} vs CPU {cl}")
+    grad_err = rel(gg, cg)
+    require(grad_err <= TRAIN_F32_GRAD_TOL, f"{tag}: a gradient leaf differs card vs CPU by "
+            f"{grad_err:g} of its scale > {TRAIN_F32_GRAD_TOL}")
+    want_p, _ = opt32.apply(gg, opt32.init(host32), tree.map(lambda t: t.clone(), host32))
+    step_err = rel(gp, want_p)
+    require(step_err <= TRAIN_F32_STEP_TOL, f"{tag}: the card's AdamW step differs from the "
+            f"CPU's on the same gradients by {step_err:g} of a leaf's scale")
+    print(f"{tag} float32 {cfg32.num_layers}-layer {arch} step, {batch} x {seq} tokens, card "
+          f"vs CPU: loss {gl:.6f} vs {cl:.6f} ({loss_err:.3g} relative, <= "
+          f"{TRAIN_F32_LOSS_TOL}); gradient leaves within {grad_err:.3g} of their scale (<= "
+          f"{TRAIN_F32_GRAD_TOL}); the AdamW step from the card's gradients within "
+          f"{step_err:.3g} of the CPU's (<= {TRAIN_F32_STEP_TOL}); parameters after the two "
+          f"steps within {rel(gp, cp):.3g} of their scale (not a gate); launches on the card "
+          f"{ {k: v for k, v in card_counts.items() if v} }; {cpu_s:.1f} s")
+
+
+def kernel_counts(cfg, steps: int) -> dict:
+    """The launches ``steps`` train steps of ``cfg`` make on the card: each
+    layer's kernel (attention, WKV-6, the Mamba scan) its forward once, or
+    twice under remat, and its backward once, a step."""
+    kinds = cfg.layer_kinds()
+    fwd = 2 if cfg.remat else 1
+    out = {}
+    for kind, key in (("attn", "flash_attention"), ("rwkv6", "wkv6"), ("mamba", "mamba_scan")):
+        if kinds.count(kind):
+            out[key] = fwd * kinds.count(kind) * steps
+            out[f"{key}_bwd"] = kinds.count(kind) * steps
+    return out
+
+
+def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
+    """Phase 15: training on the card. Returns the kernels line's entries
+    of attention's, the WKV-6 and the scan's backward kernels."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    # -- 15a. the backward kernel against its plain versions -------------------
+    for kname, line in ptxas_entries(BUILD_LOGS.get("flash_attention_bwd", "")):
+        print(f"15a ptxas flash_attention_bwd {kname}: {line}")
+    rows = [bwd_case(dev, *case) for case in BWD_CASES]
+    torch.cuda.empty_cache()
+
+    # -- 15b. Llama-3.2-3B at full width, TRAIN_LAYERS layers, TRAIN_STEPS steps
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    pairs = attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    attn_flops = 3 * 4 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * pairs
+    train_counts = train_run(dev, "15b", TRAIN_ARCH, cfg, host_weights, TRAIN_STEPS,
+                             kernel_counts(cfg, TRAIN_STEPS), cfg.num_layers * attn_flops,
+                             "dkdv_kernel")
+    require(flash_attention.last_bwd_kernel == "tc",
+            f"15b: the step's attention backward ran the {flash_attention.last_bwd_kernel} "
+            f"kernels, not the tensor-core ones")
+
+    # -- 15c. the float32 gate: one step on the card and on the CPU -----------
+    cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    host32 = tree.map(lambda t: t.float(), cut_layers(host_weights, TRAIN_F32_LAYERS, "cpu"))
+    f32_card_vs_cpu(dev, "15c", TRAIN_ARCH, cfg32, host32, TRAIN_F32_BATCH, TRAIN_F32_SEQ,
+                    kernel_counts(cfg32, 1))
+    del host32
+
+    # -- 15d. the WKV-6 and scan backward kernels against their plain versions
+    wkv_rows = [wkv_bwd_case(dev, *case) for case in WKV_BWD_CASES]
+    torch.cuda.empty_cache()
+    mamba_rows = [mamba_bwd_case(dev, *case) for case in MAMBA_BWD_CASES]
+    torch.cuda.empty_cache()
+
+    # -- 15e. RWKV-6 and Jamba at full width, their depth cut
+    rcfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_TRAIN_LAYERS)
+    h, hd = rcfg.rwkv_heads, rcfg.rwkv_head_dim
+    wkv_flops = 3 * 4 * TRAIN_BATCH * TRAIN_SEQ * h * hd * hd  # y and the state, fwd + bwd
+    rwkv_counts = train_run(dev, "15e", RWKV_ARCH, rcfg, rwkv_weights, SSM_TRAIN_STEPS,
+                            kernel_counts(rcfg, SSM_TRAIN_STEPS), rcfg.num_layers * wkv_flops,
+                            "wkv6_bwd_kernel")
+    jcfg = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=JAMBA_TRAIN_LAYERS)
+    require(list(zip(jcfg.layer_kinds(), jcfg.layer_is_moe())) == [("mamba", True),
+                                                                   ("mamba", False)],
+            "15e: Jamba's cut is not a Mamba+MoE and a Mamba+dense layer")
+    scan_flops = 3 * 6 * TRAIN_BATCH * TRAIN_SEQ * jcfg.d_inner * jcfg.d_state
+    jamba_counts = train_run(dev, "15e", JAMBA_ARCH, jcfg, jamba_weights, SSM_TRAIN_STEPS,
+                             kernel_counts(jcfg, SSM_TRAIN_STEPS),
+                             jcfg.num_layers * scan_flops, "mamba_scan_bwd_kernel")
+
+    # -- 15f. float32 steps of the reduced configs, card vs CPU ----------------
+    for arch in (RWKV_ARCH, JAMBA_ARCH):
+        fcfg = get_reduced(arch)
+        require(fcfg.param_dtype == fcfg.compute_dtype == "float32",
+                f"15f: the reduced {arch} is not float32")
+        f32_card_vs_cpu(dev, "15f", arch, fcfg, Model(fcfg, device="cpu").init(SEED),
+                        SSM_F32_BATCH, SSM_F32_SEQ, kernel_counts(fcfg, 1))
     print(f"training phase 15: {time.perf_counter() - t_phase:.1f} s")
 
-    return {"name": "flash_attention_bwd (bf16: tc, wgmma from TMA rings, warp-specialised, "
-                    "P and dS in two bf16 pieces, no atomics)", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu", "replaces": None,
-            "launches": train_counts["flash_attention_bwd"], **rows[0]}
+    return [
+        {"name": "flash_attention_bwd (bf16: tc, wgmma from TMA rings, warp-specialised, "
+                 "P and dS in two bf16 pieces, no atomics)", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu", "replaces": None,
+         "launches": train_counts["flash_attention_bwd"], **rows[0]},
+        {"name": "wkv6_bwd (CUDA cores, float32, checkpoints every 8 steps, no atomics)",
+         "route": "cuda", "source": "src/repro_torch/csrc/wkv6_bwd.cu", "replaces": None,
+         "launches": rwkv_counts["wkv6_bwd"], **wkv_rows[0]},
+        {"name": "mamba_scan_bwd (CUDA cores, float32, IEEE expf, checkpoints every 8 steps, "
+                 "no atomics)", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba_scan_bwd.cu", "replaces": None,
+         "launches": jamba_counts["mamba_scan_bwd"], **mamba_rows[0]},
+    ]
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ __all__ = ["SOURCES", "build_all", "check", "library"]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("accum_flush", "fed_agg", "flash_attention", "flash_attention_bwd", "mamba_scan",
-           "swiglu", "train_step", "waterfill", "wkv6")
+           "mamba_scan_bwd", "swiglu", "train_step", "waterfill", "wkv6", "wkv6_bwd")
 # no --use_fast_math: expf/logf and the rounding of every product stay IEEE
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,9 +7,10 @@ WKV recurrence: the step loop, or its chunked matmul form in
 SwiGLU: ``layers.swiglu``), under autograd where a gradient is asked
 for. A CUDA tensor launches the hand-written kernel, or the call raises:
 there is no switch and no fallback to the plain version. Where a gradient
-is needed on the card, attention runs ``flash_attention.FlashAttention``
-(the forward kernel, then the backward kernel); the WKV-6 and Mamba-scan
-kernels have no backward yet and raise.
+is needed on the card, attention runs ``flash_attention.FlashAttention``,
+the WKV recurrence ``wkv6.WKV6`` and the Mamba scan
+``mamba_scan.MambaScan``: each the forward kernel, then its backward
+kernel.
 """
 
 from __future__ import annotations
@@ -19,14 +20,14 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda, fed_agg_leaves_cuda
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_cuda
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan import MambaScan, mamba_scan_cuda
 from repro_torch.kernels.swiglu import swiglu_cuda
 from repro_torch.kernels.train_step import train_agg_step_cuda
 from repro_torch.kernels.waterfill import (
     waterfill_energy_residual_cuda,
     waterfill_residual_cuda,
 )
-from repro_torch.kernels.wkv6 import wkv6_cuda
+from repro_torch.kernels.wkv6 import WKV6, wkv6_cuda
 from repro_torch.models import layers
 
 __all__ = ["fed_agg", "fed_agg_leaves", "flash_attention", "mamba_scan", "swiglu_fused",
@@ -45,9 +46,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=Fals
     if q.device.type == "cpu":
         return layers.flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                                       p_bf16=p_bf16, q_block=q_block)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
@@ -57,10 +62,12 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
     ``models.rwkv6.wkv_chunked`` (with ``chunk``) when ``backend ==
     "chunked"``, else the step loop ``ref.wkv6_ref``; on the card one
     launch, whatever the backend, as the TPU kernel ran: the chunk kernel
-    from ``wkv6.CHUNKED_MIN_SEQ`` steps on, the step kernel below.
+    from ``wkv6.CHUNKED_MIN_SEQ`` steps on, the step kernel below, and when
+    a gradient is needed ``WKV6``, whose backward is the backward kernel.
     ``out_state``, a float32 (B, H, hd, hd) tensor, receives s_last and is
     returned as it; it may be ``s0`` itself, which then holds the new
-    state."""
+    state. The card takes no ``out_state`` where a gradient is needed
+    (training passes none)."""
     if r.device.type == "cpu":
         if backend == "chunked":
             from repro_torch.models.rwkv6 import wkv_chunked
@@ -69,6 +76,10 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
         else:
             y, s_last = ref.wkv6_ref(r, k, v, w, u, s0)
         return y, (s_last if out_state is None else out_state.copy_(s_last))
+    if _needs_grad(r, k, v, w, u, s0):
+        if out_state is not None:
+            raise ValueError("wkv6 on the card takes no out_state where a gradient is needed")
+        return WKV6.apply(r, k, v, w, u, s0)
     return wkv6_cuda(r, k, v, w, u, s0, out_state=out_state)
 
 
@@ -76,12 +87,19 @@ def mamba_scan(dt, x, b, c, a, h0=None, *, out_state=None):
     """The Mamba (S6) selective scan: dt, x (B, S, D), b, c (B, S, N), a
     (D, N), h0 (B, D, N) float32 or None; returns (y float32 (B, S, D),
     h_last float32 (B, D, N)). On the CPU the step loop
-    ``ref.mamba_scan_ref``; on the card the kernel. ``out_state``, a
-    float32 (B, D, N) tensor, receives h_last and is returned as it; it may
-    be ``h0`` itself, which then holds the new state."""
+    ``ref.mamba_scan_ref``; on the card the kernel, and when a gradient is
+    needed ``MambaScan``, whose backward is the backward kernel.
+    ``out_state``, a float32 (B, D, N) tensor, receives h_last and is
+    returned as it; it may be ``h0`` itself, which then holds the new
+    state. The card takes no ``out_state`` where a gradient is needed."""
     if dt.device.type == "cpu":
         y, h_last = ref.mamba_scan_ref(dt, x, b, c, a, h0)
         return y, (h_last if out_state is None else out_state.copy_(h_last))
+    if _needs_grad(dt, x, b, c, a, h0):
+        if out_state is not None:
+            raise ValueError("mamba_scan on the card takes no out_state where a gradient is "
+                             "needed")
+        return MambaScan.apply(dt, x, b, c, a, h0)
     return mamba_scan_cuda(dt, x, b, c, a, h0, out_state=out_state)
 
 

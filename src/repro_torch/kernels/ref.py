@@ -10,6 +10,9 @@ gradient written out (dQ, dK, dV from q, k, v and dO), the plain version of
 the backward kernel. ``wkv6_ref`` is the RWKV-6 recurrence
 step by step, and ``models.rwkv6.wkv_chunked`` its matmul form;
 ``mamba_scan_ref`` the Mamba (S6) selective scan step by step.
+``wkv6_bwd_ref`` and ``mamba_scan_bwd_ref`` are their gradients written
+out as reverse-time loops (states recomputed a chunk at a time from
+checkpoints, the algorithm of the backward kernels), with no autograd.
 ``swiglu_ref`` is ``models.layers.swiglu``, in its inputs' dtype.
 """
 
@@ -22,9 +25,10 @@ import torch
 from repro_torch.models import layers, mlp
 
 __all__ = ["accum_flush_ref", "fed_agg_ref", "flash_attention_bwd_ref", "flash_attention_ref",
-           "mamba_scan_ref",
+           "mamba_scan_bwd_ref", "mamba_scan_ref",
            "sum_in_order", "swiglu_ref", "train_agg_step_ref",
-           "waterfill_energy_residual_ref", "waterfill_residual_ref", "wkv6_ref"]
+           "waterfill_energy_residual_ref", "waterfill_residual_ref", "wkv6_bwd_ref",
+           "wkv6_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None):
@@ -132,6 +136,121 @@ def mamba_scan_ref(dt, x, b, c, a, h0=None):
         h = h * da + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t])
     return y, h
+
+
+def wkv6_bwd_ref(r, k, v, w, u, dy, s0=None, ds_last=None, *, chunk=64):
+    """The gradient of ``wkv6_ref``, written out in float32: from the
+    inputs, the output's gradient dy (B, S, H, hd) and the final state's
+    ds_last (B, H, hd, hd) or None (zeros), returns (dr, dk, dv in r's
+    dtype, dw (B, S, H, hd), du (H, hd), ds0 (B, H, hd, hd) or None when
+    s0 is None), all but the first three float32. With S_t the state
+    before step t and G = dL/dS after it (G = ds_last after the last step):
+
+        dr_t = S_t dy_t + u k_t (v_t . dy_t)
+        dk_t = G v_t + u r_t (v_t . dy_t)
+        dv_t = G^T k_t + (r_t . u k_t) dy_t
+        dw_t[i] = sum_j G[i, j] S_t[i, j]
+        du = sum over b and t of r_t k_t (v_t . dy_t)
+        G <- diag(w_t) G + r_t dy_t^T             (dL/dS_t)
+
+    and ds0 is G after step 0. The forward runs once, keeping the state
+    every ``chunk`` steps; the reverse walk recomputes each chunk's states
+    from its checkpoint (never S_t from S_(t+1) by dividing by w_t, which
+    underflows to 0)."""
+    b, s, h, hd = r.shape
+    rf, kf, vf, wf, dyf = (t.to(torch.float32) for t in (r, k, v, w, dy))
+    uf = u.to(torch.float32)
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+             if s0 is None else s0.to(torch.float32))
+    checkpoints = []
+    for t in range(s):
+        if t % chunk == 0:
+            checkpoints.append(state)
+        state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+         if ds_last is None else ds_last.to(torch.float32).clone())
+    vdy = (vf * dyf).sum(dim=-1, keepdim=True)           # (B, S, H, 1)
+    ruk = (rf * uf * kf).sum(dim=-1, keepdim=True)
+    dr, dk, dv, dw = (torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((b, h, hd), dtype=torch.float32, device=r.device)
+    for c0 in reversed(range(0, s, chunk)):
+        c1 = min(c0 + chunk, s)
+        states = [checkpoints[c0 // chunk]]
+        for t in range(c0, c1 - 1):
+            states.append(wf[:, t, :, :, None] * states[-1]
+                          + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        for t in reversed(range(c0, c1)):
+            st = states[t - c0]
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", st, dyf[:, t]) + uf * kf[:, t] * vdy[:, t]
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vf[:, t]) + uf * rf[:, t] * vdy[:, t]
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", g, kf[:, t]) + ruk[:, t] * dyf[:, t]
+            dw[:, t] = (g * st).sum(dim=-1)
+            du += rf[:, t] * kf[:, t] * vdy[:, t]
+            g = wf[:, t, :, :, None] * g + rf[:, t, :, :, None] * dyf[:, t, :, None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du.sum(dim=0),
+            None if s0 is None else g)
+
+
+def mamba_scan_bwd_ref(dt, x, b, c, a, dy, h0=None, dh_last=None, *, chunk=64):
+    """The gradient of ``mamba_scan_ref``, written out in float32: from the
+    inputs, the output's gradient dy (B, S, D) and the final state's
+    dh_last (B, D, N) or None (zeros), returns (ddt (B, S, D), dx in x's
+    dtype, db, dc (B, S, N), da (D, N), dh0 (B, D, N) or None when h0 is
+    None), all but dx float32. With e_t = exp(dt_t a), h_t the state after
+    step t and G = dL/dh_t (G = dh_last after the last step), walking t
+    down:
+
+        G += dy_t c_t
+        dc_t[n] = sum_d h_t dy_t
+        db_t[n] = sum_d G dt_t x_t
+        dx_t = dt_t sum_n G b_t
+        ddt_t = sum_n G (a e_t h_(t-1) + x_t b_t)
+        da += G dt_t e_t h_(t-1)              (summed over b and t)
+        G <- e_t G                            (dL/dh_(t-1))
+
+    and dh0 is G after step 0. The forward runs once, keeping the state
+    every ``chunk`` steps; the reverse walk recomputes each chunk's states
+    from its checkpoint. A decay that underflows to 0 passes no gradient
+    back, and every gradient stays finite."""
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    dtf, xf, bf, cf, dyf = (t.to(torch.float32) for t in (dt, x, b, c, dy))
+    af = a.to(torch.float32)
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.to(torch.float32))
+    checkpoints = []
+    for t in range(s):
+        if t % chunk == 0:
+            checkpoints.append(h)
+        h = (h * torch.exp(dtf[:, t, :, None] * af)
+             + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :])
+    g = (torch.zeros((bsz, d, n), dtype=torch.float32, device=dt.device)
+         if dh_last is None else dh_last.to(torch.float32).clone())
+    ddt, dx = (torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
+               for _ in range(2))
+    db, dc = (torch.empty((bsz, s, n), dtype=torch.float32, device=dt.device)
+              for _ in range(2))
+    da = torch.zeros((bsz, d, n), dtype=torch.float32, device=dt.device)
+    for c0 in reversed(range(0, s, chunk)):
+        c1 = min(c0 + chunk, s)
+        states = [checkpoints[c0 // chunk]]
+        for t in range(c0, c1 - 1):
+            states.append(states[-1] * torch.exp(dtf[:, t, :, None] * af)
+                          + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :])
+        for t in reversed(range(c0, c1)):
+            h_prev = states[t - c0]
+            e = torch.exp(dtf[:, t, :, None] * af)
+            u = dtf[:, t] * xf[:, t]
+            h_t = h_prev * e + u[:, :, None] * bf[:, t, None, :]
+            g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+            dc[:, t] = torch.einsum("bdn,bd->bn", h_t, dyf[:, t])
+            db[:, t] = torch.einsum("bdn,bd->bn", g, u)
+            dx[:, t] = dtf[:, t] * torch.einsum("bdn,bn->bd", g, bf[:, t])
+            ddt[:, t] = (g * (af * e * h_prev + xf[:, t, :, None] * bf[:, t, None, :])).sum(-1)
+            da += g * dtf[:, t, :, None] * e * h_prev
+            g = g * e
+    return ddt, dx.to(x.dtype), db, dc, da.sum(dim=0), None if h0 is None else g
 
 
 def swiglu_ref(x, w_gate, w_up, w_down):

@@ -1,4 +1,5 @@
-"""CUDA kernels for the RWKV-6 WKV recurrence (forward, with its final state).
+"""CUDA kernels for the RWKV-6 WKV recurrence: the forward (with its final
+state) and its gradient.
 
 Replace the Pallas TPU kernel ``wkv6_pallas`` (``repro/kernels/wkv6.py:58``);
 the source, with its bound and design, is ``csrc/wkv6.cu``: a chunk kernel
@@ -9,13 +10,20 @@ one of them, chosen by S alone. The plain torch versions are the step loop
 runs for a CPU tensor) and the chunked matmul form
 ``repro_torch.models.rwkv6.wkv_chunked``.
 
-The kernels have no backward yet: called where a gradient is needed (grad
-mode on and an input that requires grad) ``wkv6_cuda`` raises, naming
-``BACKWARD_ITEM``; the CPU trains through autograd of the plain version.
+The backward (``csrc/wkv6_bwd.cu``) has no TPU counterpart: the reference
+trains RWKV-6 through ``jax.grad`` of its plain scan, and JAX cannot
+differentiate the Pallas kernel. ``WKV6`` is the
+``torch.autograd.Function`` that ``ops.wkv6`` runs on the card whenever a
+gradient is needed: its forward launches the forward kernel as above, and
+its backward ``wkv6_bwd_cuda``. Its plain versions are
+``ref.wkv6_bwd_ref`` (written out) and autograd of ``ref.wkv6_ref``; the
+CPU trains through the latter.
 
-``launches`` counts the kernels' launches in this process (either kernel);
-set it to 0 to start a count. ``last_kernel`` names the kernel the last
-launch ran, "step" or "chunked".
+``launches`` counts the forward kernels' launches in this process (either
+kernel) and ``bwd_launches`` the backward's (one a call: its reverse walk
+and du's sum over the batch); set them to 0 to start a count.
+``last_kernel`` names the kernel the last forward launch ran, "step" or
+"chunked".
 """
 
 from __future__ import annotations
@@ -27,12 +35,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["BACKWARD_ITEM", "CHUNK", "CHUNKED_MIN_SEQ", "HEAD_DIMS", "PIECES", "SUB_CHUNK",
-           "last_kernel", "launches", "wkv6_cuda"]
-
-BACKWARD_ITEM = "ROADMAP Queue 1 item 12g (the WKV-6 backward kernel)"
+__all__ = ["CHUNK", "CHUNKED_MIN_SEQ", "HEAD_DIMS", "PIECES", "SUB_CHUNK", "WKV6",
+           "bwd_launches", "last_kernel", "launches", "wkv6_bwd_cuda", "wkv6_cuda"]
 
 launches = 0
+bwd_launches = 0
 last_kernel: str | None = None
 HEAD_DIMS = (32, 64, 128)
 # the chunk kernel's shape (csrc/wkv6.cu): rows a chunk and a sub-chunk,
@@ -55,6 +62,19 @@ def _lib() -> ctypes.CDLL:
     lib.wkv6_fwd.restype = lib.wkv6_fwd_with.restype = ctypes.c_int
     lib.wkv6_fwd.argtypes = args + [ctypes.POINTER(ctypes.c_int)]
     lib.wkv6_fwd_with.argtypes = [ctypes.c_int] + args
+    lib.kernel_error_string.restype = ctypes.c_void_p
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("wkv6_bwd")
+    lib.wkv6_bwd.restype = ctypes.c_int
+    lib.wkv6_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p])
+    lib.wkv6_bwd_scratch.restype = ctypes.c_longlong
+    lib.wkv6_bwd_scratch.argtypes = [ctypes.c_int] * 4
     lib.kernel_error_string.restype = ctypes.c_void_p
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -109,10 +129,6 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     launches that kernel whatever S is, for measuring the two against each
     other; None (what the model runs) lets the C entry choose by S."""
     global launches, last_kernel
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (r, k, v, w, u, s0)):
-        raise NotImplementedError("wkv6_cuda has no backward kernel yet: training RWKV-6 on "
-                                  f"the card waits for {BACKWARD_ITEM}")
     _check(r, k, v, w, u, s0, out_state)
     if kernel is not None and kernel not in _KERNELS:
         raise ValueError(f"kernel must be one of {sorted(_KERNELS)} or None, got {kernel!r}")
@@ -135,3 +151,64 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     launches += 1
     last_kernel = ("step", "chunked")[which.value]
     return y, s_last
+
+
+def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, dy: torch.Tensor, s0: torch.Tensor | None = None,
+                  ds_last: torch.Tensor | None = None):
+    """The gradient of ``wkv6_cuda`` on the card: from its inputs (as
+    ``wkv6_cuda`` takes them), the output's gradient dy (B, S, H, hd)
+    float32 and the final state's ds_last (B, H, hd, hd) float32 or None
+    (zeros), returns (dr, dk, dv in r's dtype, dw (B, S, H, hd), du (H, hd),
+    ds0 (B, H, hd, hd) or None when s0 is None), all but the first three
+    float32. Every sum is taken in float32 in a fixed order (no atomics):
+    the bits repeat from call to call. The C entry first runs the forward
+    recurrence to keep the state every few steps in scratch allocated here
+    (B H ceil(S / T) hd^2 floats, T = 32768 / hd^2), then walks back."""
+    global bwd_launches
+    _check(r, k, v, w, u, s0, None)
+    b, s, h, hd = r.shape
+    f32 = (torch.float32,)
+    for name, t, shape in (("dy", dy, r.shape), ("ds_last", ds_last, (b, h, hd, hd))):
+        if t is not None:
+            _check_tensor(name, t, r.device, f32, tuple(shape))
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
+    du = torch.zeros((h, hd), dtype=torch.float32, device=r.device)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if b * h == 0:  # nothing to compute, and no launch
+        return dr, dk, dv, dw, du, ds0
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.wkv6_bwd_scratch(b, s, h, hd), dtype=torch.float32,
+                          device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.wkv6_bwd(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            w.data_ptr(), u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
+                            dy.data_ptr(), 0 if ds_last is None else ds_last.data_ptr(),
+                            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                            du.data_ptr(), 0 if ds0 is None else ds0.data_ptr(),
+                            scratch.data_ptr(), b, s, h, hd, stream)
+    _build.check(lib, code, "wkv6 backward kernel launch")
+    bwd_launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6_cuda`` with its gradient from ``wkv6_bwd_cuda``:
+    ``WKV6.apply(r, k, v, w, u, s0)`` returns (y, s_last), both
+    differentiable; s0 may be None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, s_last = wkv6_cuda(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, dy, ds_last):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) if dy is None else dy
+        return wkv6_bwd_cuda(r, k, v, w, u, dy.contiguous(), s0,
+                             None if ds_last is None else ds_last.contiguous())

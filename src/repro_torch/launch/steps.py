@@ -2,12 +2,15 @@
 (``repro/launch/steps.py``).
 
 ``build_train``'s step is one optimizer step: the loss and its gradient
-(autograd; on the card attention's gradient is the backward kernel's), the
+(autograd; on the card each kernel's gradient is its backward kernel's), the
 gradients clipped to a global norm, then the optimizer's update. It takes
-and returns plain tensors: the parameters it returns are new tensors, and
-it leaves the ones it was given as they were. The shardings are the port's
-DTensor placements (``sharding.rules.tree_shardings``) of each tree on the
-given mesh, where the reference gives ``NamedSharding``s; on the one-rank
+and returns plain tensors, and writes the new parameters and optimizer
+state into the ones it was given (``Optimizer.apply``) and returns them,
+as a jitted step with donated buffers would: a step holds one
+copy of the parameters and moments, not two, and a caller that wants the
+old ones keeps a copy. The shardings are the port's DTensor placements
+(``sharding.rules.tree_shardings``) of each tree on the given mesh, where
+the reference gives ``NamedSharding``s; on the one-rank
 ``"cpu"`` mesh every leaf is replicated. Nothing here places a tensor: the
 trees describe how a multi-card run would lay them out.
 """
@@ -45,7 +48,8 @@ def build_train(model: Model, mesh, rules=None, *, grad_clip: float = 1.0):
     """Returns (step_fn, in_shardings, out_shardings, (abstract params,
     abstract optimizer state)); ``step_fn(params, opt_state, batch)`` gives
     ``(params, opt_state, {"loss", "grad_norm"})``, both metrics float32
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device; the returned ``params`` and
+    ``opt_state`` are the given ones, updated in place."""
     cfg = model.cfg
     rules = rules or TRAIN_RULES
     opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
@@ -58,6 +62,7 @@ def build_train(model: Model, mesh, rules=None, *, grad_clip: float = 1.0):
         with torch.no_grad():
             grads = tree.map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, live)
             grads, gn = clip_by_global_norm(grads, grad_clip)
+            del live  # the raw gradients go before the update
             params, opt_state = opt.apply(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gn}
 

@@ -6,13 +6,16 @@ on the card unless ``--device`` says otherwise.
       --steps 20 --batch 8 --seq 128 --device cpu
 
 Each step is ``launch.steps.build_train``'s (loss, backward, gradients
-clipped to norm 1, the config's optimizer); every ``--log-every`` steps it
+clipped to norm 1, the config's optimizer, the parameters and optimizer
+state updated in place, so a step holds one copy of the moments: a
+full-width Jamba layer with its 16 experts trains on one card so); every
+``--log-every`` steps it
 prints ``step i loss=... gnorm=... <seconds>s``. ``--save PATH`` writes the
 final parameters with ``checkpoint.save`` (and ``PATH.json`` with the step
-count), readable by the reference's ``restore`` too. On the card the
-attention trains through its forward and backward kernels; the RWKV-6 and
-Mamba kernels have no backward yet, so ``rwkv6-7b`` and ``jamba-v0.1-52b``
-train on the CPU only.
+count), readable by the reference's ``restore`` too. On the card every
+family trains through its kernels: attention, the WKV-6 recurrence
+(``rwkv6-7b``) and the Mamba scan (``jamba-v0.1-52b``) each run their
+forward kernel and, for the gradient, their backward kernel.
 """
 
 from __future__ import annotations

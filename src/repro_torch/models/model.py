@@ -24,10 +24,10 @@ plain versions, the reference's default. There is no switch between them.
 Decode updates the cache it is given in place and returns it. The prefill's
 ``aux`` is the MoE load-balance loss summed over layers; ``loss`` adds it,
 weighted by ``MOE_AUX_WEIGHT``, to the next-token loss of an MoE model. On
-the card ``loss`` differentiates through the attention kernel's backward
-kernel (``kernels.flash_attention.FlashAttention``); the WKV-6 and Mamba
-kernels have no backward yet and raise under a gradient, so the ssm and
-hybrid families train on the CPU only.
+the card ``loss`` differentiates through each kernel's backward kernel:
+attention's (``kernels.flash_attention.FlashAttention``), the WKV-6
+recurrence's (``kernels.wkv6.WKV6``) and the Mamba scan's
+(``kernels.mamba_scan.MambaScan``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,12 @@
 """Optimizers over trees of tensors (``repro/optim/optimizers.py``).
 
-Functional, as the reference's: ``init(params) -> state`` and
-``update(grads, state, params) -> (updates, state)``; ``apply`` adds the
-updates and returns new tensors. The moments are float32 whatever the
+As the reference's: ``init(params) -> state`` and
+``update(grads, state, params) -> (updates, state)``, which returns new
+tensors. ``apply(grads, state, params) -> (params, state)`` writes the new
+state and parameters into the ones it was given, a leaf at a time, through
+the expressions ``update`` uses, and returns those tensors: the caller
+gives them up, as to a jitted step with donated buffers, and a step
+holds one copy of the moments, not two. The moments are float32 whatever the
 parameters' dtype; the step counter is an int32 0-d tensor on the
 parameters' device, so nothing waits for the host. Three details keep the
 port on the reference's numbers:
@@ -32,11 +36,11 @@ __all__ = ["Optimizer", "sgd", "momentum", "adam", "adamw", "get_optimizer", "cl
 class Optimizer:
     init: Callable          # params -> state
     update: Callable        # (grads, state, params) -> (updates, state)
+    apply: Callable         # (grads, state, params) -> (params, state), in place
 
-    def apply(self, grads, state, params):
-        updates, state = self.update(grads, state, params)
-        new_params = tree.map(lambda p, u: (p + u).to(p.dtype), params, updates)
-        return new_params, state
+
+def _add(p, u):
+    return (p + u).to(p.dtype)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -52,9 +56,15 @@ def _zeros32(p):
 
 
 def sgd(lr: float) -> Optimizer:
+    def apply(g, s, p):
+        for gi, pi in zip(tree.leaves(g), tree.leaves(p)):
+            pi.copy_(_add(pi, -lr * gi))
+        return p, s
+
     return Optimizer(
         init=lambda params: (),
         update=lambda g, s, p: (tree.map(lambda x: -lr * x, g), s),
+        apply=apply,
     )
 
 
@@ -62,11 +72,20 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
     def init(params):
         return tree.map(_zeros32, params)
 
+    def moment(mi, gi):
+        return beta * mi + gi.to(torch.float32)
+
     def update(g, m, p):
-        m = tree.map(lambda mi, gi: beta * mi + gi.to(torch.float32), m, g)
+        m = tree.map(moment, m, g)
         return tree.map(lambda mi: -lr * mi, m), m
 
-    return Optimizer(init=init, update=update)
+    def apply(g, m, p):
+        for mi, gi, pi in zip(tree.leaves(m), tree.leaves(g), tree.leaves(p)):
+            mi.copy_(moment(mi, gi))
+            pi.copy_(_add(pi, -lr * mi))
+        return p, m
+
+    return Optimizer(init=init, update=update, apply=apply)
 
 
 def _adam_core(lr, b1, b2, eps, wd):
@@ -78,25 +97,41 @@ def _adam_core(lr, b1, b2, eps, wd):
             "t": torch.zeros((), dtype=torch.int32, device=device),
         }
 
+    def first(mi, gi):
+        return b1 * mi + (1 - b1) * gi.to(torch.float32)
+
+    def second(vi, gi):
+        return b2 * vi + (1 - b2) * torch.square(gi.to(torch.float32))
+
+    def corrections(t):
+        tf = t.to(torch.float32)
+        return 1 - b1 ** tf, 1 - b2 ** tf
+
+    def upd(mi, vi, pi, bc1, bc2):
+        step = (mi / bc1) / (torch.sqrt(vi / bc2) + eps)
+        if wd:
+            step = step + wd * pi.to(torch.float32)
+        return (-lr * step).to(pi.dtype)
+
     def update(g, state, params):
         t = state["t"] + 1
-        m = tree.map(lambda mi, gi: b1 * mi + (1 - b1) * gi.to(torch.float32), state["m"], g)
-        v = tree.map(lambda vi, gi: b2 * vi + (1 - b2) * torch.square(gi.to(torch.float32)),
-                     state["v"], g)
-        tf = t.to(torch.float32)
-        bc1 = 1 - b1 ** tf
-        bc2 = 1 - b2 ** tf
-
-        def upd(mi, vi, pi):
-            step = (mi / bc1) / (torch.sqrt(vi / bc2) + eps)
-            if wd:
-                step = step + wd * pi.to(torch.float32)
-            return (-lr * step).to(pi.dtype)
-
-        updates = tree.map(upd, m, v, params)
+        m = tree.map(first, state["m"], g)
+        v = tree.map(second, state["v"], g)
+        bc1, bc2 = corrections(t)
+        updates = tree.map(lambda mi, vi, pi: upd(mi, vi, pi, bc1, bc2), m, v, params)
         return updates, {"m": m, "v": v, "t": t}
 
-    return Optimizer(init=init, update=update)
+    def apply(g, state, params):
+        bc1, bc2 = corrections(state["t"] + 1)
+        for mi, vi, gi, pi in zip(tree.leaves(state["m"]), tree.leaves(state["v"]),
+                                  tree.leaves(g), tree.leaves(params)):
+            mi.copy_(first(mi, gi))
+            vi.copy_(second(vi, gi))
+            pi.copy_(_add(pi, upd(mi, vi, pi, bc1, bc2)))
+        state["t"].add_(1)
+        return params, state
+
+    return Optimizer(init=init, update=update, apply=apply)
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:

@@ -55,8 +55,20 @@ configs (head dim 64), remat off and on, runs on the card and on the CPU
 from the same weights: the loss, the gradient norm and every clipped
 gradient leaf agree, the card's parameters are the CPU's AdamW step from
 the card's gradients, and the attention launches are the counts remat
-implies. A train step of RWKV-6 or Jamba on the card raises, naming the
-ROADMAP item of the backward kernel it lacks.
+implies; the same for the reduced RWKV-6 and Jamba configs, whose WKV-6
+and Mamba-scan kernels run their forward once a layer (twice under remat)
+and their backward once.
+
+The WKV-6 and Mamba-scan backward kernels (``csrc/wkv6_bwd.cu``,
+``csrc/mamba_scan_bwd.cu``) are held to both plain versions, the
+written-out ``ref.wkv6_bwd_ref``/``ref.mamba_scan_bwd_ref`` and autograd of
+the step loops, on the same inputs and cotangents: a gradient returned in
+float32 to 1e-4 of its scale (at least 1e-3 max |dy|), one returned in
+bf16 to one bf16 step; over lengths that cross several checkpoints and
+end ragged, with and without a starting state and a final-state
+cotangent, decays of 0 and near 1, underflowing decays. Their bits repeat
+(no atomics); under a gradient ``ops`` runs each through its Function
+(one forward and one backward launch), and refuses an ``out_state``.
 
 The all-leaf ``fed_agg`` launch sums over k in order with every product
 rounded, so each leaf is bitwise the in-order per-leaf sum, and the
@@ -1689,7 +1701,9 @@ def test_flash_attention_backward_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("arch,remat", [("llama3.2-3b", False), ("llama3.2-3b", True),
                                         ("qwen2-moe-a2.7b", False),
-                                        ("internvl2-76b", False)])
+                                        ("internvl2-76b", False), ("rwkv6-7b", False),
+                                        ("rwkv6-7b", True), ("jamba-v0.1-52b", False),
+                                        ("jamba-v0.1-52b", True)])
 def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
     """One ``build_train`` step (AdamW, clip 1.0) of a reduced config (head
     dim 64) on the card and on the CPU from the same weights and batch: the
@@ -1700,9 +1714,9 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
     first Adam step divides each gradient by its own size (plus eps
     1e-8), so where a gradient is near eps a rounding of it moves the
     parameter by a share of the learning rate, and the two devices' steps
-    are compared through their gradients instead. On the card the
-    attention kernel's forward runs once a layer (twice under remat) and
-    its backward once."""
+    are compared through their gradients instead. On the card each
+    layer's kernel (attention, WKV-6 or the Mamba scan) runs its forward
+    once (twice under remat) and its backward once."""
     from repro_torch import tree
     from repro_torch.data.pipeline import token_batches
     from repro_torch.launch import steps, train
@@ -1722,19 +1736,23 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
     opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
     rng = np.random.default_rng(0)
     nb = train.with_extras(cfg, next(token_batches(rng, 2, 65, cfg.vocab_size)), rng, 64)
+    kernels = {"attn": flash_attention, "rwkv6": wkv6, "mamba": mamba_scan}
     runs = {}
     for device in ("cpu", dev):
         model = Model(cfg, device=device)
         params = model.init(0)
         step = steps.build_train(model, make_mesh_by_name("cpu"))[0]
-        flash_attention.launches = flash_attention.bwd_launches = 0
+        for module in kernels.values():
+            module.launches = module.bwd_launches = 0
         new, _, met = step(params, opt.init(params), {k: torch.as_tensor(a, device=device)
                                                       for k, a in nb.items()})
         runs[str(device)] = (new, clipped[-1], met["loss"].item(), met["grad_norm"].item(),
-                             flash_attention.launches, flash_attention.bwd_launches)
-    (cp, cgr, cl, cg, *cpu_counts), (gp, ggr, gl, gg, fwd, bwd) = runs["cpu"], runs[str(dev)]
-    assert cpu_counts == [0, 0]
-    assert (fwd, bwd) == ((2 if remat else 1) * cfg.num_layers, cfg.num_layers)
+                             {kind: (m.launches, m.bwd_launches) for kind, m in kernels.items()})
+    (cp, cgr, cl, cg, cpu_counts), (gp, ggr, gl, gg, counts) = runs["cpu"], runs[str(dev)]
+    assert set(cpu_counts.values()) == {(0, 0)}
+    kinds = cfg.layer_kinds()
+    assert counts == {kind: ((2 if remat else 1) * kinds.count(kind), kinds.count(kind))
+                      for kind in kernels}
     assert abs(gl - cl) <= 1e-5 * abs(cl) and abs(gg - cg) <= 1e-4 * cg
     for g, w in zip(tree.leaves(ggr), tree.leaves(cgr)):
         assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
@@ -1745,20 +1763,219 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
         assert (g.cpu() - w).abs().max().item() <= 1e-5 * w.abs().max().item()
 
 
-@pytest.mark.parametrize("arch,item", [("rwkv6-7b", "12g"), ("jamba-v0.1-52b", "12h")])
-def test_ssm_and_hybrid_training_refuses_on_the_card(dev, arch, item):
-    """The WKV-6 and Mamba-scan kernels have no backward yet: a train step
-    on the card raises, naming the ROADMAP item that brings it, instead of
-    training with a gradient missing. Without a gradient they still serve."""
-    from repro_torch import tree
+# -- the WKV-6 and Mamba-scan gradients -----------------------------------------
 
-    cfg = get_reduced(arch)
-    model = Model(cfg, device=dev)
-    params = tree.map(lambda p: p.requires_grad_(True), model.init(0))
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)),
-                             device=dev)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        model.loss(params, {"tokens": tokens, "labels": tokens})
-    with torch.no_grad():
-        logits, _, _ = model.prefill(params, {"tokens": tokens})
-    assert bool(torch.isfinite(logits).all())
+# a gradient returned in float32 to 1e-4 of its scale, one returned in bf16
+# to one bf16 step; a scale is at least 1e-3 max |dy|
+SSM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8}
+
+# b, s, heads, hd, with s0, with ds_last, decays (see _wkv_args). The
+# kernel keeps a checkpoint every 32768 / hd^2 steps (32, 8, 2): the
+# lengths cross several and end ragged
+WKV_BWD_CASES = {
+    "rwkv_head64": (2, 200, 4, 64, True, True, ()),
+    "ragged_no_state": (3, 37, 2, 64, False, False, ()),
+    "one_step": (2, 1, 3, 64, True, True, ()),
+    "head32": (2, 65, 3, 32, True, False, ()),
+    "head128": (1, 71, 2, 128, True, True, ()),
+    "empty_seq": (2, 0, 2, 64, True, True, ()),
+    "ragged_1000": (2, 1000, 2, 64, True, True, ()),
+    "strong_decay": (2, 300, 3, 64, True, True, ("zero", "one")),
+}
+
+
+def _grads_close(names, got, wants, dtypes, floor) -> None:
+    """Each returned gradient against each plain version's, within
+    ``SSM_BWD_TOL`` of the gradient's dtype of max(scale, floor)."""
+    for name, g, dtype, *ws in zip(names, got, dtypes, *wants):
+        if ws[0] is None:
+            assert g is None, name
+            continue
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        for w in ws:
+            scale = max(w.float().abs().max().item() if w.numel() else 0.0, floor)
+            err = (g.float() - w.float()).abs().max().item() if w.numel() else 0.0
+            assert err <= SSM_BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+def _autograd(fn, inputs, cotangents):
+    """torch autograd of ``fn(*inputs)`` (an input that is None gives None;
+    one the output does not reach, zeros)."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    live = [t for t in leaves if t is not None]
+    grads = iter(torch.autograd.grad(fn(*leaves), live, cotangents, allow_unused=True))
+    out = []
+    for t in leaves:
+        g = None if t is None else next(grads)
+        out.append(g if g is not None or t is None else torch.zeros_like(t))
+    return out
+
+
+def _wkv_bwd_args(case, dtype, dev):
+    b, s, h, hd, with_state, with_dlast, decays = WKV_BWD_CASES[case]
+    args = _wkv_args(b, s, h, hd, dtype, with_state, seed=s + hd + 5, dev=dev, decays=decays)
+    rng = np.random.default_rng(s + 1)
+    dy = torch.tensor(rng.standard_normal((b, s, h, hd)), dtype=torch.float32, device=dev)
+    dlast = (torch.tensor(rng.standard_normal((b, h, hd, hd)), dtype=torch.float32, device=dev)
+             if with_dlast else None)
+    return args, dy, dlast
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WKV_BWD_CASES))
+def test_wkv6_backward_matches_plain(dev, case, dtype):
+    """``wkv6_bwd_cuda`` (one launch) against the written-out
+    ``ref.wkv6_bwd_ref`` and autograd of ``ref.wkv6_ref`` on the same
+    inputs: dr, dk, dv in r's dtype, dw, du and ds0 float32."""
+    (r, k, v, w, u, s0), dy, dlast = _wkv_bwd_args(case, dtype, dev)
+    wkv6.bwd_launches = 0
+    got = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, dlast)
+    torch.cuda.synchronize()
+    assert wkv6.bwd_launches == 1
+    wants = [ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, dlast)]
+    if r.shape[1]:  # autograd of the step loop (with no step, y is no function of the inputs)
+        zeros = torch.zeros((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), device=dev)
+        wants.append(_autograd(ref.wkv6_ref, (r, k, v, w, u, s0),
+                               (dy, zeros if dlast is None else dlast)))
+    floor = 1e-3 * (dy.abs().max().item() if dy.numel() else 1.0)
+    _grads_close(("dr", "dk", "dv", "dw", "du", "ds0"), got, wants,
+                 (dtype,) * 3 + (torch.float32,) * 3, floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv6_backward_repeats_its_bits(dev, dtype):
+    """No atomics: every sum has one order (du over the batch too)."""
+    (r, k, v, w, u, s0), dy, dlast = _wkv_bwd_args("rwkv_head64", dtype, dev)
+    first = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, dlast)
+    second = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, dlast)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["no_state", "state"])
+def test_wkv6_under_a_gradient_runs_both_kernels(dev, with_state):
+    """``ops.wkv6`` with inputs that require grad runs ``WKV6``: one forward
+    and one backward launch, the forward's outputs the kernel's bits and
+    the gradients ``wkv6_bwd_cuda``'s bits on the same cotangents."""
+    case = "rwkv_head64" if with_state else "ragged_no_state"
+    args, dy, dlast = _wkv_bwd_args(case, torch.bfloat16, dev)
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in args]
+    wkv6.launches = wkv6.bwd_launches = 0
+    y, s_last = ops.wkv6(*leaves)
+    loss = (y * dy).sum() + ((s_last * dlast).sum() if with_state else 0.0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (wkv6.launches, wkv6.bwd_launches) == (1, 1)
+    want_y, want_s = wkv6.wkv6_cuda(*args)
+    assert torch.equal(y.detach(), want_y) and torch.equal(s_last.detach(), want_s)
+    want = wkv6.wkv6_bwd_cuda(*args[:5], dy, args[5], dlast if with_state else None)
+    for leaf, g in zip(leaves, want):
+        assert (leaf is None and g is None) or torch.equal(leaf.grad, g)
+
+
+def test_wkv6_backward_refuses_what_it_does_not_take(dev):
+    (r, k, v, w, u, s0), dy, dlast = _wkv_bwd_args("ragged_no_state", torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6.wkv6_bwd_cuda(*(t[..., :48].contiguous() for t in (r, k, v, w)), u[:, :48], dy)
+    with pytest.raises(ValueError, match="dy must be"):
+        wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy.bfloat16())
+    with pytest.raises(ValueError, match="ds_last must be"):
+        wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, None, dy[:, 0])
+    leaves = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    state = torch.zeros((r.shape[0], r.shape[2], 64, 64), device=dev)
+    with pytest.raises(ValueError, match="no out_state where a gradient is needed"):
+        ops.wkv6(*leaves, out_state=state)
+
+
+# b, s, d, n, x dtype, with h0, with dh_last, decays (see _mamba_args). The
+# kernel keeps a checkpoint every 8 steps
+MAMBA_BWD_CASES = {
+    "jamba_like": (2, 100, 300, 16, torch.bfloat16, True, True, ""),
+    "ragged_no_state": (3, 37, 129, 16, torch.float32, False, False, ""),
+    "state8": (2, 50, 64, 8, torch.float32, True, True, ""),
+    "state4_bf16": (3, 131, 100, 4, torch.bfloat16, True, False, ""),
+    "state32": (2, 257, 96, 32, torch.float32, True, True, ""),
+    "one_step": (4, 1, 256, 16, torch.bfloat16, True, True, ""),
+    "empty_seq": (2, 0, 96, 16, torch.float32, True, True, ""),
+    "near_one_2048": (2, 2048, 192, 16, torch.float32, False, False, "near1"),
+    "underflow": (2, 300, 256, 16, torch.float32, True, True, "underflow"),
+    "dt_zero": (2, 300, 256, 16, torch.bfloat16, True, True, "zero"),
+}
+
+
+def _mamba_bwd_args(case, dev):
+    b, s, d, n, xdtype, with_state, with_dlast, decays = MAMBA_BWD_CASES[case]
+    args = _mamba_args(b, s, d, n, xdtype, with_state, seed=s + d + 5, dev=dev, decays=decays)
+    rng = np.random.default_rng(s + 2)
+    dy = torch.tensor(rng.standard_normal((b, s, d)), dtype=torch.float32, device=dev)
+    dlast = (torch.tensor(rng.standard_normal((b, d, n)), dtype=torch.float32, device=dev)
+             if with_dlast else None)
+    return args, dy, dlast
+
+
+@pytest.mark.parametrize("case", sorted(MAMBA_BWD_CASES))
+def test_mamba_scan_backward_matches_plain(dev, case):
+    """``mamba_scan_bwd_cuda`` (one launch) against the written-out
+    ``ref.mamba_scan_bwd_ref`` and autograd of ``ref.mamba_scan_ref``: dx in
+    x's dtype, ddt, db, dc, da and dh0 float32; finite where decays
+    underflow."""
+    (dt, x, bm, cm, a, h0), dy, dlast = _mamba_bwd_args(case, dev)
+    mamba_scan.bwd_launches = 0
+    got = mamba_scan.mamba_scan_bwd_cuda(dt, x, bm, cm, a, dy, h0, dlast)
+    torch.cuda.synchronize()
+    assert mamba_scan.bwd_launches == 1
+    wants = [ref.mamba_scan_bwd_ref(dt, x, bm, cm, a, dy, h0, dlast)]
+    if dt.shape[1]:
+        zeros = torch.zeros((dt.shape[0], dt.shape[2], bm.shape[2]), device=dev)
+        wants.append(_autograd(ref.mamba_scan_ref, (dt, x, bm, cm, a, h0),
+                               (dy, zeros if dlast is None else dlast)))
+    floor = 1e-3 * (dy.abs().max().item() if dy.numel() else 1.0)
+    _grads_close(("ddt", "dx", "db", "dc", "da", "dh0"), got, wants,
+                 (torch.float32, x.dtype) + (torch.float32,) * 4, floor)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_scan_backward_repeats_its_bits(dev, xdtype):
+    """No atomics: db and dc sum the channel blocks in order, da the batch
+    rows."""
+    args = _mamba_args(4, 517, 1000, 16, xdtype, True, seed=23, dev=dev)
+    dy = torch.randn((4, 517, 1000), generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    first = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy, args[5])
+    second = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy, args[5])
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["no_state", "state"])
+def test_mamba_scan_under_a_gradient_runs_both_kernels(dev, with_state):
+    """``ops.mamba_scan`` with inputs that require grad runs ``MambaScan``:
+    one forward and one backward launch, the gradients
+    ``mamba_scan_bwd_cuda``'s bits on the same cotangents."""
+    case = "jamba_like" if with_state else "ragged_no_state"
+    args, dy, dlast = _mamba_bwd_args(case, dev)
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in args]
+    mamba_scan.launches = mamba_scan.bwd_launches = 0
+    y, h_last = ops.mamba_scan(*leaves)
+    loss = (y * dy).sum() + ((h_last * dlast).sum() if with_state else 0.0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan.bwd_launches) == (1, 1)
+    want = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy, args[5],
+                                          dlast if with_state else None)
+    for leaf, g in zip(leaves, want):
+        assert (leaf is None and g is None) or torch.equal(leaf.grad, g)
+
+
+def test_mamba_scan_backward_refuses_what_it_does_not_take(dev):
+    (dt, x, bm, cm, a, h0), dy, dlast = _mamba_bwd_args("state8", dev)
+    with pytest.raises(ValueError, match="state dim"):
+        mamba_scan.mamba_scan_bwd_cuda(dt, x, bm[..., :6].contiguous(),
+                                       cm[..., :6].contiguous(), a[:, :6].contiguous(), dy)
+    with pytest.raises(ValueError, match="dy must be"):
+        mamba_scan.mamba_scan_bwd_cuda(dt, x, bm, cm, a, dy[:, :1].contiguous())
+    with pytest.raises(ValueError, match="dh_last must be"):
+        mamba_scan.mamba_scan_bwd_cuda(dt, x, bm, cm, a, dy, h0, dlast.bfloat16())
+    leaves = [t.detach().clone().requires_grad_(True) for t in (dt, x, bm, cm, a)]
+    with pytest.raises(ValueError, match="no out_state where a gradient is needed"):
+        ops.mamba_scan(*leaves, out_state=torch.zeros_like(h0))

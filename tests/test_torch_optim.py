@@ -3,7 +3,9 @@
 
 * Each optimizer (sgd, momentum, adam, adamw) over three ``apply`` steps
   from the same parameters and the same gradients, float32 and bf16
-  parameters: the parameters and the optimizer state after every step.
+  parameters: the parameters and the optimizer state after every step;
+  ``apply`` writes ``update``'s result, bitwise, into the tensors it was
+  given.
 * ``clip_by_global_norm`` over three gradient trees, and its leaf order:
   the squares are summed in ``jax.tree_util``'s order (dict keys sorted),
   which a tree built to round differently in insertion order shows
@@ -113,7 +115,7 @@ def test_optimizer_steps_match_the_reference(name, dtype):
     grads = [_draw(rng, _shapes(), 0.1) for _ in range(STEPS)]
     jo, po = jx_opt.get_optimizer(name, LR), optimizers.get_optimizer(name, LR)
     jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(jdt), p0)
-    pp = tree.map(lambda a: torch.from_numpy(a).to(tdt), p0)
+    pp = tree.map(lambda a: torch.from_numpy(a).to(tdt, copy=True), p0)  # apply writes pp
     js, ps = jo.init(jp), po.init(pp)
     japply = jax.jit(jo.apply)
     for i, g in enumerate(grads):
@@ -126,6 +128,31 @@ def test_optimizer_steps_match_the_reference(name, dtype):
         _assert_trees_close(ps, js, False, f"{name} step {i} state")
     if name.startswith("adam"):
         assert ps["t"].dtype == torch.int32 and int(ps["t"]) == STEPS
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_apply_writes_the_update_in_place(name, dtype):
+    """``apply`` returns the tensors it was given, holding ``update``'s new
+    state and the parameters plus its updates (cast to their dtype),
+    bitwise, step after step."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.default_rng(10 + OPTIMIZERS.index(name))
+    p0 = _draw(rng, _shapes())
+    grads = [_draw(rng, _shapes(), 0.1) for _ in range(STEPS)]
+    opt = optimizers.get_optimizer(name, LR)
+    pp = tree.map(lambda a: torch.from_numpy(a).to(tdt, copy=True), p0)
+    ps = opt.init(pp)
+    for g in grads:
+        pg = tree.map(lambda a: torch.from_numpy(a).to(tdt), g)
+        updates, want_s = opt.update(pg, ps, pp)
+        want_p = tree.map(lambda p, u: (p + u).to(p.dtype), pp, updates)
+        given = tree.leaves(pp) + tree.leaves(ps)
+        pp, ps = opt.apply(pg, ps, pp)
+        got = tree.leaves(pp) + tree.leaves(ps)
+        assert all(a is b for a, b in zip(given, got)) and len(given) == len(got)
+        assert all(torch.equal(a, b) for a, b in zip(got, tree.leaves(want_p)
+                                                     + tree.leaves(want_s)))
 
 
 def test_adam_bias_corrections_are_float32():

@@ -17,7 +17,8 @@ come from autograd, the reference's from ``jax.value_and_grad``.
 * No cache is written in training (RWKV-6 and Jamba, whose prefills write
   state in place).
 * ``build_train``: three steps against the reference's jitted step, losses
-  and gradient norms; ``launch.train.main`` on the CPU with ``--save``,
+  and gradient norms; its step writes into the tensors it was given;
+  ``launch.train.main`` on the CPU with ``--save``,
   read back by the reference's ``restore``.
 
 Tolerances: the loss to 1e-5 relative, each gradient leaf to 1e-4 of its
@@ -262,6 +263,29 @@ def test_build_train_steps_match_the_reference(arch):
     assert int(state["t"]) == 3
     assert all(not p.requires_grad for p in tree.leaves(params))
     assert any(not torch.equal(a, b) for a, b in zip(before, tree.leaves(params)))
+
+
+def test_build_train_step_updates_in_place():
+    """``build_train``'s step writes the new parameters and optimizer state
+    into the tensors it was given and returns them (the launcher keeps one
+    copy of the moments so); two steps advance the Adam counter to 2 and
+    move every parameter leaf."""
+    cfg = configs.get_reduced("jamba-v0.1-52b")
+    m = Model(cfg, device="cpu")
+    step = steps.build_train(m, make_mesh_by_name("cpu"))[0]
+    params = m.init(0)
+    state = get_optimizer(cfg.optimizer, cfg.learning_rate).init(params)
+    before = [p.clone() for p in tree.leaves(params)]
+    gen = token_batches(np.random.default_rng(5), 2, 17, cfg.vocab_size)
+    for _ in range(2):
+        given = tree.leaves(params) + tree.leaves(state)
+        params, state, met = step(params, state, {k: torch.as_tensor(v)
+                                                  for k, v in next(gen).items()})
+        got = tree.leaves(params) + tree.leaves(state)
+        assert all(a is b for a, b in zip(given, got)) and len(given) == len(got)
+        assert np.isfinite(met["loss"].item()) and np.isfinite(met["grad_norm"].item())
+    assert int(state["t"]) == 2
+    assert all(not torch.equal(a, b) for a, b in zip(before, tree.leaves(params)))
 
 
 def test_train_launcher_saves_what_the_reference_restores(tmp_path, capsys):
