@@ -245,13 +245,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
         ``ref.mamba_scan_bwd_ref`` and autograd of the step loops) at the
         training shapes (WKV: B 4, S 2048, 64 heads of 64; scan: B 4, S
         2048, D 8192, N 16), bf16 and float32, S = 1001 (ragged against
-        both kernels' 8-step sub-chunks) with a starting state and a
-        final-state gradient, the decays "zero" and "one" of 9a
-        and "near1" and "underflow" of 10a: float32 gradients to 1e-4 of
+        the WKV backward's 64-step chunks and the scan's 8-step
+        sub-chunks) with a starting state and a final-state gradient, the
+        decays "zero" and "one" of 9a and "near1" and "underflow" of 10a,
+        and at B 1 a chunk-edge case each (WKV S 129; the scan S 65 at D
+        8196, staged element by element): float32 gradients to 1e-4 of
         their scale, bf16 ones to 2^-8; their bits repeat from call to
-        call; kernel (CUDA events), plain and bound times and each
-        kernel's ptxas registers and spills (no PyTorch call computes
-        either gradient);
+        call, and WKV's are the same bits from the forward's chunk states;
+        WKV's kernels a call as its C entry counts them (a reversed chunk
+        run, a row walk and du's sum, and the chunk states' run where the
+        forward kept none), and each call's launches by the profiler with
+        their times (the scan: its walk and its sums) where its trace holds
+        every one of them (it has been seen to drop some);
+        kernel (CUDA events; WKV from the forward's chunk states, as 15e
+        runs it, and alone, with the forward's cost of keeping them),
+        plain and bound times and each kernel's ptxas registers and spills
+        (no PyTorch call computes either gradient);
      e. ``launch.steps.build_train`` on RWKV-6 7B cut to 4 of 32 layers
         (phase 9's weights) and on Jamba cut to the period's first 2
         layers, Mamba+MoE and Mamba+dense (phase 10's), as 15b: bf16,
@@ -435,6 +444,7 @@ WKV_BWD_CASES = [
     ("ragged, state", TRAIN_BATCH, 1001, 64, 64, "bfloat16", True, True, "", 3),
     ("decay zero", TRAIN_BATCH, 1001, 64, 64, "float32", True, True, "zero", 3),
     ("decay near 1", TRAIN_BATCH, 1001, 64, 64, "float32", True, True, "one", 3),
+    ("chunk edges", 1, 129, 64, 64, "bfloat16", True, True, "zero", 3),
 ]
 # name, B, S, d_inner, d_state, x dtype, with h0, with dh_last, decays (as
 # 10a's), timed calls; the first is the training shape
@@ -445,6 +455,7 @@ MAMBA_BWD_CASES = [
     ("decays near 1", TRAIN_BATCH, TRAIN_SEQ, 8192, 16, "float32", False, False, "near1", 3),
     ("underflowing decays", TRAIN_BATCH, 1001, 8192, 16, "bfloat16", True, True, "underflow",
      3),
+    ("sub-chunk edges, D 8196", 1, 65, 8196, 16, "float32", True, True, "", 3),
 ]
 # 15e: RWKV-6 7B and Jamba at full width, their depth cut (phase 9's and 10's
 # weights), trained as 15b's Llama: bf16, remat, AdamW at 3e-4,
@@ -584,7 +595,8 @@ def ptxas_entries(log: str) -> list[tuple[str, str]]:
                 kind = "bf16" if "bfloat16" in mangled else "float"
                 if names:
                     name, end = names[0]
-                    sizes = re.findall(r"Li(\d+)E", mangled[end:].split("EEv")[0])
+                    sizes = [v if k == "i" else ("true" if v == "1" else "false") for k, v in
+                             re.findall(r"L([ib])(\d+)E", mangled[end:].split("EEv")[0])]
                     entry = f"{name}<{', '.join([kind] + sizes)}>"
                 else:
                     entry = mangled
@@ -617,16 +629,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_by_kernel(fn, expect: str | None = None) -> list[tuple[str, float, int]]:
+def device_time_by_kernel(fn, expect: str | tuple[str, ...] | None = None
+                          ) -> list[tuple[str, float, int]]:
     """(kernel, device ms, launches) for one call of ``fn``, most time
     first, from ``torch.profiler``; empty if the profiler saw no device time.
 
-    With ``expect``, a trace that holds no kernel whose name contains it is
-    taken again (``fn`` called again), up to ``PROFILE_TRIES`` traces in
-    all: on the card's machine the profiler has been seen to drop most of
-    a trace's kernel records, the training kernel's among them, in runs
-    whose results showed the kernels ran. A kernel that does not run stays
-    absent from every trace, and the caller's check fails."""
+    With ``expect`` (a name, or several), a trace that lacks a kernel whose
+    name contains one of them is taken again (``fn`` called again), up to
+    ``PROFILE_TRIES`` traces in all: on the card's machine the profiler has
+    been seen to drop most of a trace's kernel records, the training
+    kernel's among them, in runs whose results showed the kernels ran. A
+    kernel that does not run stays absent from every trace, and the
+    caller's check fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -641,7 +655,8 @@ def device_time_by_kernel(fn, expect: str | None = None) -> list[tuple[str, floa
             if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
                 rows.append((ev.key, us / 1e3, ev.count))
         rows.sort(key=lambda r: -r[1])
-        if expect is None or any(expect in key for key, _, _ in rows):
+        wanted = (expect,) if isinstance(expect, str) else expect or ()
+        if all(any(name in key for key, _, _ in rows) for name in wanted):
             break
         print(f"torch.profiler: trace {attempt} of at most {PROFILE_TRIES} holds no {expect} "
               f"launch ({len(rows)} kernels recorded)")
@@ -3973,10 +3988,54 @@ def events_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def split_of(rows, names) -> str:
+    """``device_time_by_kernel`` rows as "name ms x launches" for each name
+    (a substring of the kernel's), in that order."""
+    parts = []
+    for label, sub in names:
+        hits = [(ms, n) for key, ms, n in rows if sub in key]
+        parts.append(f"{label} {sum(ms for ms, _ in hits):.4f} ms x {sum(n for _, n in hits)}")
+    return ", ".join(parts)
+
+
+def launches_of(rows, sub) -> int:
+    return sum(n for key, _, n in rows if sub in key)
+
+
+def profiled_launches(label, fn, want: dict[str, int], passes) -> str:
+    """One call of ``fn`` under ``torch.profiler``: its launches of each
+    kernel (a substring of its name) held to ``want`` exactly, and the
+    passes' split of its device time. On the card's machine the profiler
+    has been seen to drop some or all of a trace's kernel records (one
+    trace held the WKV backward's reversed chunk run and not the row walk
+    or du's sum that the C entry counted), so a trace that still lacks a
+    kernel of ``want`` after ``PROFILE_TRIES`` traces is reported as not
+    measured: the launches themselves are held by the wrapper's and the C
+    entry's counts. A trace that holds them all must count each exactly,
+    and no launch of a kernel that ``want`` puts at 0."""
+    expect = tuple(sub for sub, n in want.items() if n)
+    rows = device_time_by_kernel(fn, expect=expect)
+    got = {sub: launches_of(rows, sub) for sub in want}
+    if not all(got[sub] for sub in expect):
+        return (f"not measured (the profiler recorded {len(rows)} kernel(s), "
+                f"launches {got})")
+    require(got == want, f"{label}: the profiler saw launches {got}, want {want}")
+    return split_of(rows, passes)
+
+
+# the WKV-6 backward's launches, as the profiler names them: the chunk
+# states' run (only where the forward kept none), the reversed chunk run,
+# the row walk, du's sum
+WKV_BWD_PASSES = (("chunk states", ", false, false, true>"),
+                  ("reversed chunk run", ", true, true, true>"), ("row walk", "rows_kernel"),
+                  ("du sum", "du_sum_kernel"))
+
+
 def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
                  iters) -> dict:
     """Phase 15d, one case: the WKV-6 backward kernel against its plain
-    versions, its bits from call to call, timed with the written-out plain
+    versions, its bits from call to call and with or without the forward's
+    chunk states, its launches a call, timed with the written-out plain
     backward and beside its bound."""
     import torch
 
@@ -4001,15 +4060,21 @@ def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
     dy = randn(b, s, h, hd)
     dlast = randn(b, h, hd, hd) if with_dlast else None
     args = (r, k, v, w, u, dy, s0, dlast)
+    # the chunk states as the training step's forward keeps them
+    states = torch.empty(wkv6.chunk_states_shape(r), device=dev)
+    wkv6.wkv6_cuda(r, k, v, w, u, s0, chunk_states=states)
     wkv6.bwd_launches = 0
     got = wkv6.wkv6_bwd_cuda(*args)
     again = wkv6.wkv6_bwd_cuda(*args)
+    kept = wkv6.wkv6_bwd_cuda(*args, chunk_states=states)
     torch.cuda.synchronize()
-    require(wkv6.bwd_launches == 2, f"15d wkv6_bwd {name}: {wkv6.bwd_launches} launches "
-            "for 2 calls")
-    repeats = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
-    require(repeats, f"15d wkv6_bwd {name}: two calls gave different bits")
-    del again
+    require(wkv6.bwd_launches == 3, f"15d wkv6_bwd {name}: {wkv6.bwd_launches} launches "
+            "for 3 calls")
+    repeats = all(x is None or (torch.equal(x, y) and torch.equal(x, z))
+                  for x, y, z in zip(got, again, kept))
+    require(repeats, f"15d wkv6_bwd {name}: two calls, or a call from the forward's chunk "
+            "states, gave different bits")
+    del again, kept
     plain, plain_ms = events_ms(lambda: ref.wkv6_bwd_ref(*args))
     zeros = torch.zeros((b, h, hd, hd), device=dev)
     auto = autograd_of(ref.wkv6_ref, (r, k, v, w, u, s0), (dy, zeros if dlast is None else dlast))
@@ -4017,7 +4082,29 @@ def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
     err = ssm_grads_check(f"15d wkv6_bwd {name}", names, got, plain, auto,
                           1e-3 * dy.abs().max().item())
     del got, plain, auto
-    ms = min(cuda_ms(lambda: wkv6.wkv6_bwd_cuda(*args), iters) for _ in range(2))
+    # as the training step runs it (from the forward's chunk states), alone,
+    # and the forward's cost of keeping the states
+    ms = min(cuda_ms(lambda: wkv6.wkv6_bwd_cuda(*args, chunk_states=states), iters)
+             for _ in range(2))
+    alone_ms = min(cuda_ms(lambda: wkv6.wkv6_bwd_cuda(*args), iters) for _ in range(2))
+    fwd_ms = [min(cuda_ms(lambda: wkv6.wkv6_cuda(r, k, v, w, u, s0, chunk_states=kept_),
+                          iters) for _ in range(2)) for kept_ in (None, states)]
+    # each call's launches, as its C entry counts them: a reversed chunk
+    # run, a row walk and a du sum, and the chunk states' run only without
+    # them; and by the profiler, with their times, where its trace holds
+    # them all
+    nc = -(-s // wkv6.CHUNK)
+    split = {}
+    for tag, kw in (("states", {"chunk_states": states}), ("alone", {})):
+        wkv6.wkv6_bwd_cuda(*args, **kw)
+        kernels = 3 + int(not kw and nc > 1)
+        require(wkv6.last_bwd_kernels == kernels, f"15d wkv6_bwd {name} {tag}: "
+                f"{wkv6.last_bwd_kernels} kernels launched by a call, want {kernels}")
+        want = {"rows_kernel": 1, ", true, true, true>": 1, "du_sum_kernel": 1,
+                ", false, false, true>": kernels - 3}
+        split[tag] = profiled_launches(f"15d wkv6_bwd {name} {tag}",
+                                       lambda: wkv6.wkv6_bwd_cuda(*args, **kw), want,
+                                       WKV_BWD_PASSES)
     # the least work: the state's recompute, G's update and the sums of dr,
     # dk, dv and dw, 6 FMAs per (b, h, t, i, j); the least bytes: r, k, v
     # in their dtype and w, dy in float32 read once, dr, dk, dv in r's
@@ -4027,7 +4114,10 @@ def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
     nbytes = (6 * e + 12) * n + 8 * h * hd + 4 * b * h * hd * hd * (2 * with_state + with_dlast)
     flops = 12 * b * h * s * hd * hd
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    regs = ptxas_of("wkv6_bwd", f"wkv6_bwd_kernel<{kind}, {hd}>")
+    regs = "; ".join(f"{label} {ptxas_of('wkv6_bwd', entry)}" for label, entry in (
+        ("row walk", f"rows_kernel<{kind}, {hd}>"),
+        ("reversed chunk run", f"chunk_kernel<{kind}, {hd}, true, true, true>"),
+        ("chunk states", f"chunk_kernel<{kind}, {hd}, false, false, true>")))
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
@@ -4036,11 +4126,14 @@ def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
           f"ds_last {'given' if with_dlast else 'none'}{', decays ' + decays if decays else ''}: "
           f"max_abs_err {err:.3g} against the written-out backward (each gradient within "
           f"{SSM_BWD_TOL[str(dtype).removeprefix('torch.')]:g} of its scale of both plain "
-          f"versions); bits repeat: {repeats}; kernel {ms:.4f} ms (CUDA events, the least of 2 "
-          f"timings), plain {plain_ms:.1f} ms (written out, one call), bound "
+          f"versions); bits repeat (and with the forward's chunk states): {repeats}; kernel "
+          f"{ms:.4f} ms from the forward's chunk states (CUDA events, the least of 2 timings; "
+          f"the forward {fwd_ms[0]:.4f} ms, {fwd_ms[1]:.4f} keeping them), alone "
+          f"{alone_ms:.4f} ms, plain {plain_ms:.1f} ms (written out, one call), bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.4g} FP32 FLOPs at "
           f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, {nbytes:.4g} bytes), {row['bound_ms'] / ms:.3f} "
-          f"of the bound; ptxas: {regs}")
+          f"of the bound; passes (torch.profiler, one call): from the states "
+          f"{split['states']}; alone {split['alone']}; ptxas: {regs}")
     return row
 
 
@@ -4080,6 +4173,13 @@ def mamba_bwd_case(dev, name, b, s, d, n, dtype, with_state, with_dlast, decays,
     torch.cuda.synchronize()
     require(mamba_scan.bwd_launches == 2, f"15d mamba_scan_bwd {name}: "
             f"{mamba_scan.bwd_launches} launches for 2 calls")
+    # a call's launches by the profiler, where its trace holds them all:
+    # the walk and the sums
+    split = profiled_launches(f"15d mamba_scan_bwd {name}",
+                              lambda: mamba_scan.mamba_scan_bwd_cuda(*args),
+                              {"mamba_scan_bwd_kernel": 1, "mamba_bwd_sum_kernel": 1},
+                              (("walk", "mamba_scan_bwd_kernel"),
+                               ("sums", "mamba_bwd_sum_kernel")))
     repeats = all(t is None or torch.equal(t, y) for t, y in zip(got, again))
     require(repeats, f"15d mamba_scan_bwd {name}: two calls gave different bits")
     del again
@@ -4106,7 +4206,8 @@ def mamba_bwd_case(dev, name, b, s, d, n, dtype, with_state, with_dlast, decays,
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sfu_ms = 1e3 * b * s * d * n / (16 * sms * max_sm_clock_mhz() * 1e6)
-    regs = ptxas_of("mamba_scan_bwd", f"mamba_scan_bwd_kernel<{kind}, {n}>")
+    vec = "true" if d % 8 == 0 else "false"  # staged 16 bytes a copy
+    regs = ptxas_of("mamba_scan_bwd", f"mamba_scan_bwd_kernel<{kind}, {n}, {vec}>")
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err}
@@ -4119,8 +4220,9 @@ def mamba_bwd_case(dev, name, b, s, d, n, dtype, with_state, with_dlast, decays,
           f"{plain_ms:.1f} ms (written out, one call), bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}: {flops:.4g} FP32 operations at {PEAK_FP32_FLOPS / 1e12:g} "
           f"TFLOP/s, {nbytes:.4g} bytes); SFU floor {sfu_ms:.4f} ms (one exponential an "
-          f"element; the kernel takes three IEEE expf); {row['bound_ms'] / ms:.3f} of the "
-          f"bound; ptxas: {regs}")
+          f"element; the kernel takes two IEEE expf: phase A and the recompute); "
+          f"{row['bound_ms'] / ms:.3f} of the bound; passes (torch.profiler, one call): "
+          f"{split}; ptxas: {regs}")
     return row
 
 
@@ -4338,7 +4440,7 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
     wkv_flops = 3 * 4 * TRAIN_BATCH * TRAIN_SEQ * h * hd * hd  # y and the state, fwd + bwd
     rwkv_counts = train_run(dev, "15e", RWKV_ARCH, rcfg, rwkv_weights, SSM_TRAIN_STEPS,
                             kernel_counts(rcfg, SSM_TRAIN_STEPS), rcfg.num_layers * wkv_flops,
-                            "wkv6_bwd_kernel")
+                            "rows_kernel")
     jcfg = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=JAMBA_TRAIN_LAYERS)
     require(list(zip(jcfg.layer_kinds(), jcfg.layer_is_moe())) == [("mamba", True),
                                                                    ("mamba", False)],
@@ -4362,11 +4464,15 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
                  "P and dS in two bf16 pieces, no atomics)", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu", "replaces": None,
          "launches": train_counts["flash_attention_bwd"], **rows[0]},
-        {"name": "wkv6_bwd (CUDA cores, float32, checkpoints every 8 steps, no atomics)",
+        {"name": "wkv6_bwd (64-step chunks: the forward's chunk states; the chunk kernel on "
+                 "reversed time for dv, ds0 and the boundary gradients, 3xTF32 mma.sync; a "
+                 "row walk a (b, h, chunk, 32 rows) on the CUDA cores for dr, dk, dw; "
+                 "cp.async staging; no atomics)",
          "route": "cuda", "source": "src/repro_torch/csrc/wkv6_bwd.cu", "replaces": None,
          "launches": rwkv_counts["wkv6_bwd"], **wkv_rows[0]},
-        {"name": "mamba_scan_bwd (CUDA cores, float32, IEEE expf, checkpoints every 8 steps, "
-                 "no atomics)", "route": "cuda",
+        {"name": "mamba_scan_bwd (CUDA cores, float32, IEEE expf twice an element, a "
+                 "checkpoint a sub-chunk, decays kept from the recompute, dB/dC by a "
+                 "transposed butterfly over a warp's channels, cp.async ring, no atomics)", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba_scan_bwd.cu", "replaces": None,
          "launches": jamba_counts["mamba_scan_bwd"], **mamba_rows[0]},
     ]

@@ -141,7 +141,9 @@ def mamba_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: t
     Every sum is taken in float32 in a fixed order (no atomics): the bits
     repeat from call to call. The C entry first runs the forward recurrence
     to keep the states every 8 steps in scratch allocated here, with the
-    partial sums of db, dc (over channel blocks) and da (over batch rows)."""
+    partial sums of db, dc (over channel blocks) and da (over batch rows),
+    then walks the 8-step sub-chunks back from the last, each recomputed
+    with its decays kept for the walk."""
     global bwd_launches
     _check(dt, x, b, c, a, h0, None)
     bsz, s, d = dt.shape

@@ -1770,8 +1770,10 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch, remat, monkeypatch):
 SSM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8}
 
 # b, s, heads, hd, with s0, with ds_last, decays (see _wkv_args). The
-# kernel keeps a checkpoint every 32768 / hd^2 steps (32, 8, 2): the
-# lengths cross several and end ragged
+# kernel splits the sequence at 64-step chunks (its reversed run pads the
+# ragged one at its head) and walks a chunk in 8-step sub-chunks: the
+# lengths cross several and end ragged, and 63, 64, 65 and 129 sit on the
+# chunks' edges at both ends of the head dims
 WKV_BWD_CASES = {
     "rwkv_head64": (2, 200, 4, 64, True, True, ()),
     "ragged_no_state": (3, 37, 2, 64, False, False, ()),
@@ -1781,7 +1783,17 @@ WKV_BWD_CASES = {
     "empty_seq": (2, 0, 2, 64, True, True, ()),
     "ragged_1000": (2, 1000, 2, 64, True, True, ()),
     "strong_decay": (2, 300, 3, 64, True, True, ("zero", "one")),
+    "s63_head32": (1, 63, 3, 32, True, True, ()),
+    "s63_head128": (1, 63, 2, 128, False, True, ()),
+    "s64_head32": (1, 64, 3, 32, False, False, ("zero",)),
+    "s64_head128": (1, 64, 2, 128, True, True, ()),
+    "s65_head32": (1, 65, 3, 32, True, False, ("one",)),
+    "s65_head128": (1, 65, 2, 128, True, True, ("zero", "one")),
+    "s129_head32": (1, 129, 3, 32, True, True, ()),
+    "s129_head128": (1, 129, 2, 128, False, True, ()),
 }
+# the RWKV-6 7B training shape cut to B 1 (15d times it at B 4)
+WKV_TRAIN_B1 = (1, 2048, 64, 64, False, False, ())
 
 
 def _grads_close(names, got, wants, dtypes, floor) -> None:
@@ -1824,7 +1836,7 @@ def _wkv_bwd_args(case, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(WKV_BWD_CASES))
 def test_wkv6_backward_matches_plain(dev, case, dtype):
-    """``wkv6_bwd_cuda`` (one launch) against the written-out
+    """``wkv6_bwd_cuda`` (one call) against the written-out
     ``ref.wkv6_bwd_ref`` and autograd of ``ref.wkv6_ref`` on the same
     inputs: dr, dk, dv in r's dtype, dw, du and ds0 float32."""
     (r, k, v, w, u, s0), dy, dlast = _wkv_bwd_args(case, dtype, dev)
@@ -1832,6 +1844,10 @@ def test_wkv6_backward_matches_plain(dev, case, dtype):
     got = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, dlast)
     torch.cuda.synchronize()
     assert wkv6.bwd_launches == 1
+    # the C entry's kernels: the reversed chunk run and du's sum, the row
+    # walk where there is a step, the chunk states' run past one chunk
+    chunks = -(-r.shape[1] // wkv6.CHUNK)
+    assert wkv6.last_bwd_kernels == 2 + int(chunks > 0) + int(chunks > 1)
     wants = [ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, dlast)]
     if r.shape[1]:  # autograd of the step loop (with no step, y is no function of the inputs)
         zeros = torch.zeros((r.shape[0], r.shape[2], r.shape[3], r.shape[3]), device=dev)
@@ -1850,6 +1866,49 @@ def test_wkv6_backward_repeats_its_bits(dev, dtype):
     second = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, dlast)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv6_backward_repeats_its_bits_at_the_training_shape(dev, dtype):
+    """The same at the training shape cut to B 1: 32 chunks, each walked by
+    two CTAs, du summed over them in order; with and without the forward's
+    chunk states the gradients are the same bits."""
+    b, s, h, hd, with_state, with_dlast, decays = WKV_TRAIN_B1
+    r, k, v, w, u, s0 = _wkv_args(b, s, h, hd, dtype, with_state, seed=11, dev=dev)
+    dy = torch.randn((b, s, h, hd), generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+    states = torch.empty(wkv6.chunk_states_shape(r), device=dev)
+    wkv6.wkv6_cuda(r, k, v, w, u, s0, chunk_states=states)
+    first = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0)
+    second = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0)
+    kept = wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, s0, chunk_states=states)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(first, second, kept):
+        assert (a is None and b_ is None and c is None) or (torch.equal(a, b_)
+                                                             and torch.equal(a, c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["rwkv_head64", "s129_head128", "s65_head32", "s64_head32"])
+def test_wkv6_chunk_states_leave_the_forward_bitwise(dev, case, dtype):
+    """``wkv6_cuda(..., chunk_states=t)`` writes the state after each chunk
+    but the last into t (the step loop's to ``WKV_TOL`` of its scale), and
+    its y and s_last are the same bits as without it."""
+    b, s, h, hd, with_state, _, decays = WKV_BWD_CASES[case]
+    args = _wkv_args(b, s, h, hd, dtype, with_state, seed=s + 3, dev=dev, decays=decays)
+    states = torch.full(wkv6.chunk_states_shape(args[0]), float("nan"), device=dev)
+    y, s_last = wkv6.wkv6_cuda(*args, chunk_states=states)
+    want_y, want_s = wkv6.wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(s_last, want_s)
+    r, k, v, w, u, s0 = args
+    for c in range(states.shape[2]):
+        cut = (c + 1) * wkv6.CHUNK
+        _, plain = ref.wkv6_ref(*(x[:, :cut] for x in (r, k, v, w)), u, s0)
+        _wkv_close(states[:, :, c], plain)
+    if states.shape[2]:
+        with pytest.raises(ValueError, match="step kernel writes no chunk states"):
+            wkv6.wkv6_cuda(*args, kernel="step", chunk_states=states)
 
 
 @pytest.mark.parametrize("with_state", [False, True], ids=["no_state", "state"])
@@ -1881,6 +1940,8 @@ def test_wkv6_backward_refuses_what_it_does_not_take(dev):
         wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy.bfloat16())
     with pytest.raises(ValueError, match="ds_last must be"):
         wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, None, dy[:, 0])
+    with pytest.raises(ValueError, match="chunk_states must be"):
+        wkv6.wkv6_bwd_cuda(r, k, v, w, u, dy, chunk_states=dy[:, :1])
     leaves = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
     state = torch.zeros((r.shape[0], r.shape[2], 64, 64), device=dev)
     with pytest.raises(ValueError, match="no out_state where a gradient is needed"):
@@ -1888,7 +1949,9 @@ def test_wkv6_backward_refuses_what_it_does_not_take(dev):
 
 
 # b, s, d, n, x dtype, with h0, with dh_last, decays (see _mamba_args). The
-# kernel keeps a checkpoint every 8 steps
+# kernel keeps a checkpoint at the start of every 8-step sub-chunk: 63, 64
+# and 65 end one step short of, on and one step past a sub-chunk's edge, at
+# both ends of the state dims
 MAMBA_BWD_CASES = {
     "jamba_like": (2, 100, 300, 16, torch.bfloat16, True, True, ""),
     "ragged_no_state": (3, 37, 129, 16, torch.float32, False, False, ""),
@@ -1900,7 +1963,15 @@ MAMBA_BWD_CASES = {
     "near_one_2048": (2, 2048, 192, 16, torch.float32, False, False, "near1"),
     "underflow": (2, 300, 256, 16, torch.float32, True, True, "underflow"),
     "dt_zero": (2, 300, 256, 16, torch.bfloat16, True, True, "zero"),
+    "s63_n4": (1, 63, 136, 4, torch.float32, True, True, ""),
+    "s63_n32": (1, 63, 96, 32, torch.bfloat16, False, True, ""),
+    "s64_n4": (1, 64, 200, 4, torch.bfloat16, True, False, "underflow"),
+    "s64_n32": (1, 64, 64, 32, torch.float32, True, True, ""),
+    "s65_n4": (1, 65, 129, 4, torch.float32, False, False, ""),
+    "s65_n32": (1, 65, 160, 32, torch.float32, True, True, "near1"),
 }
+# the Jamba training shape cut to B 1 (15d times it at B 4)
+MAMBA_TRAIN_B1 = (1, 2048, 8192, 16)
 
 
 def _mamba_bwd_args(case, dev):
@@ -1945,6 +2016,20 @@ def test_mamba_scan_backward_repeats_its_bits(dev, xdtype):
     second = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy, args[5])
     torch.cuda.synchronize()
     assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_scan_backward_repeats_its_bits_at_the_training_shape(dev, xdtype):
+    """The same at the training shape cut to B 1: 256 sub-chunks, each
+    recomputed from its checkpoint, and 128 channel blocks summed in order
+    for dB and dC."""
+    b, s, d, n = MAMBA_TRAIN_B1
+    args = _mamba_args(b, s, d, n, xdtype, False, seed=29, dev=dev)
+    dy = torch.randn((b, s, d), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    first = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy)
+    second = mamba_scan.mamba_scan_bwd_cuda(*args[:5], dy)
+    torch.cuda.synchronize()
+    assert all((p is None and q is None) or torch.equal(p, q) for p, q in zip(first, second))
 
 
 @pytest.mark.parametrize("with_state", [False, True], ids=["no_state", "state"])

@@ -178,20 +178,29 @@ def test_wkv6_function_routes_the_kernels(with_state, monkeypatch):
     """``WKV6`` with ``wkv6_cuda`` and ``wkv6_bwd_cuda`` stood in by the
     plain versions: one call of each a step; outputs and gradients are
     autograd's of ``ref.wkv6_ref`` (s_last's gradient flows too when the
-    loss uses it, and is None, taken as zeros, when it does not)."""
+    loss uses it, and is None, taken as zeros, when it does not). Over two
+    chunks the forward is handed a chunk-state buffer, which the stand-in
+    fills with the step loop's state after the first chunk, and the
+    backward is handed the same buffer."""
     case = "s70_hd32_state_dlast" if with_state else "s70_hd64_no_state"
     arrays, dy, dlast, dtype = _wkv_inputs(case)
     inputs = _wkv_torch(arrays, dtype)
     calls = {"fwd": 0, "bwd": 0}
+    kept = []
 
-    def fwd(r, k, v, w, u, s0):
+    def fwd(r, k, v, w, u, s0, *, chunk_states=None):
         calls["fwd"] += 1
         assert not torch.is_grad_enabled()
+        hd = r.shape[3]
+        assert tuple(chunk_states.shape) == wkv6.chunk_states_shape(r) == (2, 2, 1, hd, hd)
+        chunk_states[:, :, 0] = ref.wkv6_ref(*(t[:, :wkv6.CHUNK] for t in (r, k, v, w)), u, s0)[1]
+        kept.append(chunk_states)
         return ref.wkv6_ref(r, k, v, w, u, s0)
 
-    def bwd(r, k, v, w, u, dy_, s0, ds_last):
+    def bwd(r, k, v, w, u, dy_, s0, ds_last, *, chunk_states=None):
         calls["bwd"] += 1
         assert dy_.is_contiguous() and (ds_last is None) == (not with_state)
+        assert chunk_states is kept[0]
         return ref.wkv6_bwd_ref(r, k, v, w, u, dy_, s0, ds_last, chunk=8)
 
     monkeypatch.setattr(wkv6, "wkv6_cuda", fwd)

@@ -281,7 +281,8 @@ def test_chunked_arithmetic_matches_the_pallas_kernel():
 
 
 def test_the_emulation_uses_the_kernels_constants():
-    src = (pathlib.Path(wkv6.__file__).resolve().parents[1] / "csrc" / "wkv6.cu").read_text()
+    csrc = pathlib.Path(wkv6.__file__).resolve().parents[1] / "csrc"
+    src = "".join((csrc / name).read_text() for name in ("wkv6.cu", "wkv6_chunk.cuh"))
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["CHUNK"]) == wkv6.CHUNK == 64
     assert int(consts["SUB"]) == wkv6.SUB_CHUNK == 16
