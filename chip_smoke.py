@@ -272,10 +272,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
         peak memory and device ms by kernel;
      f. one float32 step of each family's reduced config on the card and
         on the CPU, gated as c.
+ 16. the dry run and the roofline (``launch.dryrun``, ``roofline``):
+     a. the dry run on meta, in process, of llama3-8b train_4k,
+        deepseek-moe-16b decode_32k, rwkv6-7b long_500k and jamba-v0.1-52b
+        train_4k at full width and depth on the one-rank ``cpu`` mesh: each
+        record's FLOPs positive and its dominant term named;
+     b. 8b's prefill (28 layers, 4 x 2048, phase 8's weights) and 15b's
+        train step (4 layers, the same weights), each counted by
+        ``roofline.op_cost`` while its kernels run on the card: the count
+        equal, as integers, to the meta count of the same config and shape,
+        its kernel entries equal to the wrappers' launch counters; the
+        counted FLOPs and bytes, ``model_flops_per_step``, the useful ratio,
+        the warm ms of a separate run outside the count and the share of
+        the bound (and, for the step, the smoke's own model FLOPs);
+     c. each torch twin of the root examples (``examples/torch_*.py``) once
+        on the card as a subprocess, all at once, at small sizes: rc 0.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b and 15b-f each
-set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd`` among
-them) to 0 just before the run they check and read them just after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f and 16b
+each set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd``
+among them) to 0 just before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -298,11 +313,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): FP32 and FP64 outside
-# the tensor cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_FP64_FLOPS = 34e12
-PEAK_BYTES_PER_S = 3.35e12
+from repro_torch.roofline import kernel_cost  # noqa: E402
+from repro_torch.roofline.analysis import HW  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W; roofline.analysis.HW):
+# FP32 and FP64 outside the tensor cores, HBM3 bandwidth, bf16 and TF32 on
+# the tensor cores
+PEAK_FP32_FLOPS = HW.fp32_flops
+PEAK_FP64_FLOPS = HW.fp64_flops
+PEAK_BYTES_PER_S = HW.hbm_bw
+PEAK_BF16_FLOPS = HW.peak_flops
+PEAK_TF32_FLOPS = HW.tf32_flops
 # traces of torch.profiler taken before a kernel's absence counts (see
 # device_time_by_kernel)
 PROFILE_TRIES = 3
@@ -351,8 +372,6 @@ E2E_LAYERS, E2E_STEPS, E2E_TOL = 2, 16, 1e-4
 # the dense oracle's (B, Sq, KV, G, Skv) float32 scores up to this size;
 # beyond it the plain version is the chunked scan
 DENSE_REF_BYTES = 4e9
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
 # phase 14: the Whisper-small serve at full width and published depth (12 +
 # 12 layers, 1500 frames), a batch of 64-token decoder prompts
 WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = "whisper-small", 8, 64, 32
@@ -365,6 +384,16 @@ WHISPER_E2E_LAYERS, WHISPER_E2E_BATCH, WHISPER_E2E_STEPS = 2, 2, 4
 # ahead of a 256-token text prompt
 VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN = "internvl2-76b", 2, 4, 256, 32
 VLM_IMAGE_TOKENS = 256  # the config's num_image_tokens; 14b checks it
+# phase 16: the dry run's pairs (the reference's own dry-run test's), and the
+# twins of the root examples with the arguments that keep them small
+DRYRUN_PAIRS = [("llama3-8b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"), ("jamba-v0.1-52b", "train_4k")]
+TWIN_RUNS = [("quickstart", []), ("allocate_pods", []),
+             ("train_mnist_fed", ["--cycles", "2"]),
+             ("async_fleet", ["--cycles", "2", "--bucketed"]),
+             ("realloc_drift", ["--k", "5", "--cycles", "4", "--train"]),
+             ("serve_batch", ["--arch", "llama3-8b"])]
+TWIN_TIMEOUT_S = 300
 # phase 8a: name, B, S (of the queries), heads, kv heads, d, dtype, causal,
 # window, timed calls, and Skv where it is not S; the first is the dense
 # serve's prefill and gives the kernels line its row
@@ -779,6 +808,134 @@ def check_rows(hist, want_rows, what: str) -> None:
                     f"{what}: row {i} column {name} differs from the CPU schedule's")
 
 
+def count_phase(dev, tag, cfg, shape, params, args, want: dict, smoke_flops=None) -> None:
+    """Phase 16b, one step: ``launch.dryrun``'s step of ``cfg`` at ``shape``
+    run once on the card under ``roofline.op_cost``'s count (the kernels
+    launching), held equal, as integers, to the meta count of the same
+    config and shape, its kernel entries to the wrappers' launch counters
+    (``want``, every other kernel 0); then timed outside the count (host
+    clock, warm, the median of 3). Prints the counts, ``model_flops_per_step``,
+    the useful ratio, the ms and the share of the bound (``smoke_flops``,
+    (FLOPs, active matrix parameters): the smoke's own model FLOPs)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_by_name
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import op_cost
+    from repro_torch.roofline.analysis import model_flops_per_step, roofline_terms
+
+    mesh = make_mesh_by_name("cpu")
+    rules = dryrun.RULE_SETS["train" if shape.kind == "train" else "serve"]
+    step = dryrun.build_step(Model(cfg, device=dev), shape, mesh, rules)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cost, builtin, out = op_cost.analyze_with_builtin(step, params, *args)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = read_launches()
+    del out
+    meta_model = Model(cfg, device="meta")
+    margs, mparams = dryrun.step_inputs(meta_model, shape, "meta")
+    t0 = time.perf_counter()
+    meta, _, _ = op_cost.analyze_with_builtin(dryrun.build_step(meta_model, shape, mesh, rules),
+                                              mparams, *margs)
+    meta_s = time.perf_counter() - t0
+    same = ((cost.flops, cost.bytes, cost.ops, cost.by_class, cost.kernels)
+            == (meta.flops, meta.bytes, meta.ops, meta.by_class, meta.kernels))
+    if not same:
+        for key in sorted(set(cost.op_calls) | set(meta.op_calls)):
+            if cost.op_calls.get(key) != meta.op_calls.get(key):
+                print(f"{tag}: {key} card {cost.op_calls.get(key)} meta {meta.op_calls.get(key)}")
+        print(f"{tag}: by class card {cost.by_class} meta {meta.by_class}; kernels card "
+              f"{cost.kernels} meta {meta.kernels}")
+    require(same, f"{tag}: the card's count ({cost.flops} FLOPs, {cost.bytes} bytes, "
+            f"{cost.ops} ops) is not the meta count ({meta.flops}, {meta.bytes}, {meta.ops})")
+    entries = {name: e["calls"] for name, e in cost.kernels.items()}
+    require(launches == {**{name: 0 for name in launches}, **want} and entries == want,
+            f"{tag}: kernel entries {entries}, launches {launches}, want {want}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, *args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        del out
+    warm_ms = statistics.median(times)
+    terms = roofline_terms(cost.flops, cost.bytes, cost.collectives)
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    mf = model_flops_per_step(cfg, shape, 1)
+    print(f"{tag} {cfg.name} ({cfg.num_layers} layers) {shape.global_batch} x {shape.seq_len}: "
+          f"counted {cost.flops} FLOPs, {cost.bytes} bytes, {cost.ops} aten ops (dot "
+          f"{cost.by_class['dot']['flops']:.4g}, elementwise "
+          f"{cost.by_class['elementwise']['flops']:.4g}, transcendental "
+          f"{cost.by_class['transcendental']['flops']:.4g}, kernels "
+          f"{cost.by_class['kernel']['flops']:.4g} FLOPs; {entries}), equal to the meta "
+          f"count ({meta_s:.1f} s) and to the launch counters; FlopCounterMode "
+          f"{builtin:.4g} (no kernels); model_flops_per_step {mf:.4g}, useful ratio "
+          f"{mf / cost.flops:.3f}; bound {1e3 * bound_s:.2f} ms ({terms['dominant']}); "
+          f"warm {warm_ms:.1f} ms (host clock, median of {times}; the counted run "
+          f"{1e3 * counted_s:.1f} ms), {bound_s / (warm_ms * 1e-3):.3f} of the bound")
+    if smoke_flops is not None:
+        flops, active = smoke_flops
+        total, act = cfg.param_counts()
+        print(f"{tag}: the smoke's model FLOPs {flops:.4g} (6 x {active} active matrix "
+              f"params x tokens + 3 x the attention's 4 B H d pairs a layer) against "
+              f"model_flops_per_step {mf:.4g} (6 x param_counts' {act} active x tokens): "
+              f"the difference {mf - flops:.4g} is the embedding's {act - active} "
+              f"parameters, which param_counts counts and a lookup does not multiply, less "
+              f"the attention's scores, which param_counts does not count")
+
+
+def dryrun_phase() -> None:
+    """Phase 16a: the dry run on meta of ``DRYRUN_PAIRS`` in process."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "artifacts", "dryrun_torch")
+    for arch, shape in DRYRUN_PAIRS:
+        rec = dryrun.run_one(arch, shape, "cpu", out_dir=out_dir)
+        require(rec["flops_per_device"] > 0 and rec["roofline"]["dominant"] in
+                ("compute", "memory", "collective"), f"16a: {arch} {shape} counted "
+                f"{rec['flops_per_device']} FLOPs, dominant {rec['roofline']['dominant']}")
+        print(f"16a dryrun {arch} {shape}: {rec['flops_per_device']:.4g} FLOPs, "
+              f"{rec['bytes_per_device']:.4g} bytes, {rec['aten_ops']} aten ops, kernels "
+              f"{ {k: v['calls'] for k, v in rec['kernels'].items()} }, dominant "
+              f"{rec['roofline']['dominant']}, useful ratio {rec['useful_flops_ratio']:.3f}, "
+              f"{rec['trace_s']} s on meta")
+    print(f"16a: {time.perf_counter() - t0:.1f} s")
+
+
+def twins_phase() -> None:
+    """Phase 16c: every torch twin of the root examples on the card, each
+    a subprocess, all started together."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", f"torch_{name}.py"), *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, args in TWIN_RUNS}
+    failed = []
+    for name, proc in procs.items():
+        try:
+            out = proc.communicate(timeout=TWIN_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        last = [line for line in out.strip().splitlines() if line.strip()][-1:]
+        print(f"16c torch_{name}.py {' '.join(dict(TWIN_RUNS)[name])}: rc {proc.returncode}; "
+              f"{last[0][:160] if last else ''}")
+        if proc.returncode != 0:
+            failed.append(name)
+            print(out[-3000:])
+    require(not failed, f"16c: twins failed on the card: {failed}")
+    print(f"16c: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -843,8 +1000,7 @@ def main() -> int:
     fa_plain_ms = cuda_ms(lambda: [ref.fed_agg_ref(x, wts) for x in leaves], 200)
     fa_lib_ms = cuda_ms(lambda: [torch.tensordot(wts, x, dims=1) for x in leaves], 200)
     n_params = sum(math.prod(s[1:]) for s in shapes)
-    fa_bytes = 4 * (K * n_params + n_params + K * len(shapes))
-    fa_flops = 2 * K * n_params
+    fa_flops, fa_bytes = kernel_cost.fed_agg_leaves([math.prod(s[1:]) for s in shapes], K)
     fa_bound_ms = 1e3 * max(fa_bytes / PEAK_BYTES_PER_S, fa_flops / PEAK_FP32_FLOPS)
     print(f"fed_agg: {len(shapes)} leaves, {n_params} params, max_abs_err "
           f"{fa_err:.3g}; one launch for all leaves {fa_ms:.4f} ms ({fa_dev_ms:.4f} ms of "
@@ -902,11 +1058,11 @@ def main() -> int:
     ts_launches = training_launches(breakdown)
     print(f"train_agg_step: {ts_launches} training-kernel launch(es) a cycle (torch.profiler)")
     require(ts_launches == 1, f"a cycle made {ts_launches} training-kernel launches, not 1")
-    mats = list(zip(widths[:-1], widths[1:]))
-    row_flops = 2 * (2 * sum(a * b for a, b in mats) + sum(a * b for a, b in mats[1:]))
-    ts_flops = int((tau * d).sum()) * row_flops
+    row_flops = kernel_cost.mlp_row_flops(widths)
     # inputs read once (x, y, m, tau, w, the K dispatched models), output written once
-    ts_bytes = 4 * (x.numel() + y.numel() + m.numel() + 2 * K + K * n_params + n_params)
+    ts_flops, ts_bytes = kernel_cost.train_agg_step(
+        widths, row_steps=int((tau * d).sum()), learners=K, d_cap=x.shape[1], starts=K,
+        outputs=1)
     ts_bound_ms = 1e3 * max(ts_flops / PEAK_FP32_FLOPS, ts_bytes / PEAK_BYTES_PER_S)
     print(f"train_agg_step: max_abs_err {ts_abs:.3g}, max relative (per leaf) "
           f"{ts_rel:.3g} <= {TRAIN_STEP_TOL}; kernel {ts_ms:.3f} ms, plain "
@@ -969,6 +1125,9 @@ def main() -> int:
     vlm_phase(dev)
     bwd_rows = train_phase(dev, train_weights, rwkv_weights, jamba_weights)
     del train_weights, rwkv_weights, jamba_weights
+    torch.cuda.empty_cache()
+    dryrun_phase()
+    twins_phase()
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -1063,8 +1222,8 @@ def realloc_phase(dev, train, test) -> dict:
                       for a in (wf_args, f32_args))
     wf_paced_ms = cuda_ms(lambda: waterfill.waterfill_residual_cuda(*wf_args), 200)
     wf_plain_ms = cuda_ms(lambda: ref.waterfill_residual_ref(*wf_args), 50)
-    wf_bytes = 8 * (5 * b * k + 3 * b + b)
-    wf_bound_ms = 1e3 * wf_bytes / PEAK_BYTES_PER_S
+    wf_flops, wf_bytes = kernel_cost.waterfill_residual(b, k, itemsize=8)
+    wf_bound_ms = 1e3 * max(wf_bytes / PEAK_BYTES_PER_S, wf_flops / PEAK_FP64_FLOPS)
     print(f"waterfill_residual: max_abs_err float64 {wf_err[torch.float64]:.3g}, float32 "
           f"{wf_err[torch.float32]:.3g} (at tau* = 0, tau*, 2 tau*); kernel device time "
           f"{wf_ms:.4f} ms a launch (float32 {wf32_ms:.4f}; host-paced loop {wf_paced_ms:.4f}), "
@@ -1265,8 +1424,7 @@ def async_phase(dev, train, test, *, row_flops: int) -> list[dict]:
     af_lib_ms = cuda_ms(lambda: [torch.tensordot(wts, l, dims=1) for l, _, _ in all_leaves],
                         200)
     n_params = sum(math.prod(s) for s in shapes)
-    af_bytes = 4 * ((K + 4) * n_params + K)
-    af_flops = (2 * K + 6) * n_params
+    af_flops, af_bytes = kernel_cost.accum_flush_leaves([math.prod(s) for s in shapes], K)
     af_bound_ms = 1e3 * max(af_bytes / PEAK_BYTES_PER_S, af_flops / PEAK_FP32_FLOPS)
     print(f"accum_flush: {len(shapes)} leaves, {n_params} params, K = {K}, max_abs_err "
           f"{af_err:.3g} over {', '.join(cases)}, each leaf bitwise as alone; kernel "
@@ -1341,11 +1499,11 @@ def async_phase(dev, train, test, *, row_flops: int) -> list[dict]:
     gs_ms = cuda_ms(lambda: train_step.train_agg_step_cuda(*args, **kw), 5)
     gs_plain_ms = cuda_ms(lambda: ref.train_agg_step_ref(*args, **kw), 3)
     td = int(sum(a.tau * a.d for a in widest))
-    gs_flops = td * row_flops
     d_cap = cpu["buffered"]["sched"].d_cap
     # inputs read once (x, y, m, tau, w, K dispatched models, server, acc),
     # outputs (server', acc') written once
-    gs_bytes = 4 * (K * d_cap * (widths[0] + 2) + 2 * K + (K + 4) * n_params)
+    gs_flops, gs_bytes = kernel_cost.train_agg_step(widths, row_steps=td, learners=K,
+                                                    d_cap=d_cap, starts=K, outputs=4)
     gs_bound_ms = 1e3 * max(gs_flops / PEAK_FP32_FLOPS, gs_bytes / PEAK_BYTES_PER_S)
     breakdown = device_time_by_kernel(lambda: train_step.train_agg_step_cuda(*args, **kw),
                                       expect="train_steps_kernel")
@@ -1592,10 +1750,9 @@ def energy_phase(dev, train, test) -> dict:
                                 ref.waterfill_energy_residual_ref(*a), 50),
         }
         size = torch.finfo(dtype).bits // 8
-        ew_bytes = size * (9 * b * k + 3 * b + b)
         # per learner: 4 + 4 for the two hyperbolae, a min, a two-sided
         # clip and an add; one subtract per fleet
-        ew_ops = 12 * b * k + b
+        ew_ops, ew_bytes = kernel_cost.waterfill_energy_residual(b, k, itemsize=size)
         peak = PEAK_FP64_FLOPS if x64 else PEAK_FP32_FLOPS
         times[dtype]["bytes_ms"] = 1e3 * ew_bytes / PEAK_BYTES_PER_S
         times[dtype]["ops_ms"] = 1e3 * ew_ops / peak
@@ -1927,16 +2084,6 @@ def plain_attention():
         ops.flash_attention = kernel
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through: the work of these inputs."""
-    import numpy as np
-
-    q = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters, skv=None) -> dict:
     """Phase 8a, one case: the kernel against its plain version (in bf16
     also against the float32 kernel), timed with its plain version, its
@@ -1999,9 +2146,8 @@ def flash_case(dev, name, b, s, h, kvh, d, dtype, causal, window, iters, skv=Non
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
     library_ms = cuda_ms(library, iters)
-    pairs = attention_pairs(s, skv, causal, window)
-    flops = 4 * b * h * d * pairs
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    flops, nbytes = kernel_cost.flash_attention(b, s, skv, h, kvh, d, causal=causal,
+                                                window=window, itemsize=q.element_size())
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2028,6 +2174,7 @@ def serve_phase(dev) -> tuple[dict, dict, dict]:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
@@ -2088,7 +2235,11 @@ def serve_phase(dev) -> tuple[dict, dict, dict]:
         scale = p_logits.float().abs().max().item()
         require(err <= SERVE_BF16_TOL * scale, f"the bf16 serve's logits differ from the "
                 f"plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
-    del cache
+    del cache, p_logits
+    # -- 16b. one prefill at this shape, counted while its kernels run --------
+    with torch.inference_mode():
+        count_phase(dev, "16b prefill", cfg, InputShape("8b", s, b, "prefill"), params,
+                    ({"tokens": tokens.to(torch.int32)},), {"flash_attention": cfg.num_layers})
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
     first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
@@ -2274,10 +2425,8 @@ def wkv_case(dev, name, b, s, h, hd, dtype, with_state, in_place, decays, iters)
     # and s0 read once, s_last written once; the least work: y_j = sum_i
     # r_i S_ij + v_j sum_i r_i u_i k_i and S_ij <- w_i S_ij + k_i v_j, 5
     # float32 operations per (b, h, t, i, j) and 5 per (b, h, t, j)
-    n = b * s * h * hd
-    nbytes = (3 * r.element_size() * n + 4 * 2 * n + 4 * h * hd
-              + 4 * b * h * hd * hd * (2 if with_state else 1))
-    flops = 5 * b * h * s * (hd * hd + hd)
+    flops, nbytes = kernel_cost.wkv6(b, s, h, hd, itemsize=r.element_size(),
+                                     with_state=with_state)
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": max(ops_ms, bytes_ms),
@@ -2513,9 +2662,8 @@ def mamba_case(dev, name, b, s, d, n, dtype, with_state, in_place, decays, iters
     # read once, h0 read and h_last written once; the least work: dt a, its
     # exponential, h da + (dt x) B and the y sum, 6 float32 operations per
     # (b, t, d, n) counting the exponential as one, and dt x per (b, t, d)
-    nbytes = ((8 + x.element_size()) * b * s * d + 4 * 2 * b * s * n + 4 * d * n
-              + 4 * b * d * n * (2 if with_state else 1))
-    flops = 6 * b * s * d * n + b * s * d
+    flops, nbytes = kernel_cost.mamba_scan(b, s, d, n, itemsize=x.element_size(),
+                                           with_state=with_state)
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     # the SFU floor: every exponential one MUFU.EX2 (the kernel sends them
     # all there, none to the FMA pipes), 16 a clock an SM at the card's
@@ -2748,8 +2896,7 @@ def swiglu_case(dev, name, m, d, f, dtype, iters) -> dict:
     library_ms = cuda_ms(lambda: layers.swiglu(x, wg, wu, wd), iters)
     lib_err = (layers.swiglu(x, wg, wu, wd).float() - want).abs().max().item()
     del wide
-    flops = 6 * m * d * f
-    nbytes = x.element_size() * (2 * m * d + 3 * d * f)
+    flops, nbytes = kernel_cost.swiglu(m, d, f, itemsize=x.element_size())
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
     # the work the design executes on the tensor cores: in bf16 the gate and
@@ -3234,8 +3381,7 @@ def fleet_phase(dev, train, test) -> list[dict]:
     zero = {name: 0 for name in read_launches()}
     widths = mlp.PAPER_LAYERS
     mats = list(zip(widths[:-1], widths[1:]))
-    n_params = sum(a * b + b for a, b in mats)
-    row_flops = 2 * (2 * sum(a * b for a, b in mats) + sum(a * b for a, b in mats[1:]))
+    n_params = kernel_cost.mlp_params(widths)
     bp = pop_problems(POP_F)
     cfg = FleetConfig(participation=POP_PARTICIPATION, lr=POP_LR)
     n = POP_F * POP_K
@@ -3272,8 +3418,9 @@ def fleet_phase(dev, train, test) -> list[dict]:
     fa_plain_ms = cuda_ms(lambda: [ref.fed_agg_ref(x, w, groups=POP_F) for x in leaves], 2)
     wg = w.view(POP_F, 1, POP_K)
     fa_lib_ms = cuda_ms(lambda: [torch.bmm(wg, x.view(POP_F, POP_K, -1)) for x in leaves], 5)
-    fa_bytes = 4 * (n * n_params + POP_F * n_params + n)
-    fa_bound_ms = 1e3 * max(fa_bytes / PEAK_BYTES_PER_S, 2 * n * n_params / PEAK_FP32_FLOPS)
+    fa_flops, fa_bytes = kernel_cost.fed_agg_leaves([x[0].numel() for x in leaves], n,
+                                                    groups=POP_F)
+    fa_bound_ms = 1e3 * max(fa_bytes / PEAK_BYTES_PER_S, fa_flops / PEAK_FP32_FLOPS)
     del leaves
     torch.cuda.empty_cache()
     print(f"fleet 13a fed_agg grouped G={POP_F} K={POP_K}, 8 leaves ({fa_bytes / 1e9:.2f} GB): "
@@ -3325,8 +3472,8 @@ def fleet_phase(dev, train, test) -> list[dict]:
     del plain, whole
     torch.cuda.empty_cache()
     row_steps = int((tau_h * d_h).sum())
-    ts_flops = row_steps * row_flops
-    ts_bytes = 4 * (x.numel() + y.numel() + m.numel() + 2 * n + 2 * POP_F * n_params)
+    ts_flops, ts_bytes = kernel_cost.train_agg_step(widths, row_steps=row_steps, learners=n,
+                                                    d_cap=d_cap, starts=POP_F, outputs=POP_F)
     ts_bound_ms = 1e3 * max(ts_flops / PEAK_FP32_FLOPS, ts_bytes / PEAK_BYTES_PER_S)
     stream_ms = 1e3 * int(tau_h.sum()) * 2 * 4 * n_params / PEAK_BYTES_PER_S
     train_dev = [ms for name, ms, _ in split if "train_steps_kernel" in name]
@@ -3872,10 +4019,10 @@ def bwd_case(dev, name, b, s, h, kvh, d, dtype, causal, window, skv, iters) -> d
     library_ms = cuda_ms(lambda: torch.autograd.grad(o, lib_inputs, dot, retain_graph=True),
                          iters)
     del o
-    pairs = attention_pairs(s, skv, causal, window)
-    flops = 10 * b * h * d * pairs   # 2.5 x the forward's 4 B H d pairs
+    # 2.5 x the forward's 4 B H d pairs
+    flops, nbytes = kernel_cost.flash_attention_bwd(b, s, skv, h, kvh, d, causal=causal,
+                                                    window=window, itemsize=q.element_size())
     executed = bwd_executed_flops(b, s, skv, h, d, causal, window, route)
-    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -4109,10 +4256,8 @@ def wkv_bwd_case(dev, name, b, s, h, hd, dtype, with_state, with_dlast, decays,
     # dk, dv and dw, 6 FMAs per (b, h, t, i, j); the least bytes: r, k, v
     # in their dtype and w, dy in float32 read once, dr, dk, dv in r's
     # dtype and dw written once, u and du, the states given and returned
-    n = b * s * h * hd
-    e = r.element_size()
-    nbytes = (6 * e + 12) * n + 8 * h * hd + 4 * b * h * hd * hd * (2 * with_state + with_dlast)
-    flops = 12 * b * h * s * hd * hd
+    flops, nbytes = kernel_cost.wkv6_bwd(b, s, h, hd, itemsize=r.element_size(),
+                                         with_state=with_state, with_dlast=with_dlast)
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     regs = "; ".join(f"{label} {ptxas_of('wkv6_bwd', entry)}" for label, entry in (
         ("row walk", f"rows_kernel<{kind}, {hd}>"),
@@ -4199,10 +4344,8 @@ def mamba_bwd_case(dev, name, b, s, d, n, dtype, with_state, with_dlast, decays,
     # (4), which shares dx's sum. The least bytes: dt, dy in
     # float32 and x in its dtype read once, ddt and dx written once, b, c
     # read and db, dc written, a and da, the states given and returned
-    e = x.element_size()
-    nbytes = ((12 + 2 * e) * b * s * d + 16 * b * s * n + 8 * d * n
-              + 4 * b * d * n * (2 * with_state + with_dlast))
-    flops = 20 * b * s * d * n + 4 * b * s * d
+    flops, nbytes = kernel_cost.mamba_scan_bwd(b, s, d, n, itemsize=x.element_size(),
+                                               with_state=with_state, with_dlast=with_dlast)
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sfu_ms = 1e3 * b * s * d * n / (16 * sms * max_sm_clock_mhz() * 1e6)
@@ -4284,14 +4427,7 @@ def train_run(dev, tag, arch, cfg, host_weights, steps, want, extra_flops, expec
     require(not any(zero_grads), f"{tag}: leaves with an all-zero gradient: {zero_grads}")
     warm_ms = float(np.median(step_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    active = 0
-    for path, p in tree.leaves_with_path(params):
-        name = tree.path_str(path)
-        if p.dim() > 1 and name != "['embed']":
-            experts = (cfg.num_experts and "['ffn']" in name and p.dim() == 4
-                       and p.shape[1] == cfg.num_experts)
-            active += p.numel() * cfg.top_k // cfg.num_experts if experts else p.numel()
-    model_flops = 6 * active * tokens + extra_flops
+    model_flops, active = smoke_model_flops(cfg, params, tokens, extra_flops)
     share = model_flops / (warm_ms * 1e-3 * PEAK_BF16_FLOPS)
     print(f"{tag} train {arch} at full width, {cfg.num_layers} layers "
           f"({model.param_count()} params, bf16, remat, AdamW lr {cfg.learning_rate}"
@@ -4318,6 +4454,22 @@ def train_run(dev, tag, arch, cfg, host_weights, steps, want, extra_flops, expec
     del params, state, batches
     torch.cuda.empty_cache()
     return counts
+
+
+def smoke_model_flops(cfg, params, tokens: int, extra_flops: int) -> tuple[int, int]:
+    """(6 x the active matrix parameters x tokens + ``extra_flops``, the
+    active matrix parameters): every parameter of two or more dimensions
+    but the embedding, an MoE's experts by top_k / E."""
+    from repro_torch import tree
+
+    active = 0
+    for path, p in tree.leaves_with_path(params):
+        name = tree.path_str(path)
+        if p.dim() > 1 and name != "['embed']":
+            experts = (cfg.num_experts and "['ffn']" in name and p.dim() == 4
+                       and p.shape[1] == cfg.num_experts)
+            active += p.numel() * cfg.top_k // cfg.num_experts if experts else p.numel()
+    return 6 * active * tokens + extra_flops, active
 
 
 def f32_card_vs_cpu(dev, tag, arch, cfg32, host32, batch, seq, want) -> None:
@@ -4395,12 +4547,16 @@ def kernel_counts(cfg, steps: int) -> dict:
 def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
     """Phase 15: training on the card. Returns the kernels line's entries
     of attention's, the WKV-6 and the scan's backward kernels."""
+    import numpy as np
     import torch
 
     from repro_torch import tree
     from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import token_batches
     from repro_torch.kernels import flash_attention
     from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import get_optimizer
 
     t_phase = time.perf_counter()
     # -- 15a. the backward kernel against its plain versions -------------------
@@ -4411,7 +4567,7 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
 
     # -- 15b. Llama-3.2-3B at full width, TRAIN_LAYERS layers, TRAIN_STEPS steps
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
-    pairs = attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    pairs = kernel_cost.attention_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
     attn_flops = 3 * 4 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * pairs
     train_counts = train_run(dev, "15b", TRAIN_ARCH, cfg, host_weights, TRAIN_STEPS,
                              kernel_counts(cfg, TRAIN_STEPS), cfg.num_layers * attn_flops,
@@ -4419,6 +4575,19 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
     require(flash_attention.last_bwd_kernel == "tc",
             f"15b: the step's attention backward ran the {flash_attention.last_bwd_kernel} "
             f"kernels, not the tensor-core ones")
+
+    # -- 16b. the same step counted while its kernels run ----------------------
+    params = tree.map(lambda t: t.to(dev, copy=True), host_weights)
+    batch = next(token_batches(np.random.default_rng(SEED), TRAIN_BATCH, TRAIN_SEQ + 1,
+                               cfg.vocab_size))
+    batch = {k: torch.as_tensor(a, device=dev).to(torch.int32) for k, a in batch.items()}
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    count_phase(dev, "16b train", cfg, InputShape("15b", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                params, (opt.init(params), batch), kernel_counts(cfg, 1),
+                smoke_flops=smoke_model_flops(cfg, params, TRAIN_BATCH * TRAIN_SEQ,
+                                              cfg.num_layers * attn_flops))
+    del params, batch
+    torch.cuda.empty_cache()
 
     # -- 15c. the float32 gate: one step on the card and on the CPU -----------
     cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS, param_dtype="float32",

@@ -18,8 +18,11 @@ dimension is whole on every rank), an axis name, or a tuple of axis names
 reference's ``PartitionSpec``. A rank's coordinates come from the
 ``DeviceMesh``, whose rank layout is row-major over ``shape``.
 
-``cost_analysis_dict`` reads XLA's compiled cost and has no counterpart
-here (ROADMAP Queue 1 item 13).
+  cost_analysis_dict(fn, ...)   the built-in count of one call of ``fn``
+                                (XLA's ``cost_analysis`` in the reference)
+
+The collectives report their payload to ``roofline.op_cost`` while a
+count is active.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import math
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "PartitionSpec", "current_mesh", "make_mesh", "psum", "set_mesh",
-           "shard_map"]
+from repro_torch.roofline import op_cost
+
+__all__ = ["Mesh", "PartitionSpec", "cost_analysis_dict", "current_mesh", "make_mesh", "psum",
+           "set_mesh", "shard_map"]
 
 
 class PartitionSpec(tuple):
@@ -169,6 +174,7 @@ def _gather(x, spec, mesh: Mesh):
     for dim, entry in enumerate(spec):
         for a in reversed(_entry_axes(entry)):
             parts = [torch.empty_like(x) for _ in range(mesh.shape[a])]
+            op_cost.record_collective("all-gather", mesh.shape[a] * x.numel() * x.element_size())
             dist.all_gather(parts, x.contiguous(), group=mesh.device_mesh.get_group(a))
             x = torch.cat(parts, dim=dim)
     return x.to(dtype)
@@ -209,4 +215,16 @@ def psum(tensors, axes, mesh: Mesh) -> None:
     for a in _entry_axes(axes):
         group = mesh.device_mesh.get_group(a)
         for t in tensors:
+            op_cost.record_collective("all-reduce", t.numel() * t.element_size())
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
+def cost_analysis_dict(fn, *args, **kwargs) -> dict:
+    """The port's built-in count of one call ``fn(*args, **kwargs)``:
+    ``{"flops": ..., "bytes accessed": ...}``, as the reference reads XLA's
+    ``cost_analysis``. ``flops`` is ``torch.utils.flop_counter``'s total,
+    which does not see the hand-written kernels, as XLA's count does not
+    see a while body's trips: the reason ``roofline.op_cost`` exists.
+    ``bytes accessed`` is ``op_cost``'s."""
+    cost, flops, _ = op_cost.analyze_with_builtin(fn, *args, **kwargs)
+    return {"flops": flops, "bytes accessed": float(cost.bytes)}

@@ -143,7 +143,10 @@ def moe_apply(cfg: ArchConfig, p, x, *, train: bool = False):
     gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
 
     # load-balance aux (Switch eq. 4): E * sum_e f_e * p_e
-    onehot = F.one_hot(idx, cfg.num_experts).to(torch.float32)        # (B, S, k, E)
+    # (B, S, k, E); a comparison, not F.one_hot, whose range check reads the
+    # indices back to the host on the CPU and cannot run on meta
+    experts = torch.arange(cfg.num_experts, device=idx.device)
+    onehot = (idx[..., None] == experts).to(torch.float32)
     frac_tokens = onehot.sum(dim=2).mean(dim=(0, 1))
     frac_prob = probs.mean(dim=(0, 1))
     aux = cfg.num_experts * torch.sum(frac_tokens * frac_prob)

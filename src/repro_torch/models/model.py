@@ -7,6 +7,7 @@ audio (Whisper) families.
     loss = m.loss(params, batch)                       # train
     logits, cache, aux = m.prefill(params, batch, max_len=...)
     logits, cache = m.decode(params, cache, token, cache_len)
+    specs = m.input_specs(shape)                       # meta inputs of a shape
 
 Batches (tokens int (B, S) tensors on the model's device; training adds
 ``labels`` of the tokens' shape):
@@ -35,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import decoder, encdec
 from repro_torch.models.params import (
     abstract_params,
@@ -141,3 +142,43 @@ class Model:
         if self.cfg.family == "audio":
             return encdec.decode_step(params, self.cfg, cache, token, cache_len)
         return decoder.decode_step(params, self.cfg, cache, token, cache_len)
+
+    # -- dry-run input specs ---------------------------------------------------
+    def input_specs(self, shape: InputShape) -> dict:
+        """``meta`` stand-ins for every model input of this shape (the
+        reference's ``ShapeDtypeStruct``s): no storage, no device. Tokens and
+        labels are int32, embeddings the compute dtype; decode gets one token,
+        the ``abstract_cache`` of ``seq_len`` positions and a 0-d int32
+        ``cache_len``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        cd = cfg.cdtype()
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        def tok(bb, ss):
+            return meta((bb, ss), torch.int32)
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "vlm":
+                st = s - cfg.num_image_tokens
+                out = {"tokens": tok(b, st),
+                       "image_embeds": meta((b, cfg.num_image_tokens, cfg.d_model), cd)}
+            elif cfg.family == "audio":
+                st = s
+                out = {"tokens": tok(b, s),
+                       "encoder_embeds": meta((b, cfg.encoder_seq, cfg.d_model), cd)}
+            else:
+                st = s
+                out = {"tokens": tok(b, s)}
+            if shape.kind == "train":
+                out["labels"] = tok(b, st)
+            return out
+
+        # decode: one token against a seq_len cache
+        return {
+            "token": tok(b, 1),
+            "cache": self.abstract_cache(b, s),
+            "cache_len": meta((), torch.int32),
+        }
