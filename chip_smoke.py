@@ -287,9 +287,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
         the bound (and, for the step, the smoke's own model FLOPs);
      c. each torch twin of the root examples (``examples/torch_*.py``) once
         on the card as a subprocess, all at once, at small sizes: rc 0.
+ 17. the sharded model step (``launch.steps`` on DTensors placed by the
+     steps' own shardings, ``compat.distribute``) on ``host_mesh()`` in a
+     one-rank NCCL group:
+     a. 8b's prefill (28 layers, 4 x 2048, phase 8's weights; run inside
+        phase 8) through ``build_prefill`` and 8 greedy ``build_decode``
+        steps, placed against the same steps on the plain trees: the
+        logits (the prefill's also 8b's own) and the caches bitwise, 28
+        attention launches in the prefill and none in decode; the placed
+        and plain warm ms (DTensor's host cost);
+     b. 15b's step (4 layers, inside phase 15) for 2 steps from copies of
+        the same start, placed and plain: losses, gradient norms,
+        parameters and moments bitwise, 8 forward and 4 backward attention
+        launches a placed step, the parameters returned as placed; ms;
+     c. a CPU tree on the card's mesh refused by ``compat.distribute``;
+     d. the dry run of llama3-8b ``train_4k`` on the ``test`` mesh (8 ranks,
+        per device, a fake process group, meta) equal to this checkout's
+        CPU count (``SHARDED_DRYRUN_WANT``).
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f and 16b
-each set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd``
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f, 16b and
+17a-b each set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd``
 among them) to 0 just before the run they check and read them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
@@ -394,6 +411,20 @@ TWIN_RUNS = [("quickstart", []), ("allocate_pods", []),
              ("realloc_drift", ["--k", "5", "--cycles", "4", "--train"]),
              ("serve_batch", ["--arch", "llama3-8b"])]
 TWIN_TIMEOUT_S = 300
+# phase 17: the sharded step in a one-rank NCCL group. 17a decodes this
+# many steps after the placed prefill; 17b trains this many steps of 15b's
+# config placed and unplaced; 17d counts this pair on this mesh on meta
+# and holds it to the count this checkout gives on the CPU (torch 2.13.0
+# there, fake process group): (FLOPs, bytes, aten ops, collectives)
+SHARDED_DECODE_STEPS, SHARDED_TRAIN_STEPS = 8, 2
+SHARDED_DRYRUN = ("llama3-8b", "train_4k", "test")
+SHARDED_DRYRUN_WANT = (8014817599272960, 51691900493936, 9150, {
+    "all-reduce": (1113955237900, 501),
+    "all-gather": (549392515072, 675),
+    "reduce-scatter": (266240, 3),
+    "all-to-all": (0, 0),
+    "collective-permute": (0, 0),
+})
 # phase 8a: name, B, S (of the queries), heads, kv heads, d, dtype, causal,
 # window, timed calls, and Skv where it is not S; the first is the dense
 # serve's prefill and gives the kernels line its row
@@ -694,11 +725,17 @@ def device_time_by_kernel(fn, expect: str | tuple[str, ...] | None = None
 
 def kernel_device_ms(fn, name: str, calls: int) -> float:
     """Device time a launch of the kernel whose name contains ``name``,
-    from ``torch.profiler`` over ``calls`` calls of ``fn``; fails when the
-    profiler sees no such kernel."""
+    from ``torch.profiler`` over ``calls`` calls of ``fn``. Where no trace
+    holds such a kernel (the card's machine has given traces with no kernel
+    records at all), the time a call of ``fn`` by CUDA events instead, said
+    so on a line of its own; the launch counters hold whether it ran."""
     rows = device_time_by_kernel(lambda: [fn() for _ in range(calls)], expect=name)
     hits = [(ms, n) for key, ms, n in rows if name in key]
-    require(bool(hits), f"torch.profiler saw no {name} launches")
+    if not hits:
+        ms = cuda_ms(fn, calls)
+        print(f"torch.profiler recorded no {name} launch in {PROFILE_TRIES} traces: "
+              f"{ms:.4f} ms a call by CUDA events instead")
+        return ms
     return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
 
 
@@ -908,6 +945,215 @@ def dryrun_phase() -> None:
               f"{rec['roofline']['dominant']}, useful ratio {rec['useful_flops_ratio']:.3f}, "
               f"{rec['trace_s']} s on meta")
     print(f"16a: {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group for the duration (as 13e's: it meets
+    through a ``HashStore``, no network); yields ``host_mesh()`` on it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import host_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = host_mesh()
+        require(mesh.device_mesh is not None and mesh.device_type == "cuda",
+                f"17: host_mesh() on the NCCL group is {mesh}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def trees_equal(a, b) -> bool:
+    from repro_torch import compat, tree
+
+    la, lb = tree.leaves(compat.gather(a)), tree.leaves(compat.gather(b))
+    return len(la) == len(lb) and all(torch_equal(x, y) for x, y in zip(la, lb))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
+
+
+def sharded_serve_phase(dev, model, params, tokens, max_len: int, want_logits) -> None:
+    """Phases 17a and 17c: ``build_prefill`` and ``SHARDED_DECODE_STEPS``
+    greedy ``build_decode`` steps on 8b's model and weights, the trees
+    placed by the steps' shardings (``compat.distribute``) on
+    ``host_mesh()`` in a one-rank NCCL group, against the same steps on the
+    plain trees: the logits of the prefill (also 8b's own) and of every
+    step and the caches bitwise, one attention launch a layer in the
+    prefill and none in decode; the placed and the plain steps' warm ms
+    (DTensor's host cost). 17c: a CPU tree on that mesh is refused."""
+    import torch
+
+    from repro_torch import compat, tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.sharding.rules import placements
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    with one_rank_nccl() as mesh:
+        shape = InputShape("17a", max_len, tokens.shape[0], "prefill")
+        prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
+        decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
+        batch = {"tokens": tokens}
+        placed = compat.distribute(params, pshard, mesh)
+        pbatch = compat.distribute(batch, batch_sh(batch), mesh)
+        prefill(placed, pbatch)                         # DTensor's first-call work
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_logits, u_cache, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache, _ = prefill(placed, pbatch)
+        torch.cuda.synchronize()
+        placed_ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_launches()
+        nothing = {name: 0 for name in counts}
+        require(counts == {**nothing, "flash_attention": cfg.num_layers},
+                f"17a: the placed prefill's launches were {counts}, want "
+                f"{cfg.num_layers} flash_attention and no other")
+        require(torch_equal(compat.gather(logits), u_logits)
+                and torch_equal(compat.gather(logits), want_logits),
+                "17a: the placed prefill's logits differ from the plain step's or 8b's")
+        require(trees_equal(cache, u_cache), "17a: the placed prefill's cache differs")
+        tok = torch.argmax(u_logits[:, -1:], dim=-1)
+        dec_ms = {"plain": [], "placed": []}
+        reset_launches()
+        for i in range(SHARDED_DECODE_STEPS):
+            pos = tokens.shape[1] + i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u_step, u_cache = decode(params, u_cache, tok, pos)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p_step, cache = decode(placed, cache, compat.distribute(tok, tshard, mesh), pos)
+            torch.cuda.synchronize()
+            dec_ms["plain"].append(1e3 * (t1 - t0))
+            dec_ms["placed"].append(1e3 * (time.perf_counter() - t1))
+            require(torch_equal(compat.gather(p_step), u_step),
+                    f"17a: decode step {i}'s placed logits differ from the plain step's")
+            tok = torch.argmax(u_step[:, -1:], dim=-1)
+        require(read_launches() == nothing, f"17a: decode launched {read_launches()}")
+        require(trees_equal(cache, u_cache), "17a: the placed cache after decode differs")
+        # 17c: a tree on the host is not placed on the card's mesh
+        try:
+            compat.distribute({"w": params["final_norm"].cpu()},
+                              {"w": placements(compat.PartitionSpec(None), mesh)}, mesh)
+            refused = False
+        except ValueError as e:
+            refused = "cannot be placed" in str(e)
+        require(refused, "17c: a CPU tree on the NCCL mesh was not refused")
+        del placed, cache, u_cache, logits
+    torch.cuda.empty_cache()
+    warm = {k: float(sorted(v[1:])[len(v[1:]) // 2]) for k, v in dec_ms.items()}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"17a sharded serve {SERVE_ARCH} on host_mesh() ({dict(mesh.shape)}, one-rank nccl; "
+          f"{card}): "
+          f"placed prefill {tokens.shape[0]}x{tokens.shape[1]} bitwise the plain step's "
+          f"and 8b's, caches bitwise, {cfg.num_layers} attention launches; "
+          f"{SHARDED_DECODE_STEPS} decode steps bitwise, no launches; warm ms: prefill "
+          f"placed {placed_ms:.1f} vs plain {plain_ms:.1f}, decode step placed "
+          f"{warm['placed']:.2f} vs plain {warm['plain']:.2f} (host clock)")
+    print(f"17c: a CPU tree on the NCCL mesh refused; 17a+c {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_train_phase(dev, cfg, host_weights, want) -> None:
+    """Phase 17b: 15b's step (``launch.steps.build_train`` on the 4-layer
+    Llama-3.2-3B, bf16, remat, AdamW) for ``SHARDED_TRAIN_STEPS`` steps from
+    two copies of the same start, one placed by the step's shardings on
+    ``host_mesh()`` in a one-rank NCCL group and one plain: the losses,
+    gradient norms and parameters after each step bitwise, the launches of
+    each placed step ``want``; the warm ms of both."""
+    import numpy as np
+    import torch
+
+    from repro_torch import compat, tree
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import get_optimizer
+
+    t_phase = time.perf_counter()
+    model = Model(cfg, device=dev)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    gen = token_batches(np.random.default_rng(SEED + 1), TRAIN_BATCH, TRAIN_SEQ + 1,
+                        cfg.vocab_size)
+    batches = [{k: torch.as_tensor(a, device=dev).to(torch.int32) for k, a in next(gen).items()}
+               for _ in range(SHARDED_TRAIN_STEPS)]
+    with one_rank_nccl() as mesh:
+        step, (pshard, oshard, batch_sh), _, _ = steps.build_train(model, mesh)
+        params = tree.map(lambda t: t.to(dev, copy=True), host_weights)
+        state = opt.init(params)
+        placed = compat.distribute(tree.map(lambda t: t.to(dev, copy=True), host_weights),
+                                   pshard, mesh)
+        pstate = compat.distribute(opt.init(tree.map(lambda t: t.to(dev), host_weights)),
+                                   oshard, mesh)
+        ms = {"plain": [], "placed": []}
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_launches()
+            placed, pstate, pmet = step(placed, pstate,
+                                        compat.distribute(batch, batch_sh(batch), mesh))
+            torch.cuda.synchronize()
+            ms["plain"].append(1e3 * (t1 - t0))
+            ms["placed"].append(1e3 * (time.perf_counter() - t1))
+            counts = read_launches()
+            require(counts == {**{name: 0 for name in counts}, **want},
+                    f"17b: step {i}'s placed launches were {counts}, want {want}")
+            require(torch_equal(compat.gather(pmet["loss"]), met["loss"])
+                    and torch_equal(compat.gather(pmet["grad_norm"]), met["grad_norm"]),
+                    f"17b: step {i}: placed loss {pmet['loss']} / gradient norm "
+                    f"{pmet['grad_norm']}, plain {met['loss']} / {met['grad_norm']}")
+            require(trees_equal(placed, params),
+                    f"17b: the parameters after step {i} differ, placed against plain")
+            require(trees_equal(pstate, state), f"17b: the AdamW moments after step {i} differ")
+            require(all(p.placements == tuple(pl)
+                        for p, pl in compat.placed_leaves(placed, pshard)),
+                f"17b: step {i} returned parameters placed otherwise than build_train's")
+        del placed, pstate, params, state, batches
+    torch.cuda.empty_cache()
+    print(f"17b sharded train {TRAIN_ARCH} {cfg.num_layers} layers on host_mesh() (one-rank "
+          f"nccl), {TRAIN_BATCH} x {TRAIN_SEQ} tokens: {SHARDED_TRAIN_STEPS} steps placed and "
+          f"plain, losses, gradient norms, parameters and moments bitwise; launches a step "
+          f"{want}; step ms placed {[round(x, 1) for x in ms['placed']]} vs plain "
+          f"{[round(x, 1) for x in ms['plain']]} (the first placed step includes DTensor's "
+          f"first-call work); {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_dryrun_phase() -> None:
+    """Phase 17d: the dry run of ``SHARDED_DRYRUN`` at full width and depth,
+    counted per device on meta in a fake process group of the mesh's size:
+    the count held to ``SHARDED_DRYRUN_WANT``, what this checkout counts on
+    the CPU."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    arch, shape, mesh = SHARDED_DRYRUN
+    rec = dryrun.run_one(arch, shape, mesh, out_dir=os.path.join(ROOT, "artifacts",
+                                                                 "dryrun_torch"))
+    got = (rec["flops_per_device"], rec["bytes_per_device"], rec["aten_ops"],
+           {k: (v["bytes"], v["count"]) for k, v in rec["collectives"].items()})
+    print(f"17d dryrun {arch} {shape} on {mesh} ({rec['n_chips']} ranks, fake group): "
+          f"{got[0]} FLOPs, {got[1]} bytes, {got[2]} aten ops a device, collectives "
+          f"{got[3]}, dominant {rec['roofline']['dominant']}, {rec['trace_s']} s")
+    require(got == SHARDED_DRYRUN_WANT, f"17d: the count on the card's host is {got}, the "
+            f"CPU's {SHARDED_DRYRUN_WANT}")
+    print(f"17d: {time.perf_counter() - t0:.1f} s")
 
 
 def twins_phase() -> None:
@@ -1128,6 +1374,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_phase()
     twins_phase()
+    sharded_dryrun_phase()
 
     kernels = [
         {"name": "train_agg_step", "route": "cuda",
@@ -2240,6 +2487,9 @@ def serve_phase(dev) -> tuple[dict, dict, dict]:
     with torch.inference_mode():
         count_phase(dev, "16b prefill", cfg, InputShape("8b", s, b, "prefill"), params,
                     ({"tokens": tokens.to(torch.int32)},), {"flash_attention": cfg.num_layers})
+    # -- 17a, 17c. the same prefill and decode placed on a one-rank mesh -------
+    sharded_serve_phase(dev, model, params, tokens, s + gen, logits)
+    del logits
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
     first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
@@ -4588,6 +4838,8 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
                                               cfg.num_layers * attn_flops))
     del params, batch
     torch.cuda.empty_cache()
+    # -- 17b. the same step placed on a one-rank mesh -------------------------
+    sharded_train_phase(dev, cfg, host_weights, kernel_counts(cfg, 1))
 
     # -- 15c. the float32 gate: one step on the card and on the CPU -----------
     cfg32 = dataclasses.replace(cfg, num_layers=TRAIN_F32_LAYERS, param_dtype="float32",

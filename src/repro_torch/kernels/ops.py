@@ -16,6 +16,13 @@ one autograd node whose backward returns empty gradients of the inputs'
 shapes), which is what the dry run (``launch.dryrun``) traces a full-size
 step with. Any other device raises.
 
+Given DTensors (a sharded step's activations), ``flash_attention`` runs the
+same dispatch on this rank's block through ``compat.shard_map``: the
+batch over the ``pod``/``data`` axes and the heads over ``model``, an
+input placed any other way redistributed first. A DTensor that reaches a
+kernel any other way raises (``wkv6`` and ``mamba_scan`` take none yet):
+no kernel is handed a DTensor, and nothing is gathered in silence.
+
 Each function is one kernel call to ``roofline.op_cost``: while a count is
 active (``op_cost.analyze_step``) it adds the function's work from
 ``roofline.kernel_cost`` (and, under a gradient, the backward's), on
@@ -26,7 +33,9 @@ nothing.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import compat
 from repro_torch.kernels import ref
 from repro_torch.kernels.fed_agg import fed_agg_cuda, fed_agg_leaves_cuda
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_cuda
@@ -46,6 +55,9 @@ __all__ = ["fed_agg", "fed_agg_leaves", "flash_attention", "mamba_scan", "swiglu
 
 
 def _route(t: torch.Tensor) -> str:
+    if isinstance(t, DTensor):
+        raise TypeError("a DTensor reached a kernel's dispatch: only flash_attention takes "
+                        "DTensors, through compat.shard_map on each rank's block")
     kind = t.device.type
     if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"the port's kernels take cpu, cuda or meta tensors, not {t.device}")
@@ -68,7 +80,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=Fals
     ``chunk``/``p_bf16``/``q_block`` knobs, differentiated by autograd; on
     the card the kernel, which ignores them, as the TPU kernel does, and
     when a gradient is needed ``FlashAttention``, whose backward is the
-    backward kernel."""
+    backward kernel. Given DTensors, each rank runs this on its block
+    (``_attention_on_blocks``) and the result is a DTensor."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _attention_on_blocks(q, k, v, causal=causal, window=window, chunk=chunk,
+                                    p_bf16=p_bf16, q_block=q_block)
     route = _route(q)
 
     def run(q, k, v):
@@ -86,6 +102,42 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512, p_bf16=Fals
     return op_cost.kernel_call(
         "flash_attention", run, (q, k, v), lambda: kernel_cost.flash_attention(*dims, **kw),
         ("flash_attention_bwd", lambda: kernel_cost.flash_attention_bwd(*dims, **kw)))
+
+
+def _attention_on_blocks(q, k, v, **kw):
+    """``flash_attention`` of DTensors, each rank on its block: the batch
+    split as q's is (k and v brought to it), the q heads over
+    ``model`` where they divide, the k/v heads too where they divide. Where
+    the q heads split and the k/v heads do not (a GQA model whose KV heads
+    are fewer than the model axis), each rank holds every k/v head and cuts
+    them to the ones its q heads read before the launch, so that the kernel
+    sees a head ratio with the right groups; their gradient is then the
+    ranks' sum. The output is placed as q's spec."""
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes q, k and v all DTensors or all plain tensors")
+    mesh = compat.mesh_of(q)
+    h, kv = q.shape[2], k.shape[2]
+    m = mesh.shape.get("model", 1)
+    heads = "model" if "model" in mesh.shape and h % m == 0 else None
+    batch = tuple(a for a, p in zip(mesh.axis_names, q.placements)
+                  if p.is_shard(0) and a != heads) or None
+    kv_heads = "model" if heads and kv % m == 0 else None
+    group, local_h = h // kv, h // m
+    if heads and not kv_heads and local_h % group and group % local_h:
+        raise ValueError(f"{h} q heads over a {m}-way model axis straddle the groups of "
+                         f"{kv} k/v heads")
+    qspec = compat.PartitionSpec(batch, None, heads, None)
+    kspec = compat.PartitionSpec(batch, None, kv_heads, None)
+
+    def block(q, k, v):
+        if heads and not kv_heads:
+            first = mesh.coordinate("model") * local_h // group
+            n = max(1, local_h // group)
+            k, v = k.narrow(2, first, n).contiguous(), v.narrow(2, first, n).contiguous()
+        return flash_attention(q, k, v, **kw)
+
+    return compat.shard_map(block, mesh=mesh, in_specs=(qspec, kspec, kspec),
+                            out_specs=qspec)(q, k, v)
 
 
 def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):

@@ -14,16 +14,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k \\
       --set num_layers=4 --batch 4 --seq 2048 --device cuda   # run and timed on the card
 
-The port's models run unsharded (``launch/steps.py``: nothing there places
-a tensor), so only the one-rank ``cpu`` mesh (the default) has a step to
-count: its record is the whole step, ``n_chips`` 1, no collectives. On
-``pod``, ``multipod``, ``test`` and ``multitest`` the dry run checks that
-the rules partition every leaf of the parameters, the optimizer state, the
-batch and the cache (``resolve_spec`` on a ``compat.Mesh`` made without a
-process group) and records the per-device argument bytes of those
-placements; its counts are null (``"not_counted"``). Decode takes a
-concrete ``cache_len`` of ``seq_len - 1``, a full cache (the models read it
-on the host), written into the record.
+On the one-rank ``cpu`` mesh (the default) the record is the whole step,
+``n_chips`` 1, no collectives. On ``pod``, ``multipod``, ``test`` and
+``multitest`` the dry run checks that the rules partition every leaf of
+the parameters, the optimizer state, the batch and the cache
+(``resolve_spec`` on a ``compat.Mesh`` made without a process group) and
+records the per-device argument bytes of those placements. For the dense
+and MoE families it then counts the sharded step per device: in a fake
+process group of the mesh's size (``launch.mesh.fake_group``, which
+refuses a process that has a group already), the ``meta`` trees placed by
+the step's shardings (``compat.distribute``) and the step run once under
+``op_cost``'s count, which sees this rank's local ops and DTensor's
+collectives. The other families' sharded steps are not ported yet: their
+counts are null (``"not_counted"``). Decode takes a concrete ``cache_len``
+of ``seq_len - 1``, a full cache (the models read it on the host), written
+into the record.
 
 ``--device cuda`` builds the weights from seed 0 on the card (cut the
 depth with ``--set num_layers=...`` and the shape with ``--batch`` and
@@ -48,15 +53,14 @@ import subprocess
 import time
 
 import torch
-from torch.distributed.tensor import Shard
 
-from repro_torch import resolve_device, tree
+from repro_torch import compat, resolve_device, tree
 from repro_torch.compat import Mesh
 from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
-from repro_torch.launch.mesh import MESH_SPECS
+from repro_torch.launch.mesh import MESH_SPECS, device_count_for, fake_group, make_mesh_by_name
 from repro_torch.launch.steps import build_decode, build_prefill, build_train
-from repro_torch.models.model import Model
+from repro_torch.models.model import SHARDED_FAMILIES, Model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import HW, model_flops_per_step, roofline_terms
@@ -66,15 +70,15 @@ from repro_torch.sharding.rules import (
     TRAIN_RULES,
 )
 
-__all__ = ["RULE_SETS", "build_step", "main", "per_device_bytes", "run_one", "should_skip",
-           "step_inputs"]
+__all__ = ["RULE_SETS", "SHARDED_FAMILIES", "build_step", "main", "per_device_bytes",
+           "place_inputs", "run_one", "should_skip", "step_inputs"]
 
 RULE_SETS = {
     "train": TRAIN_RULES,
     "serve": SERVE_RULES,
     "expert_parallel": EXPERT_PARALLEL_RULES,
 }
-NOT_COUNTED = "the port has no sharded model step"
+NOT_COUNTED = "the port has no sharded step for this family yet"
 
 
 def should_skip(arch: str, shape_name: str) -> str | None:
@@ -153,57 +157,57 @@ def _card() -> dict:
 def per_device_bytes(values, placements_tree, mesh: Mesh) -> int:
     """The bytes one device holds of ``values`` laid out by its placements
     tree on ``mesh``; raises where a split does not divide its dimension."""
-    total = 0
-    for leaf, pl in _pairs(values, placements_tree):
-        split = {}
-        for size, p in zip(mesh.shape.values(), pl):
-            if isinstance(p, Shard):
-                split[p.dim] = split.get(p.dim, 1) * size
-        for dim, n in split.items():
-            if leaf.shape[dim] % n:
-                raise ValueError(f"a leaf of shape {tuple(leaf.shape)} does not split {n} "
-                                 f"ways along dimension {dim}")
-        total += leaf.numel() * leaf.element_size() // math.prod(split.values())
-    return total
+    return sum(math.prod(compat.local_shape(leaf.shape, pl, mesh)) * leaf.element_size()
+               for leaf, pl in compat.placed_leaves(values, placements_tree))
+
+
+def _input_placements(model: Model, shape: InputShape, mesh: Mesh, rules) -> dict:
+    """{input tree: (its abstract tree, its placements tree)} of the step
+    for ``shape.kind``, from the shardings ``launch.steps`` returns: the
+    params, then the step's arguments in order (train: opt_state, batch;
+    prefill: batch; decode: cache, token). An optimizer without state has
+    the placements ``()``."""
+    aparams = model.abstract_params()
+    specs = model.input_specs(shape)
+    if shape.kind == "train":
+        _, (pshard, oshard, batch_sh), _, (_, aopt) = build_train(model, mesh, rules)
+        return {"params": (aparams, pshard), "opt_state": (aopt, oshard),
+                "batch": (specs, batch_sh(specs))}
+    if shape.kind == "prefill":
+        _, (pshard, batch_sh), _ = build_prefill(model, mesh, shape, rules)
+        return {"params": (aparams, pshard), "batch": (specs, batch_sh(specs))}
+    _, (pshard, cshard, tshard, _), _ = build_decode(model, mesh, shape, rules)
+    return {"params": (aparams, pshard), "cache": (specs["cache"], cshard),
+            "batch": (specs["token"], tshard)}
 
 
 def _partition(model: Model, shape: InputShape, mesh: Mesh, rules) -> dict:
     """Every leaf of the params, optimizer state, batch and cache resolved on
     ``mesh`` (``per_device_bytes`` checks each split); returns the
     per-device bytes of each tree."""
-    aparams = model.abstract_params()
-    specs = model.input_specs(shape)
-    out = {}
-    if shape.kind == "train":
-        _, (pshard, oshard, batch_sh), _, (_, aopt) = build_train(model, mesh, rules)
-        out["params"] = per_device_bytes(aparams, pshard, mesh)
-        out["opt_state"] = per_device_bytes(aopt, oshard, mesh) if oshard != () else 0
-        out["batch"] = per_device_bytes(specs, batch_sh(specs), mesh)
-    elif shape.kind == "prefill":
-        _, (pshard, batch_sh), _ = build_prefill(model, mesh, shape, rules)
-        out["params"] = per_device_bytes(aparams, pshard, mesh)
-        out["batch"] = per_device_bytes(specs, batch_sh(specs), mesh)
-    else:
-        _, (pshard, cshard, tshard, _), _ = build_decode(model, mesh, shape, rules)
-        out["params"] = per_device_bytes(aparams, pshard, mesh)
-        out["cache"] = per_device_bytes(specs["cache"], cshard, mesh)
-        out["batch"] = per_device_bytes(specs["token"], tshard, mesh)
-    return out
+    return {name: per_device_bytes(values, pl, mesh) if pl != () else 0
+            for name, (values, pl) in _input_placements(model, shape, mesh, rules).items()}
 
 
-def _is_placement(x) -> bool:
-    return isinstance(x, tuple) and bool(x) and all(hasattr(p, "is_shard") for p in x)
+def place_inputs(model: Model, shape: InputShape, mesh, rules, params, args):
+    """(params, args) of ``step_inputs`` placed on ``mesh`` by the shardings
+    ``launch.steps`` returns for ``shape.kind`` (``compat.distribute``)."""
+    pshard, *placements = (pl for _, pl in
+                           _input_placements(model, shape, mesh, rules).values())
+    placed = tuple(compat.distribute(x, pl, mesh) if pl != () else x
+                   for x, pl in zip(args, placements))
+    return compat.distribute(params, pshard, mesh), placed + tuple(args[len(placements):])
 
 
-def _pairs(values, placements) -> list:
-    """(leaf, its placements) of a tree and its placements tree."""
-    if values is None or placements is None:
-        return []
-    if _is_placement(placements):
-        return [(values, placements)]
-    if isinstance(values, dict):
-        return [x for k in values for x in _pairs(values[k], placements[k])]
-    return [x for v, p in zip(values, placements) for x in _pairs(v, p)]
+def _count_sharded(model: Model, shape: InputShape, mesh_name: str, rules):
+    """The per-device count of the sharded step on ``mesh_name``: rank 0 of
+    a fake process group of the mesh's size, the ``meta`` trees placed."""
+    with fake_group(device_count_for(mesh_name)):
+        mesh = make_mesh_by_name(mesh_name)
+        step = build_step(model, shape, mesh, rules)
+        args, params = step_inputs(model, shape, "meta")
+        params, args = place_inputs(model, shape, mesh, rules, params, args)
+        return op_cost.analyze_step(step, params, *args)
 
 
 def run_one(arch: str, shape_name: str, mesh_name: str, rules_name: str | None = None,
@@ -251,14 +255,33 @@ def run_one(arch: str, shape_name: str, mesh_name: str, rules_name: str | None =
     t0 = time.time()
     if n_chips > 1:
         per_dev = _partition(model, shape, mesh, rules)
-        record.update({
-            "trace_s": round(time.time() - t0, 2),
-            "flops_per_device": None, "bytes_per_device": None, "collectives": None,
-            "not_counted": NOT_COUNTED, "torch_cost_analysis": None,
-            "memory": {"argument_size_in_bytes": sum(per_dev.values()),
-                       "argument_bytes_by_tree": per_dev},
-            "roofline": None, "useful_flops_ratio": None, "aten_ops": None,
-        })
+        memory = {"argument_size_in_bytes": sum(per_dev.values()),
+                  "argument_bytes_by_tree": per_dev}
+        if cfg.family not in SHARDED_FAMILIES:
+            record.update({
+                "trace_s": round(time.time() - t0, 2),
+                "flops_per_device": None, "bytes_per_device": None, "collectives": None,
+                "not_counted": NOT_COUNTED, "torch_cost_analysis": None,
+                "memory": memory, "roofline": None, "useful_flops_ratio": None,
+                "aten_ops": None,
+            })
+        else:
+            cost = _count_sharded(model, shape, mesh_name, rules)
+            terms = roofline_terms(cost.flops, cost.bytes, cost.collectives)
+            record.update({
+                "trace_s": round(time.time() - t0, 2),
+                "flops_per_device": cost.flops,
+                "bytes_per_device": cost.bytes,
+                "collectives": cost.collectives,
+                "by_class": cost.by_class,
+                "kernels": cost.kernels,
+                "torch_cost_analysis": None,
+                "memory": memory,
+                "roofline": terms,
+                "link_bw": HW.link_bw,
+                "useful_flops_ratio": (mf / cost.flops) if cost.flops else None,
+                "aten_ops": cost.ops,
+            })
     else:
         step = build_step(model, shape, mesh, rules)
         args, params = step_inputs(model, shape, dev)

@@ -10,11 +10,15 @@ is the (2, 4) ``"test"`` mesh in an 8-rank group and one rank elsewhere.
 Where the reference splits the host CPU into fake XLA devices with a flag
 (``host_device_flags``), the port starts real ranks: ``run_ranks(fn, n)``
 runs ``fn`` in n CPU processes joined by gloo through a ``FileStore``, the
-rehearsal of a multi-card run on one machine.
+rehearsal of a multi-card run on one machine. ``fake_group(n)`` makes this
+one process rank 0 of n in torch's fake process group, whose collectives
+send nothing and return what they are given: the dry run counts a
+full-size sharded step with it, on ``meta``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import tempfile
@@ -33,6 +37,7 @@ __all__ = [
     "device_count_for",
     "host_mesh",
     "run_ranks",
+    "fake_group",
 ]
 
 
@@ -134,3 +139,21 @@ def run_ranks(fn, n: int, *args) -> list:
                     p.kill()
                     p.join()
     return [got[r] for r in range(n)]
+
+
+@contextlib.contextmanager
+def fake_group(n: int):
+    """This process as rank 0 of an ``n``-rank fake process group (torch's
+    own, ``torch.testing._internal.distributed.fake_pg``) for the duration:
+    a mesh of up to ``n`` ranks can be built and DTensors placed on it,
+    and every collective returns at once with its input's shape and
+    nothing sent. Raises if a process group is already initialized."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_group starts its own process group; one is initialized")
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -11,15 +11,33 @@ copy of the parameters and moments, not two, and a caller that wants the
 old ones keeps a copy. The shardings are the port's DTensor placements
 (``sharding.rules.tree_shardings``) of each tree on the given mesh, where
 the reference gives ``NamedSharding``s; on the one-rank
-``"cpu"`` mesh every leaf is replicated. Nothing here places a tensor: the
-trees describe how a multi-card run would lay them out.
+``"cpu"`` mesh every leaf is replicated.
+
+A caller places the trees with those shardings, the counterpart of the
+reference's ``jax.jit(step, in_shardings=...)``::
+
+    step, (pshard, oshard, batch_sh), _, _ = build_train(model, mesh)
+    params = compat.distribute(model.init(0), pshard, mesh)   # each rank its block
+    opt_state = compat.distribute(opt.init(...), oshard, mesh)
+    batch = compat.distribute(batch, batch_sh(batch), mesh)
+    params, opt_state, metrics = step(params, opt_state, batch)
+
+and the step runs on DTensors: each op carries its placements, as GSPMD
+does, with DTensor inserting the collectives; attention's kernel runs on
+each rank's block (``kernels.ops``). What comes out is placed too: the
+parameters and moments as they went in, the metrics replicated
+(``compat.gather`` makes any of it whole). On a mesh without a process
+group (``compat.Mesh``'s ``device_mesh`` is None, the ``"cpu"`` mesh)
+``distribute`` returns the trees themselves and the step is the plain
+one.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch import tree
+from repro_torch import compat, tree
 from repro_torch.compat import PartitionSpec as P
 from repro_torch.configs.base import InputShape
 from repro_torch.models.model import Model
@@ -44,6 +62,17 @@ def opt_state_axes(opt_name: str, param_axes):
     return {"m": param_axes, "v": param_axes, "t": ()}
 
 
+def _grad_of(p):
+    """``p``'s gradient, zeros where autograd left none; a DTensor gradient
+    placed otherwise than its parameter (a ``Partial`` sum the backward did
+    not reduce, a split it chose) is redistributed to the parameter's
+    placements, once, before the clip."""
+    g = torch.zeros_like(p) if p.grad is None else p.grad
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def build_train(model: Model, mesh, rules=None, *, grad_clip: float = 1.0):
     """Returns (step_fn, in_shardings, out_shardings, (abstract params,
     abstract optimizer state)); ``step_fn(params, opt_state, batch)`` gives
@@ -56,11 +85,11 @@ def build_train(model: Model, mesh, rules=None, *, grad_clip: float = 1.0):
 
     def step(params, opt_state, batch):
         live = tree.map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        with torch.enable_grad(), compat.placed_ops(params):
             loss = model.loss(live, batch)
             loss.backward()
-        with torch.no_grad():
-            grads = tree.map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, live)
+        with torch.no_grad(), compat.placed_ops(params):
+            grads = tree.map(_grad_of, live)
             grads, gn = clip_by_global_norm(grads, grad_clip)
             del live  # the raw gradients go before the update
             params, opt_state = opt.apply(grads, opt_state, params)
@@ -85,7 +114,15 @@ def build_prefill(model: Model, mesh, shape: InputShape, rules=None):
 
     @torch.no_grad()
     def step(params, batch):
-        return model.prefill(params, batch, max_len=shape.seq_len)
+        cache = None
+        if mesh.device_mesh is not None and compat.is_placed(params):
+            # the cache placed as build_decode's cshard, each rank its block
+            b = next(iter(batch.values())).shape[0]
+            acache = model.abstract_cache(b, shape.seq_len)
+            device = tree.leaves(params)[0].to_local().device
+            cache = compat.placed_zeros(acache, tree_shardings(
+                model.cache_axes(b, shape.seq_len), acache, mesh, rules), mesh, device)
+        return model.prefill(params, batch, max_len=shape.seq_len, cache=cache)
 
     aparams = model.abstract_params()
     pshard = tree_shardings(model.param_axes(), aparams, mesh, rules)

@@ -17,7 +17,9 @@ a step would move the whole cache per token.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.compat import einsum
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import decode_attention, rope
@@ -56,18 +58,34 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
 
 
 def _project_q(cfg: ArchConfig, p, x):
-    return torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cfg.cdtype())).contiguous()
+    return einsum("bsd,dhe->bshe", x, p["wq"].to(cfg.cdtype())).contiguous()
 
 
 def _project_qkv(cfg: ArchConfig, p, x, positions, *, use_rope: bool = True):
+    """q, k and v (B, S, heads, hd); placed, the heads split over ``model``
+    as the weights are (column-parallel)."""
     cd = cfg.cdtype()
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dke->bske", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dke->bske", x, p["wv"].to(cd))
+    q = einsum("bsd,dhe->bshe", x, p["wq"].to(cd))
+    k = einsum("bsd,dke->bske", x, p["wk"].to(cd))
+    v = einsum("bsd,dke->bske", x, p["wv"].to(cd))
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _grouped_heads(q, kv: int):
+    """``q`` with its heads split over no more ranks than the ``kv`` k/v
+    heads divide: decode attention groups the q heads by k/v head, which a
+    DTensor can only do where each rank's q heads are whole groups. A
+    (B, 1, H, hd) q is small, so the split is gathered; a plain q is
+    returned as it is."""
+    if not isinstance(q, DTensor):
+        return q
+    sizes = q.device_mesh.shape
+    want = [Replicate() if p.is_shard(2) and kv % n else p
+            for p, n in zip(q.placements, sizes)]
+    return q if want == list(q.placements) else q.redistribute(q.device_mesh, want)
 
 
 def _prefill_cache(cfg: ArchConfig, k, v, max_len: int | None, out=None) -> dict:
@@ -83,7 +101,7 @@ def _prefill_cache(cfg: ArchConfig, k, v, max_len: int | None, out=None) -> dict
     for name, t in (("k", k), ("v", v)):
         if s_cache >= s:
             out[name][:, :s] = t
-            out[name][:, s:] = 0
+            out[name][:, s:].zero_()
         else:
             out[name].copy_(torch.roll(t[:, -s_cache:], s % s_cache, dims=1))
     return out
@@ -127,7 +145,7 @@ def apply(
                 p_bf16=cfg.attn_p_bf16, q_block=cfg.attn_q_block)
             new_cache = (_prefill_cache(cfg, k, v, max_len, out=cache) if mode == "prefill"
                          else None)
-        y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
+        y = einsum("bshe,hed->bsd", out, p["wo"].to(cd))
         return y, new_cache
 
     # -- decode: single token ------------------------------------------------
@@ -139,7 +157,7 @@ def apply(
         q = _project_q(cfg, p, x)
         k, v = kv_override
         out = decode_attention(q, k, v, k.shape[1])
-        return torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd)), cache
+        return einsum("bshe,hed->bsd", out, p["wo"].to(cd)), cache
     if cache is None:
         raise ValueError("decode needs a cache")
     q, k_new, v_new = _project_qkv(cfg, p, x, positions, use_rope=use_rope)
@@ -148,6 +166,7 @@ def apply(
     cache["k"][:, write_pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, write_pos] = v_new[:, 0].to(cache["v"].dtype)
     valid = min(int(cache_len) + 1, s_cache)
-    out = decode_attention(q, cache["k"], cache["v"], valid)
-    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cd))
+    out = decode_attention(_grouped_heads(q, cache["k"].shape[2]), cache["k"], cache["v"],
+                           valid)
+    y = einsum("bshe,hed->bsd", out, p["wo"].to(cd))
     return y, cache

@@ -43,8 +43,11 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
+from repro_torch.compat import PartitionSpec as P
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, ffn, mamba, rwkv6
 from repro_torch.models.layers import rms_norm
@@ -92,6 +95,36 @@ def layout_for(cfg: ArchConfig) -> Layout:
         period=tuple(body[:p]),
         n_periods=len(body) // p,
     )
+
+
+def _placed_lookup(table, tokens):
+    """The embedding rows of ``tokens`` from a placed (V, d) table, on each
+    rank's block (``compat.shard_map``): the table split over the vocab as
+    placed (an FSDP split of its width gathered first, as FSDP gathers a
+    weight), the tokens over the batch; each rank looks up the tokens its
+    rows hold and zeros the rest, and the sum over the vocab's ranks is one
+    all-reduce. It is the plain lookup on one rank, bit for bit, its
+    gradient too (the same indexing, times ones), where DTensor's own
+    masked lookup has no gradient and its indexing's backward is not
+    placed alike by every torch release."""
+    mesh = compat.mesh_of(table)
+    vocab = tuple(a for a, p in zip(mesh.axis_names, table.placements) if p.is_shard(0))
+    batch = tuple(a for a, p in zip(mesh.axis_names, getattr(tokens, "placements", ()))
+                  if p.is_shard(0) and a not in vocab)
+
+    def body(tok, block):
+        if not vocab:
+            return block[tok]
+        index, _ = mesh.block(vocab)
+        n = block.shape[0]
+        rows = tok - index * n
+        inside = (rows >= 0) & (rows < n)
+        return block[rows.clamp(0, n - 1)] * inside[..., None].to(block.dtype)
+
+    tspec = P(batch or None, *([None] * (tokens.dim() - 1)))
+    return compat.replicate_partial(compat.shard_map(
+        body, mesh=mesh, in_specs=(tspec, P(vocab or None, None)),
+        out_specs=P(*tspec, None), out_partial=vocab)(tokens, table))
 
 
 def _check_layer(kind: str) -> None:
@@ -236,17 +269,24 @@ def _apply_layer(cfg: ArchConfig, p, x, *, kind: str, is_moe: bool, mode: str, p
         y, _ = mamba.apply(cfg, p["mixer"], h, mode=mode, cache=mc)
     else:
         y, _ = rwkv6.apply(cfg, p["mixer"], h, mode=mode, cache=mc)
-    x = x + y
+    x = x + _summed(y)
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     aux = None
     if kind == "rwkv6":
         fc = cache["ffn"] if cache is not None else None
         y, _ = rwkv6.cmix_apply(cfg, p["ffn"], h, mode=mode, cache=fc)
     elif is_moe:
-        y, aux = ffn.moe_apply(cfg, p["ffn"], h)
+        y, aux = ffn.moe_apply(cfg, p["ffn"], h, train=(mode == "train"))
     else:
         y = ffn.dense_apply(cfg, p["ffn"], h)
-    return x + y, aux
+    return x + _summed(y), aux
+
+
+def _summed(y):
+    """A block's output for the residual stream: placed, a row-parallel
+    product's ``Partial`` sum is reduced here, one all-reduce (Megatron's
+    place for it), so the stream stays replicated over ``model``."""
+    return compat.replicate_partial(y)
 
 
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "prefill",
@@ -263,13 +303,23 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
              sliding-window model);
     decode:  tokens (B, 1) at position ``cache_len``; returns (logits,
              cache), the cache updated in place.
+
+    A prefill given ``cache`` (zeros of ``init_cache_specs``' tree, e.g.
+    placed by ``launch.steps.build_prefill`` on a mesh) writes into it
+    instead of allocating one; placed parameters need it, since the cache
+    is placed as they are not.
     """
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not a mode the port runs "
                                   "(train, prefill, decode)")
     lay = layout_for(cfg)
     cd = cfg.cdtype()
-    x = (params["embed"][tokens] if embeds is None else embeds).to(cd)
+    if embeds is not None:
+        x = embeds.to(cd)
+    elif isinstance(params["embed"], DTensor):
+        x = _placed_lookup(params["embed"], tokens).to(cd)
+    else:
+        x = params["embed"][tokens].to(cd)
     b, s, _ = x.shape
     dev = x.device
 
@@ -284,7 +334,10 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
     else:
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
         seq = max(max_len or s, s)
-        cache = {
+        if cache is None and isinstance(x, DTensor):
+            raise ValueError("a placed prefill writes into a placed cache: pass cache= "
+                             "(launch.steps.build_prefill does)")
+        cache = cache or {
             "prefix": [_zero_cache(cfg, k, b, seq, None, dev) for (k, _) in lay.prefix],
             "blocks": [_zero_cache(cfg, k, b, seq, lay.n_periods, dev)
                        for (k, _) in lay.period],
@@ -333,14 +386,19 @@ def lm_logits(params, cfg: ArchConfig, hidden):
     cd = cfg.cdtype()
     head = params.get("lm_head")
     if head is None:
-        return torch.einsum("bsd,vd->bsv", hidden, params["embed"].to(cd))
-    return torch.einsum("bsd,dv->bsv", hidden, head.to(cd))
+        return compat.einsum("bsd,vd->bsv", hidden, params["embed"].to(cd))
+    return compat.einsum("bsd,dv->bsv", hidden, head.to(cd))
 
 
 def _chunk_nll(head, tied: bool, cd, hidden, labels, mask):
     """(sum of the masked next-token losses, sum of the mask) of one chunk."""
     eq = "bsd,vd->bsv" if tied else "bsd,dv->bsv"
-    logits = torch.einsum(eq, hidden, head.to(cd)).to(torch.float32)
+    logits = compat.einsum(eq, hidden, head.to(cd)).to(torch.float32)
+    if isinstance(logits, DTensor):
+        # the log-sum-exp and the label's logit over a vocab split over
+        # ranks: one all-gather of the chunk's logits along it
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_shard(2) or p.is_partial() else p for p in logits.placements])
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
@@ -362,15 +420,19 @@ def lm_loss(params, cfg: ArchConfig, hidden, labels, mask=None, *, chunk: int = 
     head = params.get("lm_head")
     tied = head is None
     head = params["embed"] if tied else head
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    sums = []
     for c in range(s // chunk):
         cut = slice(c * chunk, (c + 1) * chunk)
-        nll, m = checkpoint(_chunk_nll, head, tied, cfg.cdtype(), hidden[:, cut],
-                            labels[:, cut], mask[:, cut].to(torch.float32),
-                            use_reentrant=False)
+        sums.append(checkpoint(_chunk_nll, head, tied, cfg.cdtype(), hidden[:, cut],
+                               labels[:, cut], mask[:, cut].to(torch.float32),
+                               use_reentrant=False))
+    # the chunks' sums added in order; placed, each is a partial sum over the
+    # batch's ranks, and so are the totals, reduced once each
+    total, count = sums[0]
+    for nll, m in sums[1:]:
         total = total + nll
         count = count + m
+    total, count = compat.replicate_partial(total), compat.replicate_partial(count)
     return total / torch.clamp_min(count, 1.0)
 
 

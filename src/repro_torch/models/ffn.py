@@ -7,9 +7,21 @@ sorted by expert id (a stable sort, as ``jnp.argsort`` is) and scattered
 into a fixed (E, C) capacity buffer; assignments beyond an expert's
 capacity are dropped (GShard/Switch semantics), exactly the ones the
 reference drops. The reference's ``vmap`` over groups is a leading group
-axis here, and the expert products are batched matrix products. The port
-runs on one device, so there is no ``shard_map``: ``cfg.moe_shard_map``
-changes nothing, as in the reference outside a mesh.
+axis here, and the expert products are batched matrix products.
+
+On plain tensors there is no mesh and no ``shard_map``:
+``cfg.moe_shard_map`` changes nothing, as in the reference outside a
+mesh. On DTensors (a sharded step) the dispatch runs inside
+``compat.shard_map``, on each rank's block: the expert weights whole on
+the ``pod``/``data`` axes (an FSDP split gathered) and their hidden width
+split over ``model`` as placed, so each rank's output is its term of a sum
+over ``model`` (``Partial``, reduced where the sum is needed). The
+reference's gate (``repro/models/ffn.py:156-160``: ``cfg.moe_shard_map and
+not train`` and the batch dividing the batch axes) decides whether the
+groups are split over the batch axes there, each rank routing its own; a
+train step takes the other branch, where the reference leaves the vmap to
+GSPMD, and DTensor, which has no sharding rule for the sort-based
+scatters, routes every group on every rank.
 
 Where the reference adds a token's k expert outputs back with a
 scatter-add, the port puts them back in (token, k) order and sums over k
@@ -22,7 +34,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import compat
+from repro_torch.compat import PartitionSpec as P
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import gelu_mlp, swiglu
 from repro_torch.models.params import ParamSpec
@@ -52,6 +67,9 @@ def dense_specs(cfg: ArchConfig) -> dict:
 
 
 def dense_apply(cfg: ArchConfig, p, x):
+    """Placed, column-parallel then row-parallel: the hidden width split
+    over ``model`` as the weights are, the output a ``Partial`` sum that
+    DTensor reduces where it is needed."""
     if cfg.act == "gelu":
         return gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
@@ -129,15 +147,44 @@ def _group_dispatch(x, gates, idx, p, cfg: ArchConfig, capacity: int):
     return out
 
 
+def _placed_dispatch(x, gates, idx, p, cfg: ArchConfig, capacity: int, *, train: bool):
+    """``_group_dispatch`` of DTensors through ``compat.shard_map``, every
+    mesh axis manual: the groups split over the batch axes under the
+    reference's gate, else whole; the experts' hidden width split as their
+    weights are over ``model``; the output ``Partial`` over that axis."""
+    mesh = compat.mesh_of(x)
+    b = x.shape[0]
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_shards = math.prod(mesh.shape[a] for a in batch_axes)
+    if cfg.moe_shard_map and not train and batch_axes and b % n_shards == 0:
+        spec = P(batch_axes, None, None)
+    else:
+        spec = P()
+    w_gate, w_up, w_down = (p[k] for k in ("w_gate", "w_up", "w_down"))
+    hidden = tuple(a for a, pg, pd in zip(mesh.axis_names, w_gate.placements,
+                                          w_down.placements)
+                   if a == "model" and pg.is_shard(2) and pd.is_shard(1))
+    entry = hidden or None
+
+    def body(x, gates, idx, w_gate, w_up, w_down):
+        return _group_dispatch(x, gates, idx, {"w_gate": w_gate, "w_up": w_up,
+                                               "w_down": w_down}, cfg, capacity)
+
+    return compat.shard_map(
+        body, mesh=mesh, in_specs=(spec, spec, spec, P(None, None, entry),
+                                   P(None, None, entry), P(None, entry, None)),
+        out_specs=spec, out_partial=hidden)(x, gates, idx, w_gate, w_up, w_down)
+
+
 def moe_apply(cfg: ArchConfig, p, x, *, train: bool = False):
     """x: (B, S, d) -> ((B, S, d), the Switch load-balance aux loss, a
     float32 scalar). Each sequence is a group of capacity
     ``ceil(S * top_k * capacity_factor / E)``. ``train`` is the reference's
-    argument; it only chose the sharded dispatch there."""
-    del train
+    argument; with the mesh it chooses how the dispatch of DTensors is
+    split (see the module's docstring)."""
     b, s, d = x.shape
     cd = cfg.cdtype()
-    logits = torch.einsum("bsd,de->bse", x, p["router"].to(cd)).to(torch.float32)
+    logits = compat.einsum("bsd,de->bse", x, p["router"].to(cd)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
@@ -152,7 +199,10 @@ def moe_apply(cfg: ArchConfig, p, x, *, train: bool = False):
     aux = cfg.num_experts * torch.sum(frac_tokens * frac_prob)
 
     capacity = _capacity(s, cfg.top_k, cfg.num_experts, cfg.capacity_factor)
-    out = _group_dispatch(x, gates.to(cd), idx, p, cfg, capacity)
+    if isinstance(x, DTensor):
+        out = _placed_dispatch(x, gates.to(cd), idx, p, cfg, capacity, train=train)
+    else:
+        out = _group_dispatch(x, gates.to(cd), idx, p, cfg, capacity)
     if cfg.num_shared_experts:
         sp = p["shared"]
         out = out + swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import einsum
+
 __all__ = [
     "rms_norm",
     "layer_norm",
@@ -158,7 +160,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = Non
     _, s, kv, _ = k_cache.shape
     g = h // kv
     qg = q.reshape(b, kv, g, d).to(torch.float32)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32)) * _inv_sqrt(d)
+    logits = einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32)) * _inv_sqrt(d)
     pos = torch.arange(s, device=q.device)
     if isinstance(cache_len, int):
         cl = cache_len
@@ -170,19 +172,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = Non
         valid &= pos[None, :] >= cl - window
     logits = torch.where(valid[:, None, None, :], logits, -math.inf)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    out = einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU FFN: down(silu(x @ gate) * (x @ up))."""
-    g = torch.einsum("...d,df->...f", x, w_gate.to(x.dtype))
-    u = torch.einsum("...d,df->...f", x, w_up.to(x.dtype))
-    return torch.einsum("...f,fd->...d", F.silu(g) * u, w_down.to(x.dtype))
+    g = einsum("...d,df->...f", x, w_gate.to(x.dtype))
+    u = einsum("...d,df->...f", x, w_up.to(x.dtype))
+    return einsum("...f,fd->...d", F.silu(g) * u, w_down.to(x.dtype))
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     """GELU MLP with the tanh approximation (``jax.nn.gelu``'s default)."""
-    h = torch.einsum("...d,df->...f", x, w_in.to(x.dtype)) + b_in.to(x.dtype)
+    h = einsum("...d,df->...f", x, w_in.to(x.dtype)) + b_in.to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return torch.einsum("...f,fd->...d", h, w_out.to(x.dtype)) + b_out.to(x.dtype)
+    return einsum("...f,fd->...d", h, w_out.to(x.dtype)) + b_out.to(x.dtype)

@@ -29,13 +29,20 @@ the card ``loss`` differentiates through each kernel's backward kernel:
 attention's (``kernels.flash_attention.FlashAttention``), the WKV-6
 recurrence's (``kernels.wkv6.WKV6``) and the Mamba scan's
 (``kernels.mamba_scan.MambaScan``).
+
+``prefill``, ``decode`` and ``loss`` of the dense and MoE families
+(``SHARDED_FAMILIES``) also take trees placed on a mesh as DTensors (by
+``launch.steps``' shardings, ``compat.distribute``; ``Model.init`` draws
+the same on every rank, which keeps its block): the step's ops carry the
+placements and attention's kernel runs on each rank's block. The other
+families refuse placed trees.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import compat, resolve_device
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import decoder, encdec
 from repro_torch.models.params import (
@@ -45,7 +52,18 @@ from repro_torch.models.params import (
     param_count,
 )
 
-__all__ = ["Model"]
+__all__ = ["Model", "SHARDED_FAMILIES"]
+
+
+# the families whose steps run on placed trees (DTensors); the others'
+# sharded steps are still to port
+SHARDED_FAMILIES = ("dense", "moe")
+
+
+def _refuse_placed(cfg: ArchConfig, params) -> None:
+    if cfg.family not in SHARDED_FAMILIES and compat.is_placed(params):
+        raise NotImplementedError(f"the {cfg.family} family has no sharded step yet: pass "
+                                  "plain tensors")
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -111,37 +129,47 @@ class Model:
         0-d), plus ``MOE_AUX_WEIGHT`` times the load-balance loss for an
         MoE model; the vlm's image positions carry no loss."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            hidden, _ = encdec.forward(params, cfg, tokens=batch["tokens"],
-                                       encoder_embeds=batch["encoder_embeds"], mode="train")
-            return decoder.lm_loss(params, cfg, hidden, batch["labels"], chunk=cfg.loss_chunk)
-        embeds = self._embeds(params, batch)
-        hidden, aux = decoder.forward(params, cfg, tokens=None if embeds is not None
-                                      else batch["tokens"], embeds=embeds, mode="train")
-        if cfg.family == "vlm":
-            hidden = hidden[:, cfg.num_image_tokens:]
-        loss = decoder.lm_loss(params, cfg, hidden, batch["labels"], chunk=cfg.loss_chunk)
-        if cfg.num_experts:
-            loss = loss + MOE_AUX_WEIGHT * aux
-        return loss
+        _refuse_placed(self.cfg, params)
+        with compat.placed_ops(params):
+            if cfg.family == "audio":
+                hidden, _ = encdec.forward(params, cfg, tokens=batch["tokens"],
+                                           encoder_embeds=batch["encoder_embeds"], mode="train")
+                return decoder.lm_loss(params, cfg, hidden, batch["labels"],
+                                       chunk=cfg.loss_chunk)
+            embeds = self._embeds(params, batch)
+            hidden, aux = decoder.forward(params, cfg, tokens=None if embeds is not None
+                                          else batch["tokens"], embeds=embeds, mode="train")
+            if cfg.family == "vlm":
+                hidden = hidden[:, cfg.num_image_tokens:]
+            loss = decoder.lm_loss(params, cfg, hidden, batch["labels"], chunk=cfg.loss_chunk)
+            if cfg.num_experts:
+                loss = loss + MOE_AUX_WEIGHT * aux
+            return loss
 
-    def prefill(self, params, batch, *, max_len: int | None = None):
-        """Returns (logits of the last position (B, 1, V), cache, aux)."""
+    def prefill(self, params, batch, *, max_len: int | None = None, cache=None):
+        """Returns (logits of the last position (B, 1, V), cache, aux). With
+        ``cache`` (zeros of ``cache_specs(B, max_len)``'s tree) the prefill
+        writes there: placed parameters take a placed cache
+        (``launch.steps.build_prefill`` makes one)."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            return encdec.forward(params, cfg, tokens=batch["tokens"],
-                                  encoder_embeds=batch["encoder_embeds"], mode="prefill",
-                                  max_len=max_len)
-        embeds = self._embeds(params, batch)
-        return decoder.forward(params, cfg, tokens=None if embeds is not None
-                               else batch["tokens"], embeds=embeds, mode="prefill",
-                               max_len=max_len)
+        _refuse_placed(self.cfg, params)
+        with compat.placed_ops(params):
+            if cfg.family == "audio":
+                return encdec.forward(params, cfg, tokens=batch["tokens"],
+                                      encoder_embeds=batch["encoder_embeds"], mode="prefill",
+                                      max_len=max_len)
+            embeds = self._embeds(params, batch)
+            return decoder.forward(params, cfg, tokens=None if embeds is not None
+                                   else batch["tokens"], embeds=embeds, mode="prefill",
+                                   max_len=max_len, cache=cache)
 
     def decode(self, params, cache, token, cache_len, extras=None):
         """token (B, 1) at position ``cache_len``; returns (logits, cache)."""
-        if self.cfg.family == "audio":
-            return encdec.decode_step(params, self.cfg, cache, token, cache_len)
-        return decoder.decode_step(params, self.cfg, cache, token, cache_len)
+        _refuse_placed(self.cfg, params)
+        with compat.placed_ops(params):
+            if self.cfg.family == "audio":
+                return encdec.decode_step(params, self.cfg, cache, token, cache_len)
+            return decoder.decode_step(params, self.cfg, cache, token, cache_len)
 
     # -- dry-run input specs ---------------------------------------------------
     def input_specs(self, shape: InputShape) -> dict:

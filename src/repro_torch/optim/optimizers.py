@@ -27,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import tree
+from repro_torch import compat, tree
 
 __all__ = ["Optimizer", "sgd", "momentum", "adam", "adamw", "get_optimizer", "clip_by_global_norm"]
 
@@ -45,8 +45,14 @@ def _add(p, u):
 
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by ``min(1, max_norm / |grads|)``, |grads|), the norm
-    float32 over every leaf."""
-    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree.leaves(grads)))
+    float32 over every leaf. On DTensor gradients each leaf's sum of squares
+    is a partial value where the leaf is split, their sum too, and the one
+    all-reduce comes at the square root: the norm is replicated."""
+    squares = [torch.sum(g.to(torch.float32) ** 2) for g in tree.leaves(grads)]
+    total = squares[0]
+    for sq in squares[1:]:
+        total = total + sq
+    gn = torch.sqrt(compat.replicate_partial(total))
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-12), 1.0)
     return tree.map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
 

@@ -36,6 +36,14 @@ backward kernel, and counts nothing inside. A count is therefore the same
 on ``meta``, on the CPU and on the card. Collectives come from the port's
 own (``record_collective``, which ``compat`` calls), tallied by
 ``roofline.analysis.collective_bytes``.
+
+A sharded step (DTensors) is counted per device: the mode lets DTensor
+handle each op of DTensors and counts what that reaches, this rank's ops
+on its local blocks; the ops DTensor runs on fake tensors at the global
+shapes to propagate shapes are not counted; its collectives (the
+functional ``_c10d_functional`` ops of a redistribution, an all-reduce
+after a row-parallel product) are counted by kind, each worth its
+output's bytes (``hlo_cost``'s rule), and move no bytes in the op count.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import dataclasses
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import (
     TorchDispatchMode,
     _disable_current_modes,
@@ -83,6 +93,11 @@ _FREE = {
     "resize_", "record_stream", "_to_copy_meta",
 }
 _GATHER = {"index", "index_select", "gather", "embedding"}
+# DTensor's functional collectives -> ``analysis.collective_bytes``'s kinds
+# (``wait_tensor`` and the rest move nothing of their own)
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all",
+                "permute_tensor": "collective-permute"}
 # op name -> (position of the updates, position of the indices)
 _SCATTER = {"index_put": (2, 1), "_index_put_impl": (2, 1), "scatter": (3, 2),
             "scatter_add": (3, 2), "index_add": (3, 2)}
@@ -161,6 +176,8 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented   # DTensor runs it; its local ops come back here
         if torch._C._dispatch_has_kernel_for_dispatch_key(func.name(),
                                                           "CompositeImplicitAutograd"):
             # a composite op (``einsum``) reaches the mode only where autograd
@@ -178,6 +195,13 @@ class _Counter(TorchDispatchMode):
         if func.is_view or name in _FREE:
             return
         outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in outs + _tensors((args, kwargs))):
+            return   # DTensor's shape propagation at the global shapes
+        if func.namespace == "_c10d_functional":
+            kind = _COLLECTIVES.get(name)
+            if kind is not None:
+                self.cost.add_collective(kind, sum(_nbytes(t) for t in outs))
+            return
         if all(t.dim() == 0 for t in outs + _tensors((args, kwargs))):
             return   # host scalars wrapped as tensors: how depends on the device
         self.cost.ops += 1

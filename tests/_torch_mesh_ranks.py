@@ -1,4 +1,5 @@
-"""Rank functions of the port's mesh tests (``tests/test_torch_mesh.py``).
+"""Rank functions of the port's mesh tests (``tests/test_torch_mesh.py``,
+``tests/test_torch_sharded_step.py``).
 
 ``launch.mesh.run_ranks`` starts each rank in a fresh process that imports
 this module by its path, so it imports torch and the port only: no jax,
@@ -12,11 +13,16 @@ import torch
 
 from repro_torch import compat
 from repro_torch.compat import PartitionSpec as P
-from repro_torch.convert import params_to_numpy
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import InputShape
+from repro_torch.convert import params_to_numpy, tree_from_jax, tree_to_numpy
 from repro_torch.data.pipeline import synthetic_mnist
 from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+from repro_torch.launch import steps
 from repro_torch.launch.mesh import host_mesh
 from repro_torch.models import mlp
+from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import get_optimizer
 
 LAYERS = [16, 8, 10]
 MM_DEFICITS, MM_FLOOR = (3.0, 1.0, 0.0), 0.1
@@ -84,3 +90,80 @@ def shard_map_blocks(rank: int, shape, axes) -> dict:
 
 def fails(rank: int) -> None:
     raise ValueError(f"rank {rank} fails on purpose")
+
+
+def serve_and_train(mesh, arch: str, params_np, case: dict) -> dict:
+    """The port's prefill, its decode steps and one train step of reduced
+    ``arch`` from the numpy weights ``params_np`` on ``mesh`` (a mesh
+    without a process group: the plain step), the trees placed by the
+    steps' shardings (``compat.distribute``). ``case`` holds the prompt
+    (B, S), the decode tokens (each (B, 1)), ``max_len`` and the training
+    batch. Returns every output gathered whole, as numpy: the prefill's
+    logits and cache, each decode step's logits and the cache after them,
+    the step's loss, gradient norm, raw and clipped gradients and new
+    parameters, and whether each returned parameter kept its placements."""
+    cfg = get_reduced(arch)
+    model = Model(cfg, device="cpu")
+    out = {}
+    shape = InputShape("p", case["max_len"], case["prompt"].shape[0], "prefill")
+    prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
+    decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
+    params = compat.distribute(tree_from_jax(params_np, "cpu"), pshard, mesh)
+    batch = {"tokens": torch.as_tensor(case["prompt"])}
+    logits, cache, _ = prefill(params, compat.distribute(batch, batch_sh(batch), mesh))
+    out["prefill"] = compat.gather(logits).numpy()
+    out["prefill_cache"] = tree_to_numpy(compat.gather(cache))
+    out["decode"] = []
+    for i, tok in enumerate(case["decode"]):
+        tok = compat.distribute(torch.as_tensor(tok), tshard, mesh)
+        logits, cache = decode(params, cache, tok, case["prompt"].shape[1] + i)
+        out["decode"].append(compat.gather(logits).numpy())
+    out["decode_cache"] = tree_to_numpy(compat.gather(cache))
+
+    step, (pshard, oshard, batch_sh), _, _ = steps.build_train(model, mesh)
+    start = tree_from_jax(params_np, "cpu")
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    params = compat.distribute(start, pshard, mesh)
+    opt_state = compat.distribute(opt.init(tree_from_jax(params_np, "cpu")), oshard, mesh)
+    batch = {k: torch.as_tensor(v) for k, v in case["train"].items()}
+    seen = {}
+    clip = steps.clip_by_global_norm
+
+    def watched(grads, max_norm):
+        clipped, gn = clip(grads, max_norm)
+        seen["raw"], seen["clipped"] = (tree_to_numpy(compat.gather(g))
+                                        for g in (grads, clipped))
+        return clipped, gn
+
+    steps.clip_by_global_norm = watched
+    try:
+        params, opt_state, met = step(params, opt_state,
+                                      compat.distribute(batch, batch_sh(batch), mesh))
+    finally:
+        steps.clip_by_global_norm = clip
+    out["loss"] = float(compat.gather(met["loss"]))
+    out["grad_norm"] = float(compat.gather(met["grad_norm"]))
+    out["grads"], out["clipped"] = seen["raw"], seen["clipped"]
+    out["params"] = tree_to_numpy(compat.gather(params))
+    out["placed_as_pshard"] = (mesh.device_mesh is None or all(
+        p.placements == tuple(pl) for p, pl in compat.placed_leaves(params, pshard)))
+    return out
+
+
+def sharded_steps(rank: int, layouts, cases: dict) -> dict:
+    """``serve_and_train`` of each ``{arch: (params_np, case)}`` on each mesh
+    of ``layouts`` (``(shape, axes, first rank)`` each: the mesh over that
+    many ranks from that one, so that meshes on disjoint ranks run at the
+    same time), in order: ``{mesh size: {arch: outputs}}`` of the meshes
+    this rank belongs to. Every rank builds every mesh (making a mesh's
+    groups is collective)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    meshes = []
+    for shape, axes, first in layouts:
+        ranks = torch.arange(first, first + int(np.prod(shape))).reshape(shape)
+        meshes.append((compat.Mesh(shape, axes, DeviceMesh("cpu", ranks, mesh_dim_names=axes)),
+                       ranks))
+    return {mesh.size: {arch: serve_and_train(mesh, arch, params_np, case)
+                        for arch, (params_np, case) in cases.items()}
+            for mesh, ranks in meshes if rank in ranks}
