@@ -301,13 +301,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
         parameters and moments bitwise, 8 forward and 4 backward attention
         launches a placed step, the parameters returned as placed; ms;
      c. a CPU tree on the card's mesh refused by ``compat.distribute``;
-     d. the dry run of llama3-8b ``train_4k`` on the ``test`` mesh (8 ranks,
-        per device, a fake process group, meta) equal to this checkout's
-        CPU count (``SHARDED_DRYRUN_WANT``).
+     d. the dry runs of llama3-8b ``train_4k``, rwkv6-7b ``train_4k`` and
+        jamba-v0.1-52b ``prefill_32k`` on the ``test`` mesh (8 ranks, per
+        device, a fake process group, meta), each equal to this checkout's
+        CPU count (``SHARDED_DRYRUN_WANT``);
+     e. 9b's prefill (RWKV-6 7B, 32 layers, 4 x 2048, phase 9's weights; run
+        inside phase 9) and ``SHARDED_DECODE_STEPS`` greedy decode steps
+        placed against the plain steps: logits (the prefill's also 9b's) and
+        the ``shift``/``wkv`` caches bitwise, 32 WKV-6 launches in the
+        prefill and 32 a decode step (the kernel writing each rank's block
+        of the placed state); ms;
+     f. the same on 10b's Jamba period (inside phase 10): 7 scan and 1
+        attention launches in the prefill, none in decode, the ``conv``/
+        ``ssm`` caches bitwise; ms and the peak memory with both trees;
+     g. 15e's steps (inside phase 15: RWKV-6 cut to 4 layers, Jamba to 2) for
+        2 steps plain, then placed: losses and gradient norms of each step,
+        parameters and moments after the last bitwise, the launches of each
+        placed step ``kernel_counts(cfg, 1)``, the parameters returned as
+        placed; ms.
 
-Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f, 16b and
-17a-b each set the kernels' launch counters (``wkv6_bwd`` and ``mamba_scan_bwd``
-among them) to 0 just before the run they check and read them just after.
+Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f, 16b,
+17a-b and 17e-g each set the kernels' launch counters (``wkv6_bwd`` and
+``mamba_scan_bwd`` among them) to 0 just before the run they check and read
+them just after.
 
 It then prints one JSON line describing each kernel and, last, a JSON line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -412,19 +428,35 @@ TWIN_RUNS = [("quickstart", []), ("allocate_pods", []),
              ("serve_batch", ["--arch", "llama3-8b"])]
 TWIN_TIMEOUT_S = 300
 # phase 17: the sharded step in a one-rank NCCL group. 17a decodes this
-# many steps after the placed prefill; 17b trains this many steps of 15b's
-# config placed and unplaced; 17d counts this pair on this mesh on meta
-# and holds it to the count this checkout gives on the CPU (torch 2.13.0
-# there, fake process group): (FLOPs, bytes, aten ops, collectives)
+# many steps after the placed prefill, as do 17e and 17f; 17b
+# and 17g train this many steps placed and unplaced; 17d counts these pairs
+# on their mesh on meta and holds each to the count this checkout gives on
+# the CPU (torch 2.13.0 there, fake process group): (FLOPs, bytes, aten
+# ops, collectives)
 SHARDED_DECODE_STEPS, SHARDED_TRAIN_STEPS = 8, 2
-SHARDED_DRYRUN = ("llama3-8b", "train_4k", "test")
-SHARDED_DRYRUN_WANT = (8014817599272960, 51691900493936, 9150, {
-    "all-reduce": (1113955237900, 501),
-    "all-gather": (549392515072, 675),
-    "reduce-scatter": (266240, 3),
-    "all-to-all": (0, 0),
-    "collective-permute": (0, 0),
-})
+SHARDED_DRYRUN_WANT = {
+    ("llama3-8b", "train_4k", "test"): (8014817599272960, 51691900493936, 9150, {
+        "all-reduce": (1113955237900, 501),
+        "all-gather": (549392515072, 675),
+        "reduce-scatter": (266240, 3),
+        "all-to-all": (0, 0),
+        "collective-permute": (0, 0),
+    }),
+    ("rwkv6-7b", "train_4k", "test"): (9571390914877440, 96603946803360, 11057, {
+        "all-reduce": (1251161669644, 758),
+        "all-gather": (560871276544, 1379),
+        "reduce-scatter": (1314816, 131),
+        "all-to-all": (0, 0),
+        "collective-permute": (0, 0),
+    }),
+    ("jamba-v0.1-52b", "prefill_32k", "test"): (3548537465216768, 19311516266560, 2847, {
+        "all-reduce": (287628593152, 125),
+        "all-gather": (0, 0),
+        "reduce-scatter": (0, 0),
+        "all-to-all": (120259084288, 28),
+        "collective-permute": (0, 0),
+    }),
+}
 # phase 8a: name, B, S (of the queries), heads, kv heads, d, dtype, causal,
 # window, timed calls, and Skv where it is not S; the first is the dense
 # serve's prefill and gives the kernels line its row
@@ -980,18 +1012,22 @@ def torch_equal(x, y) -> bool:
     return x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
 
 
-def sharded_serve_phase(dev, model, params, tokens, max_len: int, want_logits) -> None:
-    """Phases 17a and 17c: ``build_prefill`` and ``SHARDED_DECODE_STEPS``
-    greedy ``build_decode`` steps on 8b's model and weights, the trees
-    placed by the steps' shardings (``compat.distribute``) on
-    ``host_mesh()`` in a one-rank NCCL group, against the same steps on the
-    plain trees: the logits of the prefill (also 8b's own) and of every
-    step and the caches bitwise, one attention launch a layer in the
-    prefill and none in decode; the placed and the plain steps' warm ms
-    (DTensor's host cost). 17c: a CPU tree on that mesh is refused."""
+def sharded_serve_phase(dev, tag, model, params, tokens, max_len: int, want_logits,
+                        want_prefill: dict, want_step: dict, refuse: bool = False) -> None:
+    """Phases 17a (with 17c), 17e and 17f: ``build_prefill`` and
+    ``SHARDED_DECODE_STEPS`` greedy ``build_decode`` steps on a serve's
+    model and weights, the trees placed by the steps' shardings
+    (``compat.distribute``) on ``host_mesh()`` in a one-rank NCCL group,
+    against the same steps on the plain trees: the logits of the prefill
+    (also the serve's own, ``want_logits``) and of every step and the
+    caches (K/V, or the recurrent states the kernels write in place)
+    bitwise, the prefill's launches ``want_prefill`` and each step's
+    ``want_step`` (every other kernel 0); the placed and the plain steps'
+    warm ms (DTensor's host cost) and the peak memory with both trees on
+    the card. 17c (``refuse``): a CPU tree on that mesh is refused."""
     import torch
 
-    from repro_torch import compat, tree
+    from repro_torch import compat
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps
     from repro_torch.sharding.rules import placements
@@ -999,12 +1035,13 @@ def sharded_serve_phase(dev, model, params, tokens, max_len: int, want_logits) -
     cfg = model.cfg
     t_phase = time.perf_counter()
     with one_rank_nccl() as mesh:
-        shape = InputShape("17a", max_len, tokens.shape[0], "prefill")
+        shape = InputShape(tag, max_len, tokens.shape[0], "prefill")
         prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
         decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
         batch = {"tokens": tokens}
         placed = compat.distribute(params, pshard, mesh)
         pbatch = compat.distribute(batch, batch_sh(batch), mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
         prefill(placed, pbatch)                         # DTensor's first-call work
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1018,54 +1055,63 @@ def sharded_serve_phase(dev, model, params, tokens, max_len: int, want_logits) -
         placed_ms = 1e3 * (time.perf_counter() - t0)
         counts = read_launches()
         nothing = {name: 0 for name in counts}
-        require(counts == {**nothing, "flash_attention": cfg.num_layers},
-                f"17a: the placed prefill's launches were {counts}, want "
-                f"{cfg.num_layers} flash_attention and no other")
+        require(counts == {**nothing, **want_prefill},
+                f"{tag}: the placed prefill's launches were {counts}, want {want_prefill} "
+                "and no other")
         require(torch_equal(compat.gather(logits), u_logits)
                 and torch_equal(compat.gather(logits), want_logits),
-                "17a: the placed prefill's logits differ from the plain step's or 8b's")
-        require(trees_equal(cache, u_cache), "17a: the placed prefill's cache differs")
+                f"{tag}: the placed prefill's logits differ from the plain step's or the "
+                "serve's")
+        require(trees_equal(cache, u_cache), f"{tag}: the placed prefill's cache differs")
         tok = torch.argmax(u_logits[:, -1:], dim=-1)
         dec_ms = {"plain": [], "placed": []}
-        reset_launches()
         for i in range(SHARDED_DECODE_STEPS):
             pos = tokens.shape[1] + i
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             u_step, u_cache = decode(params, u_cache, tok, pos)
             torch.cuda.synchronize()
+            dec_ms["plain"].append(1e3 * (time.perf_counter() - t0))
+            ptok = compat.distribute(tok, tshard, mesh)
+            reset_launches()
             t1 = time.perf_counter()
-            p_step, cache = decode(placed, cache, compat.distribute(tok, tshard, mesh), pos)
+            p_step, cache = decode(placed, cache, ptok, pos)
             torch.cuda.synchronize()
-            dec_ms["plain"].append(1e3 * (t1 - t0))
             dec_ms["placed"].append(1e3 * (time.perf_counter() - t1))
+            counts = read_launches()
+            require(counts == {**nothing, **want_step},
+                    f"{tag}: placed decode step {i} launched {counts}, want {want_step} and "
+                    "no other")
             require(torch_equal(compat.gather(p_step), u_step),
-                    f"17a: decode step {i}'s placed logits differ from the plain step's")
+                    f"{tag}: decode step {i}'s placed logits differ from the plain step's")
             tok = torch.argmax(u_step[:, -1:], dim=-1)
-        require(read_launches() == nothing, f"17a: decode launched {read_launches()}")
-        require(trees_equal(cache, u_cache), "17a: the placed cache after decode differs")
-        # 17c: a tree on the host is not placed on the card's mesh
-        try:
-            compat.distribute({"w": params["final_norm"].cpu()},
-                              {"w": placements(compat.PartitionSpec(None), mesh)}, mesh)
-            refused = False
-        except ValueError as e:
-            refused = "cannot be placed" in str(e)
-        require(refused, "17c: a CPU tree on the NCCL mesh was not refused")
+        require(trees_equal(cache, u_cache), f"{tag}: the placed cache after decode differs")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if refuse:
+            # 17c: a tree on the host is not placed on the card's mesh
+            try:
+                compat.distribute({"w": params["final_norm"].cpu()},
+                                  {"w": placements(compat.PartitionSpec(None), mesh)}, mesh)
+                refused = False
+            except ValueError as e:
+                refused = "cannot be placed" in str(e)
+            require(refused, "17c: a CPU tree on the NCCL mesh was not refused")
         del placed, cache, u_cache, logits
     torch.cuda.empty_cache()
     warm = {k: float(sorted(v[1:])[len(v[1:]) // 2]) for k, v in dec_ms.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    print(f"17a sharded serve {SERVE_ARCH} on host_mesh() ({dict(mesh.shape)}, one-rank nccl; "
-          f"{card}): "
-          f"placed prefill {tokens.shape[0]}x{tokens.shape[1]} bitwise the plain step's "
-          f"and 8b's, caches bitwise, {cfg.num_layers} attention launches; "
-          f"{SHARDED_DECODE_STEPS} decode steps bitwise, no launches; warm ms: prefill "
-          f"placed {placed_ms:.1f} vs plain {plain_ms:.1f}, decode step placed "
-          f"{warm['placed']:.2f} vs plain {warm['plain']:.2f} (host clock)")
-    print(f"17c: a CPU tree on the NCCL mesh refused; 17a+c {time.perf_counter() - t_phase:.1f} s")
+    print(f"{tag} sharded serve {cfg.name}, {cfg.num_layers} layers, on host_mesh() "
+          f"({dict(mesh.shape)}, one-rank nccl; {card}): placed prefill "
+          f"{tokens.shape[0]}x{tokens.shape[1]} bitwise the plain step's and the serve's, "
+          f"caches bitwise, launches {want_prefill}; {SHARDED_DECODE_STEPS} decode steps "
+          f"bitwise, launches a step {want_step}; warm ms: prefill placed {placed_ms:.1f} vs plain "
+          f"{plain_ms:.1f}, decode step placed {warm['placed']:.2f} vs plain "
+          f"{warm['plain']:.2f} (host clock); peak memory {peak_gb:.2f} GB with both trees")
+    if refuse:
+        print("17c: a CPU tree on the NCCL mesh refused")
+    print(f"{tag}: {time.perf_counter() - t_phase:.1f} s")
 
 
 def sharded_train_phase(dev, cfg, host_weights, want) -> None:
@@ -1135,24 +1181,111 @@ def sharded_train_phase(dev, cfg, host_weights, want) -> None:
           f"first-call work); {time.perf_counter() - t_phase:.1f} s")
 
 
+def sharded_ssm_train_phase(dev, arch, cfg, host_weights, want) -> None:
+    """Phase 17g: ``SHARDED_TRAIN_STEPS`` steps of 15e's config
+    (``launch.steps.build_train`` on RWKV-6 or Jamba at full width, depth
+    cut, bf16, remat, AdamW) from ``host_weights``, first on plain trees,
+    then on trees placed by the step's shardings on ``host_mesh()`` in a
+    one-rank NCCL group (the moments made placed, ``compat.placed_zeros``):
+    each step's loss and gradient norm bitwise, the parameters and moments
+    after the last step bitwise, each placed step's launches ``want``
+    (every other kernel 0), the returned parameters placed as
+    ``build_train``'s; the warm ms of both. The plain run's parameters and
+    moments wait on the host: Jamba's two layers with their AdamW moments
+    take ~38 GB, a step's peak ~64 GB, so two trees do not fit the card."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import compat, tree
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import get_optimizer
+
+    t_phase = time.perf_counter()
+    model = Model(cfg, device=dev)
+    opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+    gen = token_batches(np.random.default_rng(SEED + 1), TRAIN_BATCH, TRAIN_SEQ + 1,
+                        cfg.vocab_size)
+    batches = [{k: torch.as_tensor(a, device=dev).to(torch.int32) for k, a in next(gen).items()}
+               for _ in range(SHARDED_TRAIN_STEPS)]
+    ms = {"plain": [], "placed": []}
+    with one_rank_nccl() as mesh:
+        step, (pshard, oshard, batch_sh), _, (_, aopt) = steps.build_train(model, mesh)
+        params = tree.map(lambda t: t.to(dev, copy=True), host_weights)
+        state = opt.init(params)
+        metrics = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            ms["plain"].append(1e3 * (time.perf_counter() - t0))
+            metrics.append(met)
+        want_p = tree.map(lambda t: t.cpu(), params)
+        want_s = tree.map(lambda t: t.cpu(), state)
+        del params, state
+        torch.cuda.empty_cache()
+        placed = compat.distribute(tree.map(lambda t: t.to(dev, copy=True), host_weights),
+                                   pshard, mesh)
+        pstate = compat.placed_zeros(aopt, oshard, mesh, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i, (batch, met) in enumerate(zip(batches, metrics)):
+            pbatch = compat.distribute(batch, batch_sh(batch), mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            placed, pstate, pmet = step(placed, pstate, pbatch)
+            torch.cuda.synchronize()
+            ms["placed"].append(1e3 * (time.perf_counter() - t0))
+            counts = read_launches()
+            require(counts == {**{name: 0 for name in counts}, **want},
+                    f"17g {arch}: step {i}'s placed launches were {counts}, want {want}")
+            require(torch_equal(compat.gather(pmet["loss"]), met["loss"])
+                    and torch_equal(compat.gather(pmet["grad_norm"]), met["grad_norm"]),
+                    f"17g {arch}: step {i}: placed loss {pmet['loss']} / gradient norm "
+                    f"{pmet['grad_norm']}, plain {met['loss']} / {met['grad_norm']}")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        require(all(p.placements == tuple(pl) for p, pl in compat.placed_leaves(placed, pshard)),
+                f"17g {arch}: the returned parameters are placed otherwise than build_train's")
+        # one rank: each leaf's local block is all of it
+        require(mesh.size == 1, f"17g: {mesh} is not one rank")
+        for what, got, want_t in (("parameters", placed, want_p), ("moments", pstate, want_s)):
+            for (path, w), g in zip(tree.leaves_with_path(want_t), tree.leaves(got)):
+                local = g.to_local() if isinstance(g, DTensor) else g
+                require(torch_equal(local.cpu(), w), f"17g {arch}: the {what} after "
+                        f"{SHARDED_TRAIN_STEPS} steps differ at {tree.path_str(path)}")
+        del placed, pstate, want_p, want_s, batches, metrics
+    torch.cuda.empty_cache()
+    print(f"17g sharded train {arch} {cfg.num_layers} layers on host_mesh() (one-rank nccl), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: {SHARDED_TRAIN_STEPS} steps plain, then "
+          f"placed: losses and gradient norms of each step, parameters and moments after "
+          f"the last bitwise; launches a step {want}; step ms placed "
+          f"{[round(x, 1) for x in ms['placed']]} vs plain {[round(x, 1) for x in ms['plain']]}"
+          f" (the first placed step includes DTensor's first-call work); placed peak memory "
+          f"{peak_gb:.2f} GB; {time.perf_counter() - t_phase:.1f} s")
+
+
 def sharded_dryrun_phase() -> None:
-    """Phase 17d: the dry run of ``SHARDED_DRYRUN`` at full width and depth,
-    counted per device on meta in a fake process group of the mesh's size:
-    the count held to ``SHARDED_DRYRUN_WANT``, what this checkout counts on
-    the CPU."""
+    """Phase 17d: the dry run of each pair of ``SHARDED_DRYRUN_WANT`` at full
+    width and depth, counted per device on meta in a fake process group of
+    the mesh's size: each count held to its pin, what this checkout counts
+    on the CPU."""
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
-    arch, shape, mesh = SHARDED_DRYRUN
-    rec = dryrun.run_one(arch, shape, mesh, out_dir=os.path.join(ROOT, "artifacts",
-                                                                 "dryrun_torch"))
-    got = (rec["flops_per_device"], rec["bytes_per_device"], rec["aten_ops"],
-           {k: (v["bytes"], v["count"]) for k, v in rec["collectives"].items()})
-    print(f"17d dryrun {arch} {shape} on {mesh} ({rec['n_chips']} ranks, fake group): "
-          f"{got[0]} FLOPs, {got[1]} bytes, {got[2]} aten ops a device, collectives "
-          f"{got[3]}, dominant {rec['roofline']['dominant']}, {rec['trace_s']} s")
-    require(got == SHARDED_DRYRUN_WANT, f"17d: the count on the card's host is {got}, the "
-            f"CPU's {SHARDED_DRYRUN_WANT}")
+    for (arch, shape, mesh), want in SHARDED_DRYRUN_WANT.items():
+        rec = dryrun.run_one(arch, shape, mesh, out_dir=os.path.join(ROOT, "artifacts",
+                                                                     "dryrun_torch"))
+        got = (rec["flops_per_device"], rec["bytes_per_device"], rec["aten_ops"],
+               {k: (v["bytes"], v["count"]) for k, v in rec["collectives"].items()})
+        print(f"17d dryrun {arch} {shape} on {mesh} ({rec['n_chips']} ranks, fake group): "
+              f"{got[0]} FLOPs, {got[1]} bytes, {got[2]} aten ops a device, collectives "
+              f"{got[3]}, kernels { {k: v['calls'] for k, v in rec['kernels'].items()} }, "
+              f"dominant {rec['roofline']['dominant']}, {rec['trace_s']} s")
+        require(got == want, f"17d: the count of {arch} {shape} on the card's host is {got}, "
+                f"the CPU's {want}")
     print(f"17d: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2488,7 +2621,8 @@ def serve_phase(dev) -> tuple[dict, dict, dict]:
         count_phase(dev, "16b prefill", cfg, InputShape("8b", s, b, "prefill"), params,
                     ({"tokens": tokens.to(torch.int32)},), {"flash_attention": cfg.num_layers})
     # -- 17a, 17c. the same prefill and decode placed on a one-rank mesh -------
-    sharded_serve_phase(dev, model, params, tokens, s + gen, logits)
+    sharded_serve_phase(dev, "17a", model, params, tokens, s + gen, logits,
+                        {"flash_attention": cfg.num_layers}, {}, refuse=True)
     del logits
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
@@ -2770,6 +2904,9 @@ def rwkv_phase(dev) -> tuple[dict, dict]:
         require(err <= SERVE_BF16_TOL * scale, f"the bf16 RWKV-6 serve's logits differ from "
                 f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     del cache
+    # -- 17e. the same prefill and decode placed on a one-rank mesh -------------
+    sharded_serve_phase(dev, "17e", model, params, tokens, s + gen, logits,
+                        {"wkv6": cfg.num_layers}, {"wkv6": cfg.num_layers})
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
     first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
@@ -3053,6 +3190,9 @@ def jamba_phase(dev) -> tuple[dict, dict]:
         require(err <= SERVE_BF16_TOL * scale, f"the bf16 Jamba serve's logits differ from "
                 f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     del cache
+    # -- 17f. the same prefill and decode placed on a one-rank mesh -------------
+    sharded_serve_phase(dev, "17f", model, params, tokens, s + gen, logits,
+                        {"mamba_scan": n_mamba, "flash_attention": n_attn}, {})
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
     first = float((tokens_out[:, 0] == p_tokens[:, 0]).float().mean().item())
@@ -4870,6 +5010,9 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
     jamba_counts = train_run(dev, "15e", JAMBA_ARCH, jcfg, jamba_weights, SSM_TRAIN_STEPS,
                              kernel_counts(jcfg, SSM_TRAIN_STEPS),
                              jcfg.num_layers * scan_flops, "mamba_scan_bwd_kernel")
+    # -- 17g. the same steps placed on a one-rank mesh ----------------------------
+    sharded_ssm_train_phase(dev, RWKV_ARCH, rcfg, rwkv_weights, kernel_counts(rcfg, 1))
+    sharded_ssm_train_phase(dev, JAMBA_ARCH, jcfg, jamba_weights, kernel_counts(jcfg, 1))
 
     # -- 15f. float32 steps of the reduced configs, card vs CPU ----------------
     for arch in (RWKV_ARCH, JAMBA_ARCH):

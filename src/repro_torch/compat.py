@@ -10,6 +10,9 @@ over ``torch.distributed``.
   shard_map(f, ...)             ``f`` on this rank's block of each input; the
                                 outputs gathered back by their specs, or,
                                 given DTensors, returned as DTensors
+  on_blocks(fn, x)              ``fn`` on this rank's block of a DTensor, the
+                                result placed as ``x`` (an op along whole
+                                dimensions: a pad, a per-row norm)
   psum(tensors, axes, mesh)     sum in place over the mesh axes ``axes``
                                 (``jax.lax.psum``)
   distribute(tree, pl, mesh)    each leaf a DTensor placed by its placements
@@ -25,6 +28,8 @@ over ``torch.distributed``.
   placed_ops(params)            context in which plain tensors meet DTensors
                                 as replicated ones (a step's own constants)
   einsum(eq, a, b)              a product of DTensors on each rank's blocks
+  spec_of(t)                    the spec of a DTensor's placements
+  placed_for(t, like)           ``t`` placed as ``like`` for an elementwise op
 
 A spec (``PartitionSpec``) has one entry a dimension: ``None`` (the
 dimension is whole on every rank), an axis name, or a tuple of axis names
@@ -59,8 +64,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.roofline import op_cost
 
 __all__ = ["Mesh", "PartitionSpec", "cost_analysis_dict", "current_mesh", "distribute", "einsum",
-           "gather", "is_placed", "local_shape", "make_mesh", "mesh_of", "placed_leaves", "placed_ops",
-           "placed_zeros", "psum", "replicate_partial", "set_mesh", "shard_map"]
+           "gather", "is_placed", "local_shape", "make_mesh", "mesh_of", "on_blocks", "placed_for",
+           "placed_leaves", "placed_ops", "placed_zeros", "psum", "replicate_partial", "set_mesh",
+           "shard_map", "spec_of"]
 
 
 class PartitionSpec(tuple):
@@ -204,7 +210,7 @@ def _gather(x, spec, mesh: Mesh):
 
 
 def shard_map(f, *, mesh: Mesh, in_specs, out_specs, axis_names=None, check_vma=False,
-              out_partial=()):
+              out_partial=(), written=()):
     """``f`` over the blocks of its inputs: each rank calls ``f`` on its
     block of every tensor input (``in_specs``, one spec an input, ``None``
     for an input taken whole), and each output is gathered by its spec in
@@ -230,7 +236,12 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs, axis_names=None, check_vma=
     rank's outputs are its term of a sum, where the reference's body would
     end in a ``psum``: they come back ``Partial`` there, and DTensor
     reduces them where an op needs the sum (one all-reduce, or none where
-    a sum of sums follows). Their gradient reaches every rank whole."""
+    a sum of sums follows). Their gradient reaches every rank whole.
+
+    ``written`` (DTensors only) are the positions of inputs that ``f``
+    writes into in place (a cache's state): each must be placed by its
+    spec already, since a redistributed copy would take the write and
+    leave the input stale; one placed otherwise raises."""
     del check_vma
     manual = set(mesh.axis_names if axis_names is None else axis_names)
     single = not isinstance(out_specs, (tuple, list)) or isinstance(out_specs, PartitionSpec)
@@ -242,9 +253,9 @@ def shard_map(f, *, mesh: Mesh, in_specs, out_specs, axis_names=None, check_vma=
             raise ValueError(f"{len(args)} inputs for {len(in_specs)} in_specs")
         if any(isinstance(t, DTensor) for x in args for t in _leaves(x)):
             return _mapped_placed(f, mesh, args, in_specs, out_specs, single, manual,
-                                  set(out_partial))
-        if out_partial:
-            raise ValueError("out_partial needs DTensor inputs")
+                                  set(out_partial), set(written))
+        if out_partial or written:
+            raise ValueError("out_partial and written need DTensor inputs")
         out = f(*(_local(x, s, mesh) for x, s in zip(args, in_specs)))
         if single:
             return _gather(out, out_specs, mesh)
@@ -316,7 +327,7 @@ class _SumGrad(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.placements)
 
 
-def _mapped_placed(f, mesh: Mesh, args, in_specs, out_specs, single, manual, partial):
+def _mapped_placed(f, mesh: Mesh, args, in_specs, out_specs, single, manual, partial, written):
     dm = mesh.device_mesh
     if dm is None:
         raise ValueError("DTensors need a mesh with a process group; this one has none")
@@ -328,14 +339,20 @@ def _mapped_placed(f, mesh: Mesh, args, in_specs, out_specs, single, manual, par
     # there gets the ranks' summed gradient
     split_out = {a for s in specs for a in _by_axis(s)} | partial
 
-    def enter(x, spec):
+    def enter(x, spec, i):
         if not isinstance(x, DTensor):
+            if i in written and torch.is_tensor(x):
+                raise ValueError(f"input {i} is written in place: pass a DTensor")
             return _local(x, spec, mesh) if torch.is_tensor(x) else x
         if x.device_mesh != dm:
             raise ValueError(f"a DTensor on {x.device_mesh} given to a shard_map on {dm}")
         by_axis = _by_axis(spec)
         want = [by_axis.get(a, Replicate()) for a in names]
         if list(x.placements) != want:
+            if i in written:
+                raise ValueError(f"input {i} is written in place and placed {x.placements}, "
+                                 f"not {tuple(want)} as its spec {spec}: a redistributed "
+                                 "copy would take the write")
             x = x.redistribute(dm, want)
         grads = [Partial() if a in split_out and not p.is_shard() else p
                  for a, p in zip(names, want)]
@@ -357,7 +374,8 @@ def _mapped_placed(f, mesh: Mesh, args, in_specs, out_specs, single, manual, par
         return _FromLocal.apply(y.contiguous(), dm, tuple(placements), torch.Size(shape),
                                 tuple(grads))
 
-    out = f(*(_map_leaves(lambda t, s=s: enter(t, s), x) for x, s in zip(args, in_specs)))
+    out = f(*(_map_leaves(lambda t, s=s, i=i: enter(t, s, i), x)
+              for i, (x, s) in enumerate(zip(args, in_specs))))
     if single:
         return leave(out, out_specs)
     return tuple(leave(y, s) for y, s in zip(out, out_specs))
@@ -534,6 +552,49 @@ def _letter_axes(t, letters: str) -> dict:
         if p.is_shard():
             out[letters[p.dim]] = out.get(letters[p.dim], ()) + (axis,)
     return out
+
+
+def spec_of(t) -> PartitionSpec:
+    """The spec of a DTensor's placements: for each dimension, the mesh
+    axes that split it, in mesh order, or ``None``; a ``Partial`` placement
+    adds nothing."""
+    axes: list[list[str]] = [[] for _ in range(t.dim())]
+    for a, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if p.is_shard():
+            axes[p.dim].append(a)
+    return PartitionSpec(*(None if not e else e[0] if len(e) == 1 else tuple(e) for e in axes))
+
+
+def on_blocks(fn, x):
+    """``fn(x)``; given a DTensor, ``fn`` on this rank's block and the
+    result placed as ``x`` (``compat.shard_map`` with ``x``'s own spec: a
+    ``Partial`` is reduced first, nothing else moves). ``fn`` must act
+    along the dimensions that are whole and keep the size of the split
+    ones: a pad or a shift along the sequence, a norm over a row. DTensor's
+    own rules for such ops are not in every torch the port runs on."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    spec = spec_of(x)
+    return shard_map(fn, mesh=mesh_of(x), in_specs=(spec,), out_specs=spec)(x)
+
+
+def placed_for(t, like):
+    """``t`` placed for an elementwise op with ``like`` (``t``'s dimensions
+    ``like``'s trailing ones, broadcast): on each mesh axis split as
+    ``like`` splits the matching dimension, else whole (an FSDP split
+    gathered, a ``Partial`` reduced; a split of a dimension ``t`` holds
+    whole is a slice, nothing sent). ``t`` itself when it is plain or placed
+    so already. With both operands placed alike DTensor runs the op on the
+    blocks as they are; given a conflict (a weight split over ``data``
+    along d, the activation along the batch) it would choose a placement of
+    its own, which differs between torch releases."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    off = like.dim() - t.dim()
+    want = tuple(Shard(p.dim - off) if p.is_shard() and p.dim >= off
+                 and t.shape[p.dim - off] == like.shape[p.dim] else Replicate()
+                 for p in like.placements)
+    return t if tuple(t.placements) == want else t.redistribute(t.device_mesh, want)
 
 
 def gather(tree):

@@ -16,11 +16,28 @@ one autograd node whose backward returns empty gradients of the inputs'
 shapes), which is what the dry run (``launch.dryrun``) traces a full-size
 step with. Any other device raises.
 
-Given DTensors (a sharded step's activations), ``flash_attention`` runs the
-same dispatch on this rank's block through ``compat.shard_map``: the
-batch over the ``pod``/``data`` axes and the heads over ``model``, an
-input placed any other way redistributed first. A DTensor that reaches a
-kernel any other way raises (``wkv6`` and ``mamba_scan`` take none yet):
+Given DTensors (a sharded step's activations), ``flash_attention``,
+``wkv6`` and ``mamba_scan`` run the same dispatch on this rank's block
+through ``compat.shard_map``, an input placed any other way redistributed
+first (a counted collective):
+
+  flash_attention  q, k, v (B, S, heads, d): the batch over the
+                   ``pod``/``data`` axes, the heads over ``model``;
+  wkv6             r, k, v, w (B, S, H, hd) and u (H, hd): the batch as r
+                   is split, the heads as r's are (``model``); s0 and
+                   out_state (B, H, hd, hd) as the cache (``("batch",
+                   "heads", None, None)``);
+  mamba_scan       dt, x (B, S, D) and a (D, N): the batch as dt is split,
+                   D as dt's (``model``); b, c (B, S, N) whole over the
+                   channels' axes (their gradient the ranks' sum); h0 and
+                   out_state (B, D, N) as the cache (``("batch", "mlp",
+                   "state")``).
+
+An ``out_state`` must already be placed so: the kernel writes the local
+block of the cache itself, and a redistributed copy raises rather than
+take the write. Inside the block each is this function on plain tensors:
+the plain version on the CPU, the kernel on the card, its autograd
+Function under a gradient. A DTensor that reaches any other kernel raises:
 no kernel is handed a DTensor, and nothing is gathered in silence.
 
 Each function is one kernel call to ``roofline.op_cost``: while a count is
@@ -56,12 +73,18 @@ __all__ = ["fed_agg", "fed_agg_leaves", "flash_attention", "mamba_scan", "swiglu
 
 def _route(t: torch.Tensor) -> str:
     if isinstance(t, DTensor):
-        raise TypeError("a DTensor reached a kernel's dispatch: only flash_attention takes "
-                        "DTensors, through compat.shard_map on each rank's block")
+        raise TypeError("a DTensor reached a kernel's dispatch: only flash_attention, wkv6 and "
+                        "mamba_scan take DTensors, through compat.shard_map on each rank's "
+                        "block")
     kind = t.device.type
     if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"the port's kernels take cpu, cuda or meta tensors, not {t.device}")
     return kind
+
+
+def _all_placed(name: str, *tensors) -> None:
+    if not all(isinstance(t, DTensor) for t in tensors if t is not None):
+        raise TypeError(f"{name} takes its tensors all DTensors or all plain tensors")
 
 
 def _needs_grad(*tensors) -> bool:
@@ -113,8 +136,7 @@ def _attention_on_blocks(q, k, v, **kw):
     them to the ones its q heads read before the launch, so that the kernel
     sees a head ratio with the right groups; their gradient is then the
     ranks' sum. The output is placed as q's spec."""
-    if not all(isinstance(t, DTensor) for t in (q, k, v)):
-        raise TypeError("flash_attention takes q, k and v all DTensors or all plain tensors")
+    _all_placed("flash_attention", q, k, v)
     mesh = compat.mesh_of(q)
     h, kv = q.shape[2], k.shape[2]
     m = mesh.shape.get("model", 1)
@@ -153,7 +175,10 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
     returned as it; it may be ``s0`` itself, which then holds the new
     state. The card takes no ``out_state`` where a gradient is needed
     (training passes none). The backward's count takes no state gradient
-    (training's)."""
+    (training's). Given DTensors, each rank runs this on its block
+    (``_wkv6_on_blocks``) and the results are DTensors."""
+    if any(isinstance(t, DTensor) for t in (r, k, v, w, u, s0, out_state)):
+        return _wkv6_on_blocks(r, k, v, w, u, s0, out_state, backend=backend, chunk=chunk)
     route = _route(r)
 
     def run(r, k, v, w, u, s0):
@@ -182,6 +207,27 @@ def wkv6(r, k, v, w, u, s0=None, *, backend="scan", chunk=16, out_state=None):
         ("wkv6_bwd", lambda: kernel_cost.wkv6_bwd(*r.shape, **kw)))
 
 
+def _wkv6_on_blocks(r, k, v, w, u, s0, out_state, **kw):
+    """``wkv6`` of DTensors, each rank on its block: the batch and the heads
+    split as r's are (the heads over ``model``, where the column-parallel
+    r/k/v/g products put them), k, v, w alike, u's heads and the states'
+    batch and heads likewise. ``out_state`` (the placed cache's state) is
+    written in place on each rank's block. y and s_last come back placed
+    so; u's gradient is the sum over the batch's ranks."""
+    _all_placed("wkv6", r, k, v, w, u, s0, out_state)
+    batch, _, heads, _ = compat.spec_of(r)
+    seq = compat.PartitionSpec(batch, None, heads, None)
+    state = compat.PartitionSpec(batch, heads, None, None)
+
+    def block(r, k, v, w, u, s0, out_state):
+        return wkv6(r, k, v, w, u, s0, out_state=out_state, **kw)
+
+    return compat.shard_map(block, mesh=compat.mesh_of(r),
+                            in_specs=(seq, seq, seq, seq, compat.PartitionSpec(heads, None),
+                                      state, state),
+                            out_specs=(seq, state), written=(6,))(r, k, v, w, u, s0, out_state)
+
+
 def mamba_scan(dt, x, b, c, a, h0=None, *, out_state=None):
     """The Mamba (S6) selective scan: dt, x (B, S, D), b, c (B, S, N), a
     (D, N), h0 (B, D, N) float32 or None; returns (y float32 (B, S, D),
@@ -190,7 +236,11 @@ def mamba_scan(dt, x, b, c, a, h0=None, *, out_state=None):
     needed ``MambaScan``, whose backward is the backward kernel.
     ``out_state``, a float32 (B, D, N) tensor, receives h_last and is
     returned as it; it may be ``h0`` itself, which then holds the new
-    state. The card takes no ``out_state`` where a gradient is needed."""
+    state. The card takes no ``out_state`` where a gradient is needed.
+    Given DTensors, each rank runs this on its block (``_scan_on_blocks``)
+    and the results are DTensors."""
+    if any(isinstance(t, DTensor) for t in (dt, x, b, c, a, h0, out_state)):
+        return _scan_on_blocks(dt, x, b, c, a, h0, out_state)
     route = _route(dt)
 
     def run(dt, x, b, c, a, h0):
@@ -213,6 +263,28 @@ def mamba_scan(dt, x, b, c, a, h0=None, *, out_state=None):
     return op_cost.kernel_call(
         "mamba_scan", run, (dt, x, b, c, a, h0), lambda: kernel_cost.mamba_scan(*dims, **kw),
         ("mamba_scan_bwd", lambda: kernel_cost.mamba_scan_bwd(*dims, **kw)))
+
+
+def _scan_on_blocks(dt, x, b, c, a, h0, out_state):
+    """``mamba_scan`` of DTensors, each rank on its block: the batch and the
+    channels split as dt's are (the channels over ``model``, as d_inner's
+    weights are), x and a's channels alike, the states' batch and channels
+    likewise; b and c split as the batch only, whole over the channels'
+    axes, so that their gradient is the sum over those ranks (the
+    reference's transpose of a replicated input), a's over the batch's.
+    ``out_state`` (the placed cache's state) is written in place on each
+    rank's block."""
+    _all_placed("mamba_scan", dt, x, b, c, a, h0, out_state)
+    batch, _, chans = compat.spec_of(dt)
+    seq = compat.PartitionSpec(batch, None, chans)
+    whole = compat.PartitionSpec(batch, None, None)
+    state = compat.PartitionSpec(batch, chans, None)
+    return compat.shard_map(
+        lambda dt, x, b, c, a, h0, out_state: mamba_scan(dt, x, b, c, a, h0,
+                                                         out_state=out_state),
+        mesh=compat.mesh_of(dt),
+        in_specs=(seq, seq, whole, whole, compat.PartitionSpec(chans, None), state, state),
+        out_specs=(seq, state), written=(6,))(dt, x, b, c, a, h0, out_state)
 
 
 def swiglu_fused(x, w_gate, w_up, w_down):

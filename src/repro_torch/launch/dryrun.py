@@ -19,16 +19,18 @@ On the one-rank ``cpu`` mesh (the default) the record is the whole step,
 ``multitest`` the dry run checks that the rules partition every leaf of
 the parameters, the optimizer state, the batch and the cache
 (``resolve_spec`` on a ``compat.Mesh`` made without a process group) and
-records the per-device argument bytes of those placements. For the dense
-and MoE families it then counts the sharded step per device: in a fake
-process group of the mesh's size (``launch.mesh.fake_group``, which
-refuses a process that has a group already), the ``meta`` trees placed by
-the step's shardings (``compat.distribute``) and the step run once under
-``op_cost``'s count, which sees this rank's local ops and DTensor's
-collectives. The other families' sharded steps are not ported yet: their
-counts are null (``"not_counted"``). Decode takes a concrete ``cache_len``
-of ``seq_len - 1``, a full cache (the models read it on the host), written
-into the record.
+records the per-device argument bytes of those placements. For the dense,
+MoE, ssm (RWKV-6) and hybrid (Jamba) families (``SHARDED_FAMILIES``) it
+then counts the sharded step per device: in a fake process group of the
+mesh's size (``launch.mesh.fake_group``, which refuses a process that has a
+group already), the ``meta`` trees placed by the step's shardings
+(``compat.distribute``) and the step run once under ``op_cost``'s count,
+which sees this rank's local ops (each kernel at its block's shapes) and
+the collectives: DTensor's, the port's own (Mamba's ``in_proj`` exchange,
+an ``all_to_all``). The vlm and audio families' sharded steps are not
+ported yet: their counts are null (``"not_counted"``). Decode takes a
+concrete ``cache_len`` of ``seq_len - 1``, a full cache (the models read
+it on the host), written into the record.
 
 ``--device cuda`` builds the weights from seed 0 on the card (cut the
 depth with ``--set num_layers=...`` and the shape with ``--batch`` and

@@ -12,7 +12,13 @@ layer; for an RWKV-6 layer the mixer's token shift and wkv state and the
 channel-mix's token shift; for a Mamba layer the conv window and the SSM
 state. A decode step updates those slices in place (see
 ``models.attention``, ``models.rwkv6`` and ``models.mamba``), where the
-reference's scan stacks new ones.
+reference's scan stacks new ones. Placed (a sharded step), the caches are
+DTensors (``launch.steps.build_prefill`` allocates them placed, each rank
+its block), a slice of one is a DTensor viewing its rank's block, and each
+layer writes its states there: K/V by DTensor's indexing, the recurrent
+states by the kernels on the rank's block (``kernels.ops``). Every mixer's
+and FFN's output is reduced over ``model`` once before the residual add
+(``_summed``).
 
 Params tree:
   embed            (V, d)

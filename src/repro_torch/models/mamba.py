@@ -21,13 +21,36 @@ its states into it (the scan writes its final state into the cache's
 slice itself), and decode updates the cache it is given in place and
 returns it: a decoder's caches are slices of tensors stacked over its
 layers.
+
+Placed (a sharded step's DTensors, ``sharding.rules``): ``in_proj``,
+``conv_w``, ``conv_b``, ``dt_w``, ``dt_b``, ``a_log`` and ``d_skip`` split
+d_inner over ``model``, so each rank runs the conv, the scan (``ops.mamba_scan``
+through ``compat.shard_map``) and the gate on its own channels; ``x_proj`` is
+row-parallel, its ``Partial`` reduced (one all-reduce of (B, S, dt_rank +
+2 N)) before the split into dt, B and C, which leaves B and C whole on every
+rank; ``out_proj`` is row-parallel, left ``Partial`` for the decoder's
+reduction. The cache's ``conv`` and ``ssm`` are written in place on each
+rank's block.
+
+``in_proj``'s 2 d_inner columns split into ``model``-many contiguous blocks,
+so its blocks do not pair each rank's x channels with its z channels
+(reduced Jamba on the (2, 4) ``test`` mesh: ranks 0-1 hold all of x, ranks
+2-3 all of z). The reference lets GSPMD reshard its ``jnp.split``. Here each
+rank computes its block of the product (nothing sent) and one
+``all_to_all`` over ``model`` sends each half-block (d_inner / m channels)
+to the rank that owns those channels (``_exchange_xz``): a rank receives
+its x and z channels, 2 d_inner / m a token, against the (m - 1) blocks an
+all-gather would bring. Its backward is the inverse ``all_to_all``; the dry
+run counts both (``roofline.op_cost`` sees the functional collective).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import ParamSpec
@@ -73,11 +96,83 @@ def _split_xdbc(cfg: ArchConfig, p, x_conv):
     float32."""
     dtr, n = cfg.resolved_dt_rank, cfg.d_state
     cd = cfg.cdtype()
-    xdbc = torch.einsum("bsd,de->bse", x_conv, p["x_proj"].to(cd))
+    # row-parallel placed: the sum over the ranks reduced before the split
+    xdbc = compat.replicate_partial(compat.einsum("bsd,de->bse", x_conv, p["x_proj"].to(cd)))
     dt_raw, b_ssm, c_ssm = torch.split(xdbc, [dtr, n, n], dim=-1)
-    dt = _softplus(torch.einsum("bsr,rd->bsd", dt_raw, p["dt_w"].to(cd)).to(torch.float32)
+    dt = _softplus(compat.einsum("bsr,rd->bsd", dt_raw, p["dt_w"].to(cd)).to(torch.float32)
                    + p["dt_b"].to(torch.float32))
     return dt, b_ssm.to(torch.float32).contiguous(), c_ssm.to(torch.float32).contiguous()
+
+
+class _Exchange(torch.autograd.Function):
+    """The half-blocks of ``in_proj``'s product, each sent to the rank that
+    owns its channels (one ``all_to_all_single`` over the axis's group); the
+    backward sends the gradients back the same way. ``plan`` is this rank's
+    (destinations of its two half-blocks, sources of its x and z halves)."""
+
+    @staticmethod
+    def forward(ctx, block, plan, group, m):
+        ctx.plan, ctx.group, ctx.m = plan, group, m
+        sends, recvs = plan
+        half = block.shape[-1] // 2
+        return _all_to_all((block[..., :half], block[..., half:]), sends, recvs, group, m)
+
+    @staticmethod
+    def backward(ctx, gx, gz):
+        sends, recvs = ctx.plan
+        g = _all_to_all((gx, gz), recvs, sends, ctx.group, ctx.m)
+        return torch.cat(g, dim=-1), None, None, None
+
+
+def _all_to_all(slabs, dests, sources, group, m: int):
+    """``slabs`` (equal shapes) sent to the ranks ``dests`` (one each,
+    distinct) of ``group`` (m ranks); returns the slabs this rank receives
+    from ``sources`` (one each, distinct), in that order."""
+    from torch.distributed import _functional_collectives as funcol
+
+    out_of = sorted(range(len(slabs)), key=lambda i: dests[i])
+    send = torch.stack([slabs[i] for i in out_of])
+    got = funcol.all_to_all_single(send, [sources.count(r) for r in range(m)],
+                                   [dests.count(r) for r in range(m)], group)
+    got = funcol.wait_tensor(got)
+    into = sorted(range(len(sources)), key=lambda i: sources[i])
+    out = [None] * len(sources)
+    for pos, i in enumerate(into):
+        out[i] = got[pos]
+    return tuple(out)
+
+
+def _exchange_xz(xz, di: int):
+    """x_in and z (B, S, di) of ``in_proj``'s product xz (B, S, 2 di): the
+    two halves, as views; placed with its columns split over the ``model``
+    axis (m ranks), each rank's x and z channels, d_inner / m each, split
+    alike over ``model`` (the module's docstring). Rank q holds half-blocks
+    2q and 2q + 1 of the 2m, half-block i being channels ``i % m`` of x (i <
+    m) or z."""
+    if not isinstance(xz, DTensor):
+        return xz[..., :di], xz[..., di:]
+    mesh = compat.mesh_of(xz)
+    spec = compat.spec_of(xz)
+    axes = spec[2]
+    if axes is None:
+        return xz[..., :di], xz[..., di:]
+    if not isinstance(axes, str):
+        raise ValueError(f"in_proj's columns split over {axes}: one axis is exchanged")
+    m = mesh.shape[axes]
+    if di % m:
+        raise ValueError(f"d_inner {di} does not split over {m} ranks along {axes!r}")
+    q = mesh.coordinate(axes)
+    sends = [(2 * q + t) % m for t in (0, 1)]
+    recvs = [(c * m + q) // 2 for c in (0, 1)]
+    group = mesh.device_mesh.get_group(axes)
+
+    def block(t):
+        half = t.shape[-1] // 2
+        if m == 1:
+            return t[..., :half], t[..., half:]
+        return _Exchange.apply(t, (sends, recvs), group, m)
+
+    return compat.shard_map(block, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec))(xz)
 
 
 def apply(cfg: ArchConfig, p, x, *, mode: str = "train", cache=None):
@@ -88,15 +183,15 @@ def apply(cfg: ArchConfig, p, x, *, mode: str = "train", cache=None):
     """
     cd = cfg.cdtype()
     di, dc = cfg.d_inner, cfg.d_conv
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(cd))
-    x_in, z = xz[..., :di], xz[..., di:]
+    xz = compat.einsum("bsd,de->bse", x, p["in_proj"].to(cd))
+    x_in, z = _exchange_xz(xz, di)
     if mode == "decode":
         return _decode(cfg, p, x_in, z, cache)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
 
     b, s, _ = x_in.shape
-    x_pad = F.pad(x_in, (0, 0, dc - 1, 0))                      # (B, S+dc-1, di)
+    x_pad = compat.on_blocks(lambda t: F.pad(t, (0, 0, dc - 1, 0)), x_in)  # (B, S+dc-1, di)
     conv_w = p["conv_w"].to(cd)
     conv = x_pad[:, 0:s] * conv_w[0]
     for i in range(1, dc):
@@ -109,7 +204,7 @@ def apply(cfg: ArchConfig, p, x, *, mode: str = "train", cache=None):
                                  out_state=out_state)
     y = ys + x_conv.to(torch.float32) * p["d_skip"]
     y = y.to(cd) * F.silu(z)
-    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    out = compat.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
     if mode == "train":
         return out, None
     # the last d_conv - 1 inputs (zeros before a prompt shorter than that)
@@ -128,7 +223,9 @@ def _decode(cfg: ArchConfig, p, x_in, z, cache):
     cd = cfg.cdtype()
     conv_state = cache["conv"]                                   # (B, dc-1, di)
     window = torch.cat([conv_state, x_in[:, 0:1].to(conv_state.dtype)], dim=1)
-    conv = (torch.einsum("bcd,cd->bd", window.to(cd), p["conv_w"].to(cd))
+    # torch.einsum returns this product d-major; row-major, as the placed
+    # product is, x_proj's product takes one layout (cuBLAS's bits follow it)
+    conv = (compat.einsum("bcd,cd->bd", window.to(cd), p["conv_w"].to(cd)).contiguous()
             + p["conv_b"].to(cd))
     x_conv = F.silu(conv)[:, None]                               # (B, 1, di)
     dt, b_ssm, c_ssm = _split_xdbc(cfg, p, x_conv)
@@ -138,8 +235,8 @@ def _decode(cfg: ArchConfig, p, x_in, z, cache):
     h = cache["ssm"]
     da = torch.exp(dt_t[:, :, None] * a[None])
     h.copy_(h * da + (dt_t * xf)[:, :, None] * b_t[:, None, :])
-    y = torch.einsum("bdn,bn->bd", h, c_t) + xf * p["d_skip"]
+    y = compat.einsum("bdn,bn->bd", h, c_t) + xf * p["d_skip"]
     y = y[:, None].to(cd) * F.silu(z)
-    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
+    out = compat.einsum("bsd,de->bse", y, p["out_proj"].to(cd))
     conv_state.copy_(window[:, 1:])
     return out, cache

@@ -30,12 +30,15 @@ attention's (``kernels.flash_attention.FlashAttention``), the WKV-6
 recurrence's (``kernels.wkv6.WKV6``) and the Mamba scan's
 (``kernels.mamba_scan.MambaScan``).
 
-``prefill``, ``decode`` and ``loss`` of the dense and MoE families
-(``SHARDED_FAMILIES``) also take trees placed on a mesh as DTensors (by
-``launch.steps``' shardings, ``compat.distribute``; ``Model.init`` draws
-the same on every rank, which keeps its block): the step's ops carry the
-placements and attention's kernel runs on each rank's block. The other
-families refuse placed trees.
+``prefill``, ``decode`` and ``loss`` of the dense, MoE, ssm (RWKV-6) and
+hybrid (Jamba) families (``SHARDED_FAMILIES``) also take trees placed on a
+mesh as DTensors (by ``launch.steps``' shardings, ``compat.distribute``;
+``Model.init`` draws the same on every rank, which keeps its block): the
+step's ops carry the placements, and attention's, the WKV-6 and the Mamba
+scan's kernels, forward and backward, run on each rank's block (the heads,
+or d_inner's channels, over ``model``; the batch over ``pod``/``data``),
+writing a placed cache's states in place. The vlm and audio families
+refuse placed trees.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ __all__ = ["Model", "SHARDED_FAMILIES"]
 
 # the families whose steps run on placed trees (DTensors); the others'
 # sharded steps are still to port
-SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _refuse_placed(cfg: ArchConfig, params) -> None:

@@ -22,6 +22,23 @@ its states into it, and decode updates the cache it is given in place and
 returns it: a decoder's caches are slices of tensors stacked over its
 layers. The wkv state is written by the kernel itself (its ``s_last`` may
 alias ``s0``).
+
+Placed (a sharded step's DTensors, ``sharding.rules``): the r/k/v/g
+products are column-parallel, the heads split over ``model`` as ``wr``,
+``wk``, ``wv`` and ``wg`` are (``compat.einsum``), and the recurrence runs
+on each rank's heads and batch (``ops.wkv6`` through ``compat.shard_map``);
+``wo`` and the channel-mix's ``cv`` are row-parallel. ``wo``'s product is
+left ``Partial`` for the decoder's reduction; ``cv``'s is reduced before
+the sigmoid gate multiplies it (one all-reduce either way; the gate's
+factor is replicated over ``model``, and a product of sums is exact only
+once summed). The token-shift mix and the decay LoRA are replicated over
+``model`` and, in training, FSDP over ``data`` (``compat.einsum`` gathers
+each such weight before its product, ``compat.placed_for`` before an
+elementwise op). The decay, the group norm, ``ln_x`` and the gate act
+per head, in (B, S, H, hd), so that no split head dimension is flattened;
+the shift along the sequence and the group norm run on each rank's block
+(``compat.on_blocks``). The cache's ``shift`` and ``wkv`` are written in
+place on each rank's block.
 """
 
 from __future__ import annotations
@@ -29,6 +46,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -163,29 +181,37 @@ def _ddlerp(p, x, x_prev):
     """Data-dependent lerp producing the 5 mixed inputs (r, k, v, w, g):
     (B, S, 5, d) in x's dtype."""
     dx = x_prev - x
-    inner = x + dx * p["mu_x"].to(x.dtype)
-    lora = torch.einsum("bsd,de->bse", torch.tanh(inner), p["tm_w1"].to(x.dtype))
+    inner = x + dx * compat.placed_for(p["mu_x"], x).to(x.dtype)
+    lora = compat.einsum("bsd,de->bse", torch.tanh(inner), p["tm_w1"].to(x.dtype))
     lora = lora.reshape(*x.shape[:-1], _MIX_TARGETS, -1)
-    lora = torch.einsum("bste,ted->bstd", lora, p["tm_w2"].to(x.dtype))
-    mix = p["mu"].to(x.dtype) + lora                          # (B,S,5,d)
+    lora = compat.einsum("bste,ted->bstd", lora, p["tm_w2"].to(x.dtype))
+    mix = lora + compat.placed_for(p["mu"], lora).to(x.dtype)   # (B,S,5,d)
     return x[..., None, :] + dx[..., None, :] * mix
 
 
-def _decay(cfg: ArchConfig, p, xw):
+def _decay(cfg: ArchConfig, p, xw, like=None):
     """xw: (B, S, d) -> the per-channel decay in (0, 1): (B, S, H, hd)
-    float32."""
+    float32; placed, split as ``like`` (r: the heads as the products put
+    them) before ``w0``'s heads meet it."""
     h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
-    lo = torch.einsum("bsd,dl->bsl", torch.tanh(xw), p["dw1"].to(xw.dtype))
-    lo = torch.einsum("bsl,ld->bsd", lo, p["dw2"].to(xw.dtype))
-    raw = p["w0"].reshape(-1) + lo.to(torch.float32)
-    return torch.exp(-torch.exp(raw)).reshape(*xw.shape[:-1], h, hd)
+    lo = compat.einsum("bsd,dl->bsl", torch.tanh(xw), p["dw1"].to(xw.dtype))
+    lo = compat.einsum("bsl,ld->bsd", lo, p["dw2"].to(xw.dtype))
+    lo = compat.placed_for(lo.to(torch.float32).reshape(*xw.shape[:-1], h, hd), like)
+    return torch.exp(-torch.exp(lo + compat.placed_for(p["w0"], lo)))
+
+
+def _group_norm(y):
+    """Per-head group norm (ddof 0, as jnp.var) of y (..., hd), float32."""
+    mu = y.mean(dim=-1, keepdim=True)
+    var = y.var(dim=-1, keepdim=True, correction=0)
+    return (y - mu) * torch.rsqrt(var + _GROUP_NORM_EPS)
 
 
 def _token_shift(x, mode: str, cache):
     """The previous position's input: zeros before a prompt, the cache's
     ``shift`` in decode."""
     if mode in ("train", "prefill"):
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        return compat.on_blocks(lambda t: F.pad(t, (0, 0, 1, 0))[:, :-1], x)
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
     if cache is None:
@@ -210,29 +236,26 @@ def apply(cfg: ArchConfig, p, x, *, mode: str = "train", cache=None):
     when one is given) | "decode" (``cache`` required; updated in place).
     """
     cd = cfg.cdtype()
-    b, s, d = x.shape
     h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     x_prev = _token_shift(x, mode, cache)
     s0 = cache["wkv"] if mode == "decode" else None
 
     mixed = _ddlerp(p, x, x_prev)                             # (B,S,5,d)
     xr, xk, xv, xw, xg = mixed.unbind(dim=2)
-    r, k, v, g = (torch.einsum("bsd,dhe->bshe", xi, p[name].to(cd)).contiguous()
+    r, k, v, g = (compat.einsum("bsd,dhe->bshe", xi, p[name].to(cd)).contiguous()
                   for xi, name in ((xr, "wr"), (xk, "wk"), (xv, "wv"), (xg, "wg")))
-    w = _decay(cfg, p, xw)
+    w = _decay(cfg, p, xw, r)
 
     backend = cfg.wkv_backend if mode in ("train", "prefill") else "scan"
     out_state = cache["wkv"] if cache is not None and mode != "train" else None
     y, s_last = kops.wkv6(r, k, v, w, p["u"], s0, backend=backend, chunk=cfg.wkv_chunk,
                           out_state=out_state)
 
-    # per-head group norm (ddof 0, as jnp.var) in float32, then the gate
-    mu = y.mean(dim=-1, keepdim=True)
-    var = y.var(dim=-1, keepdim=True, correction=0)
-    y = (y - mu) * torch.rsqrt(var + _GROUP_NORM_EPS)
-    y = y.reshape(b, s, d) * p["ln_x"]
-    y = y.to(cd) * F.silu(g.reshape(b, s, d))
-    out = torch.einsum("bshe,hed->bsd", y.reshape(b, s, h, hd), p["wo"].to(cd))
+    # per-head group norm in float32, ln_x, then the gate, all per head
+    y = compat.on_blocks(_group_norm, y)
+    y = y * compat.placed_for(compat.placed_for(p["ln_x"], x).reshape(h, hd), y)
+    y = y.to(cd) * F.silu(g)
+    out = compat.einsum("bshe,hed->bsd", y, p["wo"].to(cd))
 
     if mode == "train":
         return out, None
@@ -244,12 +267,13 @@ def cmix_apply(cfg: ArchConfig, p, x, *, mode: str = "train", cache=None):
     the cache as ``apply``'s."""
     cd = cfg.cdtype()
     x_prev = _token_shift(x, mode, cache)
-    xk = x + (x_prev - x) * p["mu_k"].to(cd)
-    xr = x + (x_prev - x) * p["mu_r"].to(cd)
-    k = torch.einsum("bsd,df->bsf", xk, p["ck"].to(cd))
+    xk = x + (x_prev - x) * compat.placed_for(p["mu_k"], x).to(cd)
+    xr = x + (x_prev - x) * compat.placed_for(p["mu_r"], x).to(cd)
+    k = compat.einsum("bsd,df->bsf", xk, p["ck"].to(cd))
     k = torch.square(torch.relu(k))
-    kv = torch.einsum("bsf,fd->bsd", k, p["cv"].to(cd))
-    out = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cr"].to(cd))) * kv
+    # row-parallel: placed, the sum over the ranks reduced before the gate
+    kv = compat.replicate_partial(compat.einsum("bsf,fd->bsd", k, p["cv"].to(cd)))
+    out = torch.sigmoid(compat.einsum("bsd,de->bse", xr, p["cr"].to(cd))) * kv
     if mode == "train":
         return out, None
     return out, _new_cache(x, cd, cache)

@@ -18,6 +18,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.convert import params_to_numpy, tree_from_jax, tree_to_numpy
 from repro_torch.data.pipeline import synthetic_mnist
 from repro_torch.fed.fleet import FleetConfig, FleetEngine, build_fleet_problems
+from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import host_mesh
 from repro_torch.models import mlp
@@ -150,13 +151,91 @@ def serve_and_train(mesh, arch: str, params_np, case: dict) -> dict:
     return out
 
 
+# the recurrences' inputs: (name, shape, spec over ("data", "model")) of
+# each, in the kernel's argument order, and the cotangents of the outputs
+WKV_B, WKV_S, WKV_H, WKV_HD = 4, 12, 4, 16
+SCAN_B, SCAN_S, SCAN_D, SCAN_N = 4, 12, 16, 8
+KERNEL_INPUTS = {
+    "wkv6": [("r", (WKV_B, WKV_S, WKV_H, WKV_HD), P("data", None, "model", None)),
+             ("k", (WKV_B, WKV_S, WKV_H, WKV_HD), P("data", None, "model", None)),
+             ("v", (WKV_B, WKV_S, WKV_H, WKV_HD), P("data", None, "model", None)),
+             ("w", (WKV_B, WKV_S, WKV_H, WKV_HD), P("data", None, "model", None)),
+             ("u", (WKV_H, WKV_HD), P("model", None)),
+             ("s0", (WKV_B, WKV_H, WKV_HD, WKV_HD), P("data", "model", None, None))],
+    "mamba_scan": [("dt", (SCAN_B, SCAN_S, SCAN_D), P("data", None, "model")),
+                   ("x", (SCAN_B, SCAN_S, SCAN_D), P("data", None, "model")),
+                   ("b", (SCAN_B, SCAN_S, SCAN_N), P("data", None, None)),
+                   ("c", (SCAN_B, SCAN_S, SCAN_N), P("data", None, None)),
+                   ("a", (SCAN_D, SCAN_N), P("model", None)),
+                   ("h0", (SCAN_B, SCAN_D, SCAN_N), P("data", "model", None))],
+}
+
+
+def kernel_inputs(name: str, seed: int = 3) -> tuple[list, list]:
+    """The inputs of ``ops.<name>`` (float32, drawn with numpy from
+    ``seed``: decays in (0, 1), dt positive, a negative) and the cotangents
+    of its two outputs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for arg, shape, _ in KERNEL_INPUTS[name]:
+        x = rng.standard_normal(shape).astype(np.float32)
+        if arg == "w":
+            x = np.exp(-np.exp(0.5 * x)).astype(np.float32)
+        elif arg == "dt":
+            x = np.log1p(np.exp(x)).astype(np.float32)
+        elif arg == "a":
+            x = -np.exp(0.5 * x).astype(np.float32)
+        out.append(torch.from_numpy(x))
+    # y has the first input's shape, the state the last's
+    cots = [torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
+            for t in (out[0], out[-1])]
+    return out, cots
+
+
+def placed_kernels(mesh) -> dict:
+    """``ops.wkv6`` and ``ops.mamba_scan`` on DTensors placed on ``mesh`` by
+    ``KERNEL_INPUTS``' specs: the outputs and states, the gradient of every
+    input (of the outputs' products with the cotangents, summed), and, with
+    the state given as its own ``out_state``, the placed state after the
+    call and whether its block is the one the returned state views; all
+    gathered whole, as numpy."""
+    from repro_torch.sharding.rules import placements
+
+    out = {}
+    for name, fn in (("wkv6", ops.wkv6), ("mamba_scan", ops.mamba_scan)):
+        inputs, cots = kernel_inputs(name)
+        specs = [spec for _, _, spec in KERNEL_INPUTS[name]]
+
+        def place(t, spec, grad=False):
+            d = compat.distribute({"t": t.clone()}, {"t": placements(spec, mesh)}, mesh)["t"]
+            return d.requires_grad_(grad)
+
+        args = [place(t, spec, True) for t, spec in zip(inputs, specs)]
+        y, state = fn(*args)
+        cy, cs = (place(c, spec) for c, spec in zip(cots, (specs[0], specs[-1])))
+        loss = compat.replicate_partial((y * cy).sum() + (state * cs).sum())
+        loss.backward()
+        got = {"y": compat.gather(y).detach().numpy(),
+               "state": compat.gather(state).detach().numpy(),
+               "grads": [compat.gather(a.grad).numpy() for a in args]}
+        with torch.no_grad():
+            args = [place(t, spec) for t, spec in zip(inputs, specs)]
+            y2, new = fn(*args, out_state=args[-1])
+            got["in_place_y"] = compat.gather(y2).numpy()
+            got["in_place"] = compat.gather(args[-1]).numpy()
+            got["aliased"] = new.to_local().data_ptr() == args[-1].to_local().data_ptr()
+        out[name] = got
+    return out
+
+
 def sharded_steps(rank: int, layouts, cases: dict) -> dict:
     """``serve_and_train`` of each ``{arch: (params_np, case)}`` on each mesh
     of ``layouts`` (``(shape, axes, first rank)`` each: the mesh over that
     many ranks from that one, so that meshes on disjoint ranks run at the
-    same time), in order: ``{mesh size: {arch: outputs}}`` of the meshes
-    this rank belongs to. Every rank builds every mesh (making a mesh's
-    groups is collective)."""
+    same time), in order, and ``placed_kernels`` under the key ``"ops"``:
+    ``{mesh size: {arch or "ops": outputs}}`` of the meshes this rank
+    belongs to. Every rank builds every mesh (making a mesh's groups is
+    collective)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     meshes = []
@@ -164,6 +243,7 @@ def sharded_steps(rank: int, layouts, cases: dict) -> dict:
         ranks = torch.arange(first, first + int(np.prod(shape))).reshape(shape)
         meshes.append((compat.Mesh(shape, axes, DeviceMesh("cpu", ranks, mesh_dim_names=axes)),
                        ranks))
-    return {mesh.size: {arch: serve_and_train(mesh, arch, params_np, case)
-                        for arch, (params_np, case) in cases.items()}
+    return {mesh.size: {"ops": placed_kernels(mesh),
+                        **{arch: serve_and_train(mesh, arch, params_np, case)
+                           for arch, (params_np, case) in cases.items()}}
             for mesh, ranks in meshes if rank in ranks}

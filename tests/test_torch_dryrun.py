@@ -10,13 +10,16 @@
   pair, its ``model_flops_per_chip`` bitwise the reference's, and the
   reference's four dry-run pairs count what they counted before the
   sharded step came (``CPU_COUNTS``, read from the parent tree's code).
-* ``--mesh test`` checks the partition; for the dense and MoE families it
-  counts the sharded step per device in a fake process group (the FLOPs
-  times the ranks at least the one-rank count: replication only adds), the
-  other families' counts are null. A one-layer prefill on a model-only
-  mesh has exactly the collectives counted by hand.
+* ``--mesh test`` checks the partition; for the dense, MoE, ssm (RWKV-6)
+  and hybrid (Jamba) families it counts the sharded step per device in a
+  fake process group (the FLOPs times the ranks at least the one-rank
+  count: replication only adds), each layer's kernel counted once on the
+  rank's block; the vlm and audio families' counts are null. A one-layer
+  prefill on a model-only mesh (attention, RWKV-6, Mamba) has exactly the
+  collectives counted by hand.
 * A DTensor that reaches a kernel's dispatch outside ``compat.shard_map``
-  raises, ``wkv6`` and ``mamba_scan`` among them.
+  raises (``swiglu_fused``'s, say); ``wkv6`` and ``mamba_scan`` take
+  DTensors only all together.
 """
 
 from __future__ import annotations
@@ -162,7 +165,8 @@ def test_one_rank_records_keep_their_counts(reduced_dryrun, tmp_path, arch, shap
 @pytest.mark.parametrize("arch,shape", [("llama3-8b", "train_4k"),
                                         ("deepseek-moe-16b", "decode_32k"),
                                         ("rwkv6-7b", "long_500k"),
-                                        ("jamba-v0.1-52b", "prefill_32k")])
+                                        ("jamba-v0.1-52b", "prefill_32k"),
+                                        ("whisper-small", "prefill_32k")])
 def test_dryrun_on_a_sharded_mesh_checks_the_partition(reduced_dryrun, tmp_path, arch, shape):
     rec = dryrun.run_one(arch, shape, "test", out_dir=str(tmp_path), verbose=False)
     assert (tmp_path / f"{arch}__{shape}__test.json").is_file()
@@ -173,8 +177,19 @@ def test_dryrun_on_a_sharded_mesh_checks_the_partition(reduced_dryrun, tmp_path,
         assert 8 * rec["flops_per_device"] >= one["flops_per_device"] > 0
         assert rec["bytes_per_device"] > 0 and rec["roofline"]["collective_s"] > 0
         assert sum(v["count"] for v in rec["collectives"].values()) > 0
-        if rec["kind"] != "decode":   # decode attends without the kernel
-            assert rec["kernels"]["flash_attention"]["calls"] > 0
+        # each layer's kernel once, on the rank's block, as on one rank
+        kinds = get_reduced(arch).layer_kinds()
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        assert calls == {k: v["calls"] for k, v in one["kernels"].items()}
+        if rec["kind"] != "decode" and "attn" in kinds:   # decode attends without it
+            assert calls["flash_attention"] == kinds.count("attn")
+        if "rwkv6" in kinds:                               # and in decode
+            assert calls["wkv6"] == kinds.count("rwkv6")
+        if "mamba" in kinds and rec["kind"] != "decode":
+            assert calls["mamba_scan"] == kinds.count("mamba")
+            # the per-device scan is the ranks' share of the one-rank scan
+            assert 8 * rec["kernels"]["mamba_scan"]["flops"] == one["kernels"][
+                "mamba_scan"]["flops"]
     else:
         assert rec["not_counted"] == dryrun.NOT_COUNTED
         assert rec["flops_per_device"] is None and rec["collectives"] is None
@@ -285,6 +300,73 @@ def test_one_layer_gqa_decode_on_a_model_mesh_gathers_q_and_not_wo():
     assert cost.collectives == want
 
 
+def _one_layer_prefill(cfg, shape):
+    """The count of ``cfg``'s prefill at ``shape`` on a (1, 4) mesh (rank 0
+    of a fake group, meta) and on the one-rank ``cpu`` mesh."""
+    model = Model(cfg, device="meta")
+    rules = dryrun.RULE_SETS["serve"]
+    with fake_group(4):
+        mesh = compat.make_mesh((1, 4), ("data", "model"))
+        args, params = dryrun.step_inputs(model, shape, "meta")
+        params, args = dryrun.place_inputs(model, shape, mesh, rules, params, args)
+        cost = op_cost.analyze_step(dryrun.build_step(model, shape, mesh, rules), params, *args)
+    args, params = dryrun.step_inputs(model, shape, "meta")
+    plain = op_cost.analyze_step(dryrun.build_step(model, shape, make_mesh_by_name("cpu"),
+                                                   rules), params, *args)
+    return cost, plain
+
+
+def test_one_layer_rwkv6_prefill_on_a_model_mesh_has_the_hand_counted_collectives():
+    """Reduced rwkv6-7b cut to one layer, prefill (B 2, S 64, d 256, 4 heads,
+    float32) on a (1, 4) mesh: the table's masked lookup, time-mix's
+    row-parallel ``wo`` and channel-mix's row-parallel ``cv`` each end in
+    one all-reduce of the (B, S, d) activation. Nothing else moves: the
+    token-shift mix and the decay LoRA are replicated over ``model``, the
+    r/k/v/g products split the heads (one a rank) as ``wr``..``wg`` are, the
+    decay is split alike before ``w0`` meets it, ``ln_x`` and the gate act
+    per head, ``ck`` is column-parallel, the recurrence runs on the rank's
+    head and writes the placed cache's state there, and the head's logits
+    stay split over the vocab."""
+    cfg = dataclasses.replace(get_reduced("rwkv6-7b"), num_layers=1)
+    cost, plain = _one_layer_prefill(cfg, InputShape("p", 64, 2, "prefill"))
+    activation = 2 * 64 * cfg.d_model * 4
+    want = {k: {"bytes": 0, "count": 0} for k in cost.collectives}
+    want["all-reduce"] = {"bytes": 3 * activation, "count": 3}
+    assert cost.collectives == want
+    assert cost.kernels["wkv6"]["calls"] == 1
+    assert 4 * cost.kernels["wkv6"]["flops"] == plain.kernels["wkv6"]["flops"]
+
+
+def test_one_layer_mamba_prefill_on_a_model_mesh_has_the_hand_counted_collectives():
+    """Reduced jamba-v0.1-52b cut to one Mamba layer with a dense FFN (no
+    experts), prefill (B 2, S 64, d 256, d_inner 512, dt_rank 16, N 8,
+    float32) on a (1, 4) mesh. By hand:
+
+    * all-reduces of the (B, S, d) activation: the lookup's, ``out_proj``'s
+      (row-parallel, reduced before the residual add) and the FFN's
+      ``w_down``'s: 3;
+    * one all-reduce of ``x_proj``'s (B, S, dt_rank + 2 N) product
+      (row-parallel over d_inner, reduced before the split into dt, B, C);
+    * one all-to-all: ``in_proj``'s 1024 columns split 256 a rank, ranks 0-1
+      holding x's channels and 2-3 z's; each rank receives its 128 x and 128
+      z channels, its output (2, B, S, 128) float32;
+    * nothing else: the conv, dt, the scan (on the rank's 128 channels,
+      writing the placed cache), the skip and the gate stay on the rank's
+      channels; B and C are whole on every rank; the logits stay split."""
+    cfg = dataclasses.replace(get_reduced("jamba-v0.1-52b"), num_layers=1, num_experts=0)
+    assert cfg.layer_kinds() == ["mamba"] and cfg.layer_is_moe() == [False]
+    b, s, m = 2, 64, 4
+    cost, plain = _one_layer_prefill(cfg, InputShape("p", s, b, "prefill"))
+    activation = b * s * cfg.d_model * 4
+    xdbc = b * s * (cfg.resolved_dt_rank + 2 * cfg.d_state) * 4
+    want = {k: {"bytes": 0, "count": 0} for k in cost.collectives}
+    want["all-reduce"] = {"bytes": 3 * activation + xdbc, "count": 4}
+    want["all-to-all"] = {"bytes": 2 * b * s * (cfg.d_inner // m) * 4, "count": 1}
+    assert cost.collectives == want
+    assert cost.kernels["mamba_scan"]["calls"] == 1
+    assert m * cost.kernels["mamba_scan"]["flops"] == plain.kernels["mamba_scan"]["flops"]
+
+
 def test_a_dtensor_reaching_a_kernel_outside_shard_map_raises():
     from torch.distributed.tensor import Replicate, distribute_tensor
 
@@ -295,25 +377,33 @@ def test_a_dtensor_reaching_a_kernel_outside_shard_map_raises():
             return distribute_tensor(torch.zeros(shape), mesh.device_mesh,
                                      [Replicate(), Replicate()], src_data_rank=None)
 
-        with pytest.raises(TypeError, match="only flash_attention takes DTensors"):
+        only = "only flash_attention, wkv6 and mamba_scan take DTensors"
+        with pytest.raises(TypeError, match=only):
             ops._route(placed(2, 3))
-        r = placed(1, 4, 2, 64)
-        with pytest.raises(TypeError, match="only flash_attention takes DTensors"):
-            ops.wkv6(r, r, r, r, placed(2, 64))
-        with pytest.raises(TypeError, match="only flash_attention takes DTensors"):
-            ops.mamba_scan(placed(1, 4, 8), placed(1, 4, 8), placed(1, 4, 16),
-                           placed(1, 4, 16), placed(8, 16))
-        with pytest.raises(TypeError, match="only flash_attention takes DTensors"):
+        with pytest.raises(TypeError, match=only):
             ops.swiglu_fused(placed(4, 8), placed(8, 16), placed(8, 16), placed(16, 8))
+        r = placed(1, 4, 2, 64)
+        with pytest.raises(TypeError, match="all DTensors or all plain"):
+            ops.wkv6(r, r, r, r, torch.zeros(2, 64))
+        with pytest.raises(TypeError, match="all DTensors or all plain"):
+            ops.mamba_scan(placed(1, 4, 8), placed(1, 4, 8), placed(1, 4, 16),
+                           placed(1, 4, 16), torch.zeros(8, 16))
         with pytest.raises(TypeError, match="all DTensors or all plain"):
             ops.flash_attention(placed(1, 4, 2, 64), torch.zeros(1, 4, 2, 64),
                                 torch.zeros(1, 4, 2, 64))
+        # a state written in place is not redistributed into a copy
+        from torch.distributed.tensor import Shard
+
+        s0 = distribute_tensor(torch.zeros(1, 2, 64, 64), mesh.device_mesh,
+                               [Replicate(), Shard(2)], src_data_rank=None)
+        with pytest.raises(ValueError, match="written in place"):
+            ops.wkv6(r, r, r, r, placed(2, 64), s0, out_state=s0)
         # a family whose sharded step is not ported refuses placed trees
-        model = Model(get_reduced("rwkv6-7b"), device="meta")
+        model = Model(get_reduced("whisper-small"), device="meta")
         shape = InputShape("p", 16, 2, "prefill")
         step = dryrun.build_step(model, shape, mesh, dryrun.RULE_SETS["serve"])
         args, params = dryrun.step_inputs(model, shape, "meta")
         params, args = dryrun.place_inputs(model, shape, mesh, dryrun.RULE_SETS["serve"],
                                            params, args)
-        with pytest.raises(NotImplementedError, match="ssm family has no sharded step"):
+        with pytest.raises(NotImplementedError, match="audio family has no sharded step"):
             step(params, *args)

@@ -4,9 +4,14 @@ steps' shardings, against the port's plain step and the JAX reference's.
 
 Reduced llama3-8b (H 4, KV 2: on the (2, 4) ``"test"`` mesh its KV heads
 do not split over the 4-way model axis while its q heads do, so each rank
-cuts the k/v heads its q head reads before the attention launch) and
-reduced qwen2-moe (E 4: the dispatch's ``shard_map``, split over the
-batch axes when serving) run in 8 gloo ranks (``launch.mesh.run_ranks``,
+cuts the k/v heads its q head reads before the attention launch), reduced
+qwen2-moe (E 4: the dispatch's ``shard_map``, split over the batch axes
+when serving), reduced rwkv6-7b (4 heads: one a rank on the ``"test"``
+mesh, the WKV recurrence on each rank's heads and batch) and reduced
+jamba-v0.1-52b (d_inner 512: 128 channels a rank, ``in_proj``'s columns
+exchanged so that each rank holds its x and z channels, the scan on each
+rank's channels; its attention and MoE layers as above) run in 8 gloo
+ranks (``launch.mesh.run_ranks``,
 one spawn: ``tests/_torch_mesh_ranks.py``) on three meshes: one rank
 (1, 1) and four (2, 2) side by side, then the ``"test"`` mesh (2, 4) on
 all eight. Each rank runs both models on each mesh it belongs to and gathers
@@ -28,6 +33,14 @@ gradients and new parameters.
   ``jax.random.key(0)`` and carried across with ``convert.tree_from_jax``):
   the same tolerances.
 * The returned parameters keep ``build_train``'s placements.
+* ``ops.wkv6`` and ``ops.mamba_scan`` on DTensors (the batch over
+  ``data``, the heads or channels over ``model``; B and C whole, so their
+  gradient is the ranks' sum, as u's is over ``data``) against the plain
+  call on the whole inputs: the outputs, the final states and the
+  gradient of every input, bitwise on one rank and within ``TOL`` /
+  ``GRAD_TOL`` on 4 and 8; and, with the state given as its own
+  ``out_state``, the placed state holds the new state and the returned
+  state views its blocks.
 
 Torch runs on one thread, in each rank too.
 """
@@ -46,12 +59,13 @@ import jax.numpy as jnp
 
 from repro_torch import configs, tree
 from repro_torch.convert import tree_from_jax
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_mesh_by_name, run_ranks
 from repro_torch.optim.optimizers import get_optimizer
 
 TOL = 1e-5        # of the scale (max |want|); measured ~1e-6 on 4 and 8 ranks
 GRAD_TOL = 1e-4   # of a gradient leaf's scale, as tests/test_torch_train.py
-ARCHS = ("llama3-8b", "qwen2-moe-a2.7b")
+ARCHS = ("llama3-8b", "qwen2-moe-a2.7b", "rwkv6-7b", "jamba-v0.1-52b")
 # ranks -> (shape, axes, first rank): the one-rank and the 4-rank mesh run
 # side by side, then the "test" mesh on all 8
 MESHES = {1: ((1, 1), ("data", "model"), 4), 4: ((2, 2), ("data", "model"), 0),
@@ -223,3 +237,29 @@ def test_placed_train_step_equals_the_reference(placed, cases, arch):
 def test_returned_parameters_keep_their_placements(placed, arch):
     n, got = placed
     assert all(r[arch]["placed_as_pshard"] for r in got), n
+
+
+@pytest.mark.parametrize("name", ["wkv6", "mamba_scan"])
+def test_placed_kernels_equal_the_plain_call(placed, name):
+    n, got = placed
+    inputs, cots = ranks.kernel_inputs(name)
+    fn = getattr(ops, name)
+    args = [t.clone().requires_grad_(True) for t in inputs]
+    y, state = fn(*args)
+    ((y * cots[0]).sum() + (state * cots[1]).sum()).backward()
+    with torch.no_grad():
+        new = inputs[-1].clone()
+        y2, _ = fn(*inputs[:-1], new, out_state=new)
+    want = {"y": y.detach().numpy(), "state": state.detach().numpy(),
+            "in_place_y": y2.numpy(), "in_place": new.numpy()}
+    grads = [a.grad.numpy() for a in args]
+    for rank, r in enumerate(got):
+        r = r["ops"][name]
+        what = f"{name}, {n} ranks, rank {rank}"
+        for key, w in want.items():
+            _assert_close(r[key], w, TOL, f"{what}, {key}", bitwise=n == 1)
+        if n == 1:
+            _assert_close(r["grads"], grads, 0.0, f"{what}, grads", bitwise=True)
+        else:
+            _assert_grads_close(r["grads"], grads, f"{what}, grads")
+        assert r["aliased"], f"{what}: the returned state does not view the placed state"
