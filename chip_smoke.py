@@ -301,8 +301,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
         parameters and moments bitwise, 8 forward and 4 backward attention
         launches a placed step, the parameters returned as placed; ms;
      c. a CPU tree on the card's mesh refused by ``compat.distribute``;
-     d. the dry runs of llama3-8b ``train_4k``, rwkv6-7b ``train_4k`` and
-        jamba-v0.1-52b ``prefill_32k`` on the ``test`` mesh (8 ranks, per
+     d. the dry runs of llama3-8b ``train_4k``, rwkv6-7b ``train_4k``,
+        jamba-v0.1-52b ``prefill_32k``, whisper-small ``train_4k`` and
+        internvl2-76b ``prefill_32k`` on the ``test`` mesh (8 ranks, per
         device, a fake process group, meta), each equal to this checkout's
         CPU count (``SHARDED_DRYRUN_WANT``);
      e. 9b's prefill (RWKV-6 7B, 32 layers, 4 x 2048, phase 9's weights; run
@@ -318,10 +319,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
         2 steps plain, then placed: losses and gradient norms of each step,
         parameters and moments after the last bitwise, the launches of each
         placed step ``kernel_counts(cfg, 1)``, the parameters returned as
-        placed; ms.
+        placed; ms;
+     h. 14's Whisper-small serve (12 + 12 layers, 1500 frames, bf16; run
+        inside phase 14, on its weights): the placed prefill of 8 x 64
+        tokens and ``SHARDED_DECODE_STEPS`` greedy decode steps against the
+        plain steps: logits (the prefill's also 14's), the ``self`` and
+        ``cross`` caches bitwise, 36 attention launches in the prefill (the
+        encoder's non-causal, the decoder's causal and its cross-attention
+        with Sq != Skv, each on the rank's block), none in decode; then
+        ``build_train`` on the same weights (bf16, remat, AdamW 3e-4, 8 x 64
+        tokens over 1500 frames) as g: 2 steps plain, then 2 placed, bitwise,
+        ``kernel_counts(cfg, 1)`` a placed step (60 ``flash_attention``: the
+        encoder's 12 once, the decoder's 24 twice under remat; 36
+        ``flash_attention_bwd``); ms;
+     i. 14b's 2-layer InternVL2-76B serve (run inside 14b, on its weights):
+        the placed prefill of 4 x (256 image + 256 text) and
+        ``SHARDED_DECODE_STEPS`` decode steps from position 512 against the
+        plain steps, logits and caches bitwise, 2 attention launches in the
+        prefill, none in decode, ms and peak memory with both trees; then
+        the reduced vlm's float32 step (2 layers, 8 image tokens ahead of 64
+        text tokens) as g, plain then placed on the card, bitwise.
 
 Phases 4, 5c, 6c, 7c-e, 8b, 9b, 10b, 11, 12, 13b-e, 14, 14b, 15b-f, 16b,
-17a-b and 17e-g each set the kernels' launch counters (``wkv6_bwd`` and
+17a-b and 17e-i each set the kernels' launch counters (``wkv6_bwd`` and
 ``mamba_scan_bwd`` among them) to 0 just before the run they check and read
 them just after.
 
@@ -417,6 +437,10 @@ WHISPER_E2E_LAYERS, WHISPER_E2E_BATCH, WHISPER_E2E_STEPS = 2, 2, 4
 # ahead of a 256-token text prompt
 VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN = "internvl2-76b", 2, 4, 256, 32
 VLM_IMAGE_TOKENS = 256  # the config's num_image_tokens; 14b checks it
+# 17i: the reduced vlm's placed train step, this many text tokens after its
+# image embeddings (a full-width 2-layer step with float32 moments would hold
+# ~46 GB a tree)
+VLM_TRAIN_SEQ = 64
 # phase 16: the dry run's pairs (the reference's own dry-run test's), and the
 # twins of the root examples with the arguments that keep them small
 DRYRUN_PAIRS = [("llama3-8b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
@@ -454,6 +478,20 @@ SHARDED_DRYRUN_WANT = {
         "all-gather": (0, 0),
         "reduce-scatter": (0, 0),
         "all-to-all": (120259084288, 28),
+        "collective-permute": (0, 0),
+    }),
+    ("whisper-small", "train_4k", "test"): (380558587840640, 7727978090560, 5596, {
+        "all-reduce": (125764425228, 422),
+        "all-gather": (3171294720, 551),
+        "reduce-scatter": (113664, 148),
+        "all-to-all": (0, 0),
+        "collective-permute": (0, 0),
+    }),
+    ("internvl2-76b", "prefill_32k", "test"): (23578365639313408, 51013373593600, 6662, {
+        "all-reduce": (1382912360448, 161),
+        "all-gather": (0, 0),
+        "reduce-scatter": (0, 0),
+        "all-to-all": (0, 0),
         "collective-permute": (0, 0),
     }),
 }
@@ -1012,19 +1050,21 @@ def torch_equal(x, y) -> bool:
     return x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
 
 
-def sharded_serve_phase(dev, tag, model, params, tokens, max_len: int, want_logits,
+def sharded_serve_phase(dev, tag, model, params, batch, start: int, max_len: int, want_logits,
                         want_prefill: dict, want_step: dict, refuse: bool = False) -> None:
-    """Phases 17a (with 17c), 17e and 17f: ``build_prefill`` and
-    ``SHARDED_DECODE_STEPS`` greedy ``build_decode`` steps on a serve's
-    model and weights, the trees placed by the steps' shardings
-    (``compat.distribute``) on ``host_mesh()`` in a one-rank NCCL group,
-    against the same steps on the plain trees: the logits of the prefill
-    (also the serve's own, ``want_logits``) and of every step and the
-    caches (K/V, or the recurrent states the kernels write in place)
-    bitwise, the prefill's launches ``want_prefill`` and each step's
-    ``want_step`` (every other kernel 0); the placed and the plain steps'
-    warm ms (DTensor's host cost) and the peak memory with both trees on
-    the card. 17c (``refuse``): a CPU tree on that mesh is refused."""
+    """Phases 17a (with 17c), 17e, 17f, 17h and 17i: ``build_prefill`` of a
+    serve's ``batch`` (the tokens and the family's other inputs) and
+    ``SHARDED_DECODE_STEPS`` greedy ``build_decode`` steps from position
+    ``start`` on the serve's model and weights, the trees placed by the
+    steps' shardings (``compat.distribute``) on ``host_mesh()`` in a
+    one-rank NCCL group, against the same steps on the plain trees: the
+    logits of the prefill (also the serve's own, ``want_logits``) and of
+    every step and the caches (K/V, Whisper's cross-attention K/V, or the
+    recurrent states the kernels write in place) bitwise, the prefill's
+    launches ``want_prefill`` and each step's ``want_step`` (every other
+    kernel 0); the placed and the plain steps' warm ms (DTensor's host
+    cost) and the peak memory with both trees on the card. 17c
+    (``refuse``): a CPU tree on that mesh is refused."""
     import torch
 
     from repro_torch import compat
@@ -1035,10 +1075,10 @@ def sharded_serve_phase(dev, tag, model, params, tokens, max_len: int, want_logi
     cfg = model.cfg
     t_phase = time.perf_counter()
     with one_rank_nccl() as mesh:
-        shape = InputShape(tag, max_len, tokens.shape[0], "prefill")
+        b = batch["tokens"].shape[0]
+        shape = InputShape(tag, max_len, b, "prefill")
         prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
         decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
-        batch = {"tokens": tokens}
         placed = compat.distribute(params, pshard, mesh)
         pbatch = compat.distribute(batch, batch_sh(batch), mesh)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1062,11 +1102,14 @@ def sharded_serve_phase(dev, tag, model, params, tokens, max_len: int, want_logi
                 and torch_equal(compat.gather(logits), want_logits),
                 f"{tag}: the placed prefill's logits differ from the plain step's or the "
                 "serve's")
-        require(trees_equal(cache, u_cache), f"{tag}: the placed prefill's cache differs")
+        parts = list(cache)                 # a decoder's prefix/blocks, Whisper's self/cross
+        for part in parts:
+            require(trees_equal(cache[part], u_cache[part]),
+                    f"{tag}: the placed prefill's {part} cache differs")
         tok = torch.argmax(u_logits[:, -1:], dim=-1)
         dec_ms = {"plain": [], "placed": []}
         for i in range(SHARDED_DECODE_STEPS):
-            pos = tokens.shape[1] + i
+            pos = start + i
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             u_step, u_cache = decode(params, u_cache, tok, pos)
@@ -1103,9 +1146,10 @@ def sharded_serve_phase(dev, tag, model, params, tokens, max_len: int, want_logi
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"{tag} sharded serve {cfg.name}, {cfg.num_layers} layers, on host_mesh() "
-          f"({dict(mesh.shape)}, one-rank nccl; {card}): placed prefill "
-          f"{tokens.shape[0]}x{tokens.shape[1]} bitwise the plain step's and the serve's, "
-          f"caches bitwise, launches {want_prefill}; {SHARDED_DECODE_STEPS} decode steps "
+          f"({dict(mesh.shape)}, one-rank nccl; {card}): placed prefill of "
+          f"{ {k: tuple(v.shape) for k, v in batch.items()} } bitwise the plain step's and the "
+          f"serve's, caches ({', '.join(parts)}) bitwise, launches {want_prefill}; "
+          f"{SHARDED_DECODE_STEPS} decode steps from position {start} "
           f"bitwise, launches a step {want_step}; warm ms: prefill placed {placed_ms:.1f} vs plain "
           f"{plain_ms:.1f}, decode step placed {warm['placed']:.2f} vs plain "
           f"{warm['plain']:.2f} (host clock); peak memory {peak_gb:.2f} GB with both trees")
@@ -1181,24 +1225,46 @@ def sharded_train_phase(dev, cfg, host_weights, want) -> None:
           f"first-call work); {time.perf_counter() - t_phase:.1f} s")
 
 
-def sharded_ssm_train_phase(dev, arch, cfg, host_weights, want) -> None:
-    """Phase 17g: ``SHARDED_TRAIN_STEPS`` steps of 15e's config
-    (``launch.steps.build_train`` on RWKV-6 or Jamba at full width, depth
-    cut, bf16, remat, AdamW) from ``host_weights``, first on plain trees,
-    then on trees placed by the step's shardings on ``host_mesh()`` in a
-    one-rank NCCL group (the moments made placed, ``compat.placed_zeros``):
-    each step's loss and gradient norm bitwise, the parameters and moments
-    after the last step bitwise, each placed step's launches ``want``
-    (every other kernel 0), the returned parameters placed as
-    ``build_train``'s; the warm ms of both. The plain run's parameters and
-    moments wait on the host: Jamba's two layers with their AdamW moments
-    take ~38 GB, a step's peak ~64 GB, so two trees do not fit the card."""
+def train_batches(dev, cfg, batch: int, seq: int) -> list[dict]:
+    """``SHARDED_TRAIN_STEPS`` training batches of ``batch`` x ``seq`` tokens
+    from ``token_batches`` (seed ``SEED + 1``) on ``dev``, each with the
+    family's other inputs from ``serve.prompt_batch``: Whisper's encoder
+    embeddings, the vlm's image embeddings."""
     import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch import serve
+
+    gen = token_batches(np.random.default_rng(SEED + 1), batch, seq + 1, cfg.vocab_size)
+    out = []
+    for i in range(SHARDED_TRAIN_STEPS):
+        b = {k: torch.as_tensor(a, device=dev).to(torch.int32) for k, a in next(gen).items()}
+        extra = serve.prompt_batch(cfg, batch, seq, SEED + 2 + i, dev)
+        out.append({**b, **{k: v for k, v in extra.items() if k != "tokens"}})
+    return out
+
+
+def sharded_parked_train_phase(dev, arch, cfg, host_weights, want, tag: str = "17g",
+                               batches=None) -> None:
+    """Phases 17g, 17h and 17i: ``SHARDED_TRAIN_STEPS`` steps of
+    ``launch.steps.build_train`` on ``cfg`` (17g: 15e's config, RWKV-6 or
+    Jamba at full width, depth cut, bf16, remat, AdamW; 17h: Whisper-small;
+    17i: the reduced vlm) from ``host_weights`` on ``batches`` (default:
+    ``train_batches`` of TRAIN_BATCH x TRAIN_SEQ tokens), first on plain
+    trees, then on trees placed by the step's shardings on ``host_mesh()``
+    in a one-rank NCCL group (the moments made placed,
+    ``compat.placed_zeros``): each step's loss and gradient norm bitwise,
+    the parameters and moments after the last step bitwise, each placed
+    step's launches ``want`` (every other kernel 0), the returned
+    parameters placed as ``build_train``'s; the warm ms of both. The plain
+    run's parameters and moments wait on the host: Jamba's two layers with
+    their AdamW moments take ~38 GB, a step's peak ~64 GB, so two trees do
+    not fit the card."""
     import torch
     from torch.distributed.tensor import DTensor
 
     from repro_torch import compat, tree
-    from repro_torch.data.pipeline import token_batches
     from repro_torch.launch import steps
     from repro_torch.models.model import Model
     from repro_torch.optim.optimizers import get_optimizer
@@ -1206,10 +1272,9 @@ def sharded_ssm_train_phase(dev, arch, cfg, host_weights, want) -> None:
     t_phase = time.perf_counter()
     model = Model(cfg, device=dev)
     opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
-    gen = token_batches(np.random.default_rng(SEED + 1), TRAIN_BATCH, TRAIN_SEQ + 1,
-                        cfg.vocab_size)
-    batches = [{k: torch.as_tensor(a, device=dev).to(torch.int32) for k, a in next(gen).items()}
-               for _ in range(SHARDED_TRAIN_STEPS)]
+    if batches is None:
+        batches = train_batches(dev, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    shapes = {k: tuple(v.shape) for k, v in batches[0].items()}
     ms = {"plain": [], "placed": []}
     with one_rank_nccl() as mesh:
         step, (pshard, oshard, batch_sh), _, (_, aopt) = steps.build_train(model, mesh)
@@ -1241,25 +1306,26 @@ def sharded_ssm_train_phase(dev, arch, cfg, host_weights, want) -> None:
             ms["placed"].append(1e3 * (time.perf_counter() - t0))
             counts = read_launches()
             require(counts == {**{name: 0 for name in counts}, **want},
-                    f"17g {arch}: step {i}'s placed launches were {counts}, want {want}")
+                    f"{tag} {arch}: step {i}'s placed launches were {counts}, want {want}")
             require(torch_equal(compat.gather(pmet["loss"]), met["loss"])
                     and torch_equal(compat.gather(pmet["grad_norm"]), met["grad_norm"]),
-                    f"17g {arch}: step {i}: placed loss {pmet['loss']} / gradient norm "
+                    f"{tag} {arch}: step {i}: placed loss {pmet['loss']} / gradient norm "
                     f"{pmet['grad_norm']}, plain {met['loss']} / {met['grad_norm']}")
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         require(all(p.placements == tuple(pl) for p, pl in compat.placed_leaves(placed, pshard)),
-                f"17g {arch}: the returned parameters are placed otherwise than build_train's")
+                f"{tag} {arch}: the returned parameters are placed otherwise than build_train's")
         # one rank: each leaf's local block is all of it
-        require(mesh.size == 1, f"17g: {mesh} is not one rank")
+        require(mesh.size == 1, f"{tag}: {mesh} is not one rank")
         for what, got, want_t in (("parameters", placed, want_p), ("moments", pstate, want_s)):
             for (path, w), g in zip(tree.leaves_with_path(want_t), tree.leaves(got)):
                 local = g.to_local() if isinstance(g, DTensor) else g
-                require(torch_equal(local.cpu(), w), f"17g {arch}: the {what} after "
+                require(torch_equal(local.cpu(), w), f"{tag} {arch}: the {what} after "
                         f"{SHARDED_TRAIN_STEPS} steps differ at {tree.path_str(path)}")
         del placed, pstate, want_p, want_s, batches, metrics
     torch.cuda.empty_cache()
-    print(f"17g sharded train {arch} {cfg.num_layers} layers on host_mesh() (one-rank nccl), "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: {SHARDED_TRAIN_STEPS} steps plain, then "
+    print(f"{tag} sharded train {arch} {cfg.num_layers} layers ({cfg.param_dtype}, remat "
+          f"{cfg.remat}) on host_mesh() (one-rank nccl), inputs {shapes}: "
+          f"{SHARDED_TRAIN_STEPS} steps plain, then "
           f"placed: losses and gradient norms of each step, parameters and moments after "
           f"the last bitwise; launches a step {want}; step ms placed "
           f"{[round(x, 1) for x in ms['placed']]} vs plain {[round(x, 1) for x in ms['plain']]}"
@@ -2621,7 +2687,7 @@ def serve_phase(dev) -> tuple[dict, dict, dict]:
         count_phase(dev, "16b prefill", cfg, InputShape("8b", s, b, "prefill"), params,
                     ({"tokens": tokens.to(torch.int32)},), {"flash_attention": cfg.num_layers})
     # -- 17a, 17c. the same prefill and decode placed on a one-rank mesh -------
-    sharded_serve_phase(dev, "17a", model, params, tokens, s + gen, logits,
+    sharded_serve_phase(dev, "17a", model, params, {"tokens": tokens}, s, s + gen, logits,
                         {"flash_attention": cfg.num_layers}, {}, refuse=True)
     del logits
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
@@ -2905,7 +2971,7 @@ def rwkv_phase(dev) -> tuple[dict, dict]:
                 f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     del cache
     # -- 17e. the same prefill and decode placed on a one-rank mesh -------------
-    sharded_serve_phase(dev, "17e", model, params, tokens, s + gen, logits,
+    sharded_serve_phase(dev, "17e", model, params, {"tokens": tokens}, s, s + gen, logits,
                         {"wkv6": cfg.num_layers}, {"wkv6": cfg.num_layers})
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
@@ -3191,7 +3257,7 @@ def jamba_phase(dev) -> tuple[dict, dict]:
                 f"the step loop's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     del cache
     # -- 17f. the same prefill and decode placed on a one-rank mesh -------------
-    sharded_serve_phase(dev, "17f", model, params, tokens, s + gen, logits,
+    sharded_serve_phase(dev, "17f", model, params, {"tokens": tokens}, s, s + gen, logits,
                         {"mamba_scan": n_mamba, "flash_attention": n_attn}, {})
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     agree = float((tokens_out == p_tokens).float().mean().item())
@@ -4188,7 +4254,14 @@ def whisper_phase(dev, enc_row: dict) -> dict:
                 f"plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     agree = float((tokens_out == torch.cat([p_tok, p_rest], dim=1)).float().mean().item())
     n_params = model.param_count()
-    del cache, params, model
+    del cache
+    torch.cuda.empty_cache()
+    # -- 17h: the same serve and a train step placed on a one-rank mesh --------
+    sharded_serve_phase(dev, "17h", model, params, batch, s, s + gen, logits,
+                        {"flash_attention": per_prefill}, {})
+    sharded_parked_train_phase(dev, WHISPER_ARCH, cfg, params, kernel_counts(cfg, 1),
+                               tag="17h", batches=train_batches(dev, cfg, b, s))
+    del params, model
     torch.cuda.empty_cache()
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     print(f"serve {WHISPER_ARCH} ({n_params} params, {cfg.param_dtype}, "
@@ -4245,7 +4318,7 @@ def vlm_phase(dev) -> None:
     attention."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
@@ -4305,8 +4378,19 @@ def vlm_phase(dev) -> None:
                 f"the plain attention's by {err:g} > {SERVE_BF16_TOL} x {scale:g}")
     first = float((tok == p_tok).float().mean().item())
     n_params = model.param_count()
-    del cache, params, model
+    del cache
     torch.cuda.empty_cache()
+    # -- 17i: the same serve placed on a one-rank mesh; the reduced vlm's step -
+    sharded_serve_phase(dev, "17i", model, params, batch, start, start + gen, logits,
+                        {"flash_attention": cfg.num_layers}, {})
+    del params, model
+    torch.cuda.empty_cache()
+    rcfg = get_reduced(VLM_ARCH)
+    require(rcfg.param_dtype == rcfg.compute_dtype == "float32",
+            f"17i: the reduced {VLM_ARCH} is not float32")
+    sharded_parked_train_phase(dev, VLM_ARCH, rcfg, Model(rcfg, device="cpu").init(SEED),
+                               kernel_counts(rcfg, 1), tag="17i",
+                               batches=train_batches(dev, rcfg, VLM_BATCH, VLM_TRAIN_SEQ))
     prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (gen - 1)
     print(f"serve {VLM_ARCH} ({n_params} params, {cfg.param_dtype}, {cfg.num_layers} layers): "
           f"init {init_s:.1f} s; prefill {b}x({cfg.num_image_tokens}+{s}) {prefill_ms:.1f} ms; "
@@ -4923,14 +5007,20 @@ def f32_card_vs_cpu(dev, tag, arch, cfg32, host32, batch, seq, want) -> None:
 def kernel_counts(cfg, steps: int) -> dict:
     """The launches ``steps`` train steps of ``cfg`` make on the card: each
     layer's kernel (attention, WKV-6, the Mamba scan) its forward once, or
-    twice under remat, and its backward once, a step."""
+    twice under remat, and its backward once, a step. An encoder-decoder's
+    decoder layer attends twice (causal self and cross); its encoder
+    layers attend once each and run without remat."""
     kinds = cfg.layer_kinds()
     fwd = 2 if cfg.remat else 1
     out = {}
     for kind, key in (("attn", "flash_attention"), ("rwkv6", "wkv6"), ("mamba", "mamba_scan")):
-        if kinds.count(kind):
-            out[key] = fwd * kinds.count(kind) * steps
-            out[f"{key}_bwd"] = kinds.count(kind) * steps
+        n = kinds.count(kind)
+        if n:
+            enc = 0
+            if cfg.family == "audio":
+                n, enc = 2 * n, cfg.num_encoder_layers
+            out[key] = (fwd * n + enc) * steps
+            out[f"{key}_bwd"] = (n + enc) * steps
     return out
 
 
@@ -5011,8 +5101,8 @@ def train_phase(dev, host_weights, rwkv_weights, jamba_weights) -> list[dict]:
                              kernel_counts(jcfg, SSM_TRAIN_STEPS),
                              jcfg.num_layers * scan_flops, "mamba_scan_bwd_kernel")
     # -- 17g. the same steps placed on a one-rank mesh ----------------------------
-    sharded_ssm_train_phase(dev, RWKV_ARCH, rcfg, rwkv_weights, kernel_counts(rcfg, 1))
-    sharded_ssm_train_phase(dev, JAMBA_ARCH, jcfg, jamba_weights, kernel_counts(jcfg, 1))
+    sharded_parked_train_phase(dev, RWKV_ARCH, rcfg, rwkv_weights, kernel_counts(rcfg, 1))
+    sharded_parked_train_phase(dev, JAMBA_ARCH, jcfg, jamba_weights, kernel_counts(jcfg, 1))
 
     # -- 15f. float32 steps of the reduced configs, card vs CPU ----------------
     for arch in (RWKV_ARCH, JAMBA_ARCH):

@@ -19,18 +19,16 @@ On the one-rank ``cpu`` mesh (the default) the record is the whole step,
 ``multitest`` the dry run checks that the rules partition every leaf of
 the parameters, the optimizer state, the batch and the cache
 (``resolve_spec`` on a ``compat.Mesh`` made without a process group) and
-records the per-device argument bytes of those placements. For the dense,
-MoE, ssm (RWKV-6) and hybrid (Jamba) families (``SHARDED_FAMILIES``) it
-then counts the sharded step per device: in a fake process group of the
-mesh's size (``launch.mesh.fake_group``, which refuses a process that has a
-group already), the ``meta`` trees placed by the step's shardings
-(``compat.distribute``) and the step run once under ``op_cost``'s count,
-which sees this rank's local ops (each kernel at its block's shapes) and
-the collectives: DTensor's, the port's own (Mamba's ``in_proj`` exchange,
-an ``all_to_all``). The vlm and audio families' sharded steps are not
-ported yet: their counts are null (``"not_counted"``). Decode takes a
-concrete ``cache_len`` of ``seq_len - 1``, a full cache (the models read
-it on the host), written into the record.
+records the per-device argument bytes of those placements. For every
+family it then counts the sharded step per device: in a fake process group
+of the mesh's size (``launch.mesh.fake_group``, which refuses a process
+that has a group already), the ``meta`` trees placed by the step's
+shardings (``compat.distribute``) and the step run once under
+``op_cost``'s count, which sees this rank's local ops (each kernel at its
+block's shapes) and the collectives: DTensor's, the port's own (the
+lookups' all-reduce, Mamba's ``in_proj`` exchange, an ``all_to_all``).
+Decode takes a concrete ``cache_len`` of ``seq_len - 1``, a full cache
+(the models read it on the host), written into the record.
 
 ``--device cuda`` builds the weights from seed 0 on the card (cut the
 depth with ``--set num_layers=...`` and the shape with ``--batch`` and
@@ -62,7 +60,7 @@ from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch.mesh import MESH_SPECS, device_count_for, fake_group, make_mesh_by_name
 from repro_torch.launch.steps import build_decode, build_prefill, build_train
-from repro_torch.models.model import SHARDED_FAMILIES, Model
+from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import HW, model_flops_per_step, roofline_terms
@@ -72,7 +70,7 @@ from repro_torch.sharding.rules import (
     TRAIN_RULES,
 )
 
-__all__ = ["RULE_SETS", "SHARDED_FAMILIES", "build_step", "main", "per_device_bytes",
+__all__ = ["RULE_SETS", "build_step", "main", "per_device_bytes",
            "place_inputs", "run_one", "should_skip", "step_inputs"]
 
 RULE_SETS = {
@@ -80,7 +78,6 @@ RULE_SETS = {
     "serve": SERVE_RULES,
     "expert_parallel": EXPERT_PARALLEL_RULES,
 }
-NOT_COUNTED = "the port has no sharded step for this family yet"
 
 
 def should_skip(arch: str, shape_name: str) -> str | None:
@@ -259,31 +256,22 @@ def run_one(arch: str, shape_name: str, mesh_name: str, rules_name: str | None =
         per_dev = _partition(model, shape, mesh, rules)
         memory = {"argument_size_in_bytes": sum(per_dev.values()),
                   "argument_bytes_by_tree": per_dev}
-        if cfg.family not in SHARDED_FAMILIES:
-            record.update({
-                "trace_s": round(time.time() - t0, 2),
-                "flops_per_device": None, "bytes_per_device": None, "collectives": None,
-                "not_counted": NOT_COUNTED, "torch_cost_analysis": None,
-                "memory": memory, "roofline": None, "useful_flops_ratio": None,
-                "aten_ops": None,
-            })
-        else:
-            cost = _count_sharded(model, shape, mesh_name, rules)
-            terms = roofline_terms(cost.flops, cost.bytes, cost.collectives)
-            record.update({
-                "trace_s": round(time.time() - t0, 2),
-                "flops_per_device": cost.flops,
-                "bytes_per_device": cost.bytes,
-                "collectives": cost.collectives,
-                "by_class": cost.by_class,
-                "kernels": cost.kernels,
-                "torch_cost_analysis": None,
-                "memory": memory,
-                "roofline": terms,
-                "link_bw": HW.link_bw,
-                "useful_flops_ratio": (mf / cost.flops) if cost.flops else None,
-                "aten_ops": cost.ops,
-            })
+        cost = _count_sharded(model, shape, mesh_name, rules)
+        terms = roofline_terms(cost.flops, cost.bytes, cost.collectives)
+        record.update({
+            "trace_s": round(time.time() - t0, 2),
+            "flops_per_device": cost.flops,
+            "bytes_per_device": cost.bytes,
+            "collectives": cost.collectives,
+            "by_class": cost.by_class,
+            "kernels": cost.kernels,
+            "torch_cost_analysis": None,
+            "memory": memory,
+            "roofline": terms,
+            "link_bw": HW.link_bw,
+            "useful_flops_ratio": (mf / cost.flops) if cost.flops else None,
+            "aten_ops": cost.ops,
+        })
     else:
         step = build_step(model, shape, mesh, rules)
         args, params = step_inputs(model, shape, dev)
@@ -336,23 +324,18 @@ def run_one(arch: str, shape_name: str, mesh_name: str, rules_name: str | None =
     path.write_text(json.dumps(record, indent=1))
 
     if verbose:
-        if record["flops_per_device"] is None:
-            print(f"[dryrun] {arch:18s} {shape_name:12s} {mesh_name:9s} {rules_name:15s} "
-                  f"partition ok, {record['memory']['argument_size_in_bytes']:.3e} argument "
-                  f"bytes/dev; not counted: {NOT_COUNTED}", flush=True)
-        else:
-            r = record["roofline"]
-            print(
-                f"[dryrun] {arch:18s} {shape_name:12s} {mesh_name:9s} {rules_name:15s} "
-                f"trace={record['trace_s']:6.1f}s flops/dev={record['flops_per_device']:.3e} "
-                f"bytes/dev={record['bytes_per_device']:.3e} "
-                f"coll={r['collective_bytes']:.3e}B dom={r['dominant']:10s} "
-                f"comp={r['compute_s']*1e3:.2f}ms mem={r['memory_s']*1e3:.2f}ms "
-                f"coll={r['collective_s']*1e3:.2f}ms"
-                + (f" measured={record['measured_ms']:.1f}ms "
-                   f"share={record['share_of_bound']:.3f}" if "measured_ms" in record else ""),
-                flush=True,
-            )
+        r = record["roofline"]
+        print(
+            f"[dryrun] {arch:18s} {shape_name:12s} {mesh_name:9s} {rules_name:15s} "
+            f"trace={record['trace_s']:6.1f}s flops/dev={record['flops_per_device']:.3e} "
+            f"bytes/dev={record['bytes_per_device']:.3e} "
+            f"coll={r['collective_bytes']:.3e}B dom={r['dominant']:10s} "
+            f"comp={r['compute_s']*1e3:.2f}ms mem={r['memory_s']*1e3:.2f}ms "
+            f"coll={r['collective_s']*1e3:.2f}ms"
+            + (f" measured={record['measured_ms']:.1f}ms "
+               f"share={record['share_of_bound']:.3f}" if "measured_ms" in record else ""),
+            flush=True,
+        )
     return record
 
 

@@ -22,9 +22,13 @@ reference's ``jax.jit(step, in_shardings=...)``::
     batch = compat.distribute(batch, batch_sh(batch), mesh)
     params, opt_state, metrics = step(params, opt_state, batch)
 
-and the step runs on DTensors: each op carries its placements, as GSPMD
-does, with DTensor inserting the collectives; attention's kernel runs on
-each rank's block (``kernels.ops``). What comes out is placed too: the
+and the step runs on DTensors, for every family (dense, MoE, RWKV-6,
+Jamba, the vlm and the encoder-decoder): each op carries its placements,
+as GSPMD does, with DTensor inserting the collectives; attention's, the
+WKV-6 and the Mamba scan's kernels run on each rank's block
+(``kernels.ops``). ``build_prefill`` allocates the prefill's cache placed,
+each rank its block (the encoder-decoder's cross-attention K/V among
+it). What comes out is placed too: the
 parameters and moments as they went in, the metrics replicated
 (``compat.gather`` makes any of it whole). On a mesh without a process
 group (``compat.Mesh``'s ``device_mesh`` is None, the ``"cpu"`` mesh)

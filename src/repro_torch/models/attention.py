@@ -156,7 +156,7 @@ def apply(
     if kv_override is not None:
         q = _project_q(cfg, p, x)
         k, v = kv_override
-        out = decode_attention(q, k, v, k.shape[1])
+        out = decode_attention(_grouped_heads(q, k.shape[2]), k, v, k.shape[1])
         return einsum("bshe,hed->bsd", out, p["wo"].to(cd)), cache
     if cache is None:
         raise ValueError("decode needs a cache")

@@ -133,6 +133,12 @@ def _placed_lookup(table, tokens):
         out_specs=P(*tspec, None), out_partial=vocab)(tokens, table))
 
 
+def _lookup(table, index):
+    """The rows of ``index`` in ``table``; placed, on each rank's block
+    (``_placed_lookup``)."""
+    return _placed_lookup(table, index) if isinstance(table, DTensor) else table[index]
+
+
 def _check_layer(kind: str) -> None:
     if kind not in ("attn", "mamba", "rwkv6"):
         raise NotImplementedError(f"{kind!r} is not a mixer the port runs")
@@ -320,12 +326,7 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None, mode: str = "p
                                   "(train, prefill, decode)")
     lay = layout_for(cfg)
     cd = cfg.cdtype()
-    if embeds is not None:
-        x = embeds.to(cd)
-    elif isinstance(params["embed"], DTensor):
-        x = _placed_lookup(params["embed"], tokens).to(cd)
-    else:
-        x = params["embed"][tokens].to(cd)
+    x = embeds.to(cd) if embeds is not None else _lookup(params["embed"], tokens).to(cd)
     b, s, _ = x.shape
     dev = x.device
 

@@ -20,21 +20,35 @@ The reference stacks each layer's params over the layers and scans; the
 port keeps that tree layout (a leading layer axis on every leaf of
 ``params["encoder"]["layers"]``, ``params["decoder"]["layers"]`` and the
 caches) and loops over views of it. A prefill allocates each stacked cache
-once and every layer writes its slice; a decode step updates the
-self-attention slices in place. In training (mode ``"train"``) each
-decoder layer, its cross-attention K/V projection included, runs under
-``torch.utils.checkpoint`` when ``cfg.remat``, as the reference's
-``jax.checkpoint`` of its scan body; the encoder runs without.
+once (or writes the one it is given) and every layer writes its slice; a
+decode step updates the self-attention slices in place. In training (mode
+``"train"``) each decoder layer, its cross-attention K/V projection
+included, runs under ``torch.utils.checkpoint`` when ``cfg.remat``, as the
+reference's ``jax.checkpoint`` of its scan body; the encoder runs without.
+
+Placed (a sharded step, the trees DTensors placed by ``launch.steps``'
+shardings), every product goes through ``compat.einsum``, the token and
+position lookups through ``decoder._placed_lookup``, and each block's
+row-parallel output is reduced over ``model`` once before the residual add
+(``decoder._summed``), as in the decoder trunk. Attention's kernel runs on
+each rank's block (``kernels.ops``): the heads over ``model`` where they
+divide it, the batch over the batch axes. The cross-attention K/V are made
+placed as the cross cache is (the batch over the batch axes, ``kv_heads``
+over ``model`` where they divide), so the prefill writes each rank's block
+of a placed cache in place; a placed prefill takes its cache from the
+caller (``launch.steps.build_prefill`` makes one).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, ffn
-from repro_torch.models.decoder import _index, _stack, _unstack, _zeros
+from repro_torch.models.decoder import _index, _lookup, _stack, _summed, _unstack, _zeros
 from repro_torch.models.layers import layer_norm
 from repro_torch.models.params import ParamSpec
 
@@ -118,22 +132,25 @@ def encode(params, cfg: ArchConfig, encoder_embeds):
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         y, _ = attention.apply(cfg, lp["attn"], h, positions=positions, mode="train",
                                causal=False, use_rope=False)
-        x = x + y
+        x = x + _summed(y)
         h = _ln(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn.dense_apply(cfg, lp["mlp"], h)
+        x = x + _summed(ffn.dense_apply(cfg, lp["mlp"], h))
     return _ln(x, params["encoder"]["ln_post"], cfg.norm_eps)
 
 
 def _cross_kv(cfg: ArchConfig, lp, enc_out, out=None):
     """The cross-attention's K and V (B, S_enc, KV, hd) of the encoder's
-    output; written into ``out`` (a pair of tensors) when given."""
+    output; written into ``out`` (a pair of tensors) when given. Placed,
+    the products split the batch as the encoder's output is and the k/v
+    heads as ``wk``/``wv`` are, which is the cross cache's placement: each
+    rank writes its block of ``out`` (the copy moves nothing)."""
     cd = cfg.cdtype()
-    k = torch.einsum("bsd,dke->bske", enc_out, lp["cross_attn"]["wk"].to(cd))
-    v = torch.einsum("bsd,dke->bske", enc_out, lp["cross_attn"]["wv"].to(cd))
+    k = compat.einsum("bsd,dke->bske", enc_out, lp["cross_attn"]["wk"].to(cd))
+    v = compat.einsum("bsd,dke->bske", enc_out, lp["cross_attn"]["wv"].to(cd))
     if out is None:
         return k.contiguous(), v.contiguous()
-    out[0].copy_(k)
-    out[1].copy_(v)
+    out[0].copy_(compat.placed_for(k, out[0]))
+    out[1].copy_(compat.placed_for(v, out[1]))
     return out
 
 
@@ -145,14 +162,14 @@ def _dec_layer(cfg: ArchConfig, lp, x, positions, kv, *, mode: str, self_c=None,
     y, _ = attention.apply(cfg, lp["self_attn"], h, positions=positions, mode=mode,
                            cache=self_c, cache_len=cache_len, causal=True, use_rope=False,
                            max_len=max_len)
-    x = x + y
+    x = x + _summed(y)
     h = _ln(x, lp["ln_cross"], cfg.norm_eps)
     y, _ = attention.apply(cfg, lp["cross_attn"], h, positions=positions,
                            mode="decode" if mode == "decode" else "train",
                            cache_len=cache_len, kv_override=kv, use_rope=False)
-    x = x + y
+    x = x + _summed(y)
     h = _ln(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn.dense_apply(cfg, lp["mlp"], h)
+    return x + _summed(ffn.dense_apply(cfg, lp["mlp"], h))
 
 
 def _train_layer(cfg: ArchConfig, lp, x, positions, enc_out):
@@ -176,10 +193,13 @@ def forward(
     """train: (hidden states after the decoder's final LayerNorm, aux).
     prefill: (logits of the last position, cache, aux), the cache holding
     ``max(max_len, S)`` self-attention positions and the cross-attention
-    K/V. decode: tokens (B, 1) at position ``cache_len``; (logits, cache),
-    the cache updated in place. ``aux`` is 0 (there is no MoE). Train and
-    prefill encode ``encoder_embeds`` unless ``enc_out`` is given; decode
-    attends to the cached cross-attention K/V, not the encoder."""
+    K/V; given ``cache`` (zeros of ``init_cache_specs``' tree, placed by
+    ``launch.steps.build_prefill`` on a mesh) it writes there, and placed
+    parameters need one. decode: tokens (B, 1) at position ``cache_len``;
+    (logits, cache), the cache updated in place. ``aux`` is 0 (there is no
+    MoE). Train and prefill encode ``encoder_embeds`` unless ``enc_out`` is
+    given; decode attends to the cached cross-attention K/V, not the
+    encoder."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     cd = cfg.cdtype()
@@ -193,8 +213,12 @@ def forward(
         if enc_out is None:
             enc_out = encode(params, cfg, encoder_embeds)
         positions = _positions(b, s, dev)
-    x = params["embed"][tokens].to(cd) + params["pos_embed"][positions].to(cd)
-    if mode == "prefill":
+    x = _lookup(params["embed"], tokens).to(cd)
+    x = x + compat.placed_for(_lookup(params["pos_embed"], positions).to(cd), x)
+    if mode == "prefill" and cache is None:
+        if isinstance(x, DTensor):
+            raise ValueError("a placed prefill writes into a placed cache: pass cache= "
+                             "(launch.steps.build_prefill does)")
         cache = _zeros(init_cache_specs(cfg, b, max(max_len or s, s)), dev)
 
     if mode == "train":
@@ -222,9 +246,9 @@ def forward(
     if mode == "train":
         return x, torch.zeros((), dtype=torch.float32, device=dev)
     if mode == "prefill":
-        logits = torch.einsum("bsd,vd->bsv", x[:, -1:], embed)
+        logits = compat.einsum("bsd,vd->bsv", x[:, -1:], embed)
         return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
-    return torch.einsum("bsd,vd->bsv", x, embed), cache
+    return compat.einsum("bsd,vd->bsv", x, embed), cache
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, cache_len):

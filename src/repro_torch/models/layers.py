@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.compat import einsum
 
 __all__ = [
@@ -39,11 +40,26 @@ def rms_norm(x, weight, eps: float = 1e-5):
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
-    x32 = x.to(torch.float32)
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    out = (x32 - mu) * torch.rsqrt(var + eps)
-    return (out * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    """LayerNorm over the last dimension (biased variance). Placed, the
+    statistics are taken on each rank's block of rows (``compat.on_blocks``:
+    not every torch release has DTensor rules for ``var``) and the weight
+    and bias are placed as the rows are (an FSDP split of d gathered).
+    The norm reads its input through one node (a cast, or a view of a
+    float32 input), so that the gradients of its three reads are summed
+    before a residual's joins them, placed or not, and the two give the
+    same bits."""
+
+    def normed(x):
+        x32 = x.to(torch.float32)
+        if x32 is x:
+            x32 = x.view_as(x)
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        return (x32 - mu) * torch.rsqrt(var + eps)
+
+    out = compat.on_blocks(normed, x)
+    w, b = (compat.placed_for(t, out).to(torch.float32) for t in (weight, bias))
+    return (out * w + b).to(x.dtype)
 
 
 def rope(x, positions, theta: float = 500000.0):
@@ -184,7 +200,12 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
-    """GELU MLP with the tanh approximation (``jax.nn.gelu``'s default)."""
-    h = einsum("...d,df->...f", x, w_in.to(x.dtype)) + b_in.to(x.dtype)
-    h = F.gelu(h, approximate="tanh")
-    return einsum("...f,fd->...d", h, w_out.to(x.dtype)) + b_out.to(x.dtype)
+    """GELU MLP with the tanh approximation (``jax.nn.gelu``'s default).
+    Placed, column-parallel then row-parallel: the hidden width split over
+    ``model`` as ``w_in``'s columns and ``b_in`` are, the output's
+    ``Partial`` sum reduced once before ``b_out`` is added (a bias added to
+    each rank's term would count once a rank)."""
+    h = einsum("...d,df->...f", x, w_in.to(x.dtype))
+    h = F.gelu(h + compat.placed_for(b_in, h).to(x.dtype), approximate="tanh")
+    y = compat.replicate_partial(einsum("...f,fd->...d", h, w_out.to(x.dtype)))
+    return y + compat.placed_for(b_out, y).to(x.dtype)

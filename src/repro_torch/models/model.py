@@ -15,8 +15,9 @@ Batches (tokens int (B, S) tensors on the model's device; training adds
   vlm:   {tokens (B, S_text), image_embeds (B, N_img, d)}: the image
          embeddings (the stubbed vision encoder's output) go ahead of the
          text, so decode starts at position N_img + S_text
-  audio: {tokens (B, S), encoder_embeds (B, S_enc, d)} (``models.encdec``) On the card the
-prefill's attention runs the hand-written CUDA kernel
+  audio: {tokens (B, S), encoder_embeds (B, S_enc, d)} (``models.encdec``)
+
+On the card the prefill's attention runs the hand-written CUDA kernel
 (``kernels/flash_attention.py``), RWKV-6's recurrence runs its kernel
 (``kernels/wkv6.py``) in prefill and decode, and the Mamba scan its kernel
 (``kernels/mamba_scan.py``) in the prefill, which is what the reference's
@@ -30,20 +31,21 @@ attention's (``kernels.flash_attention.FlashAttention``), the WKV-6
 recurrence's (``kernels.wkv6.WKV6``) and the Mamba scan's
 (``kernels.mamba_scan.MambaScan``).
 
-``prefill``, ``decode`` and ``loss`` of the dense, MoE, ssm (RWKV-6) and
-hybrid (Jamba) families (``SHARDED_FAMILIES``) also take trees placed on a
-mesh as DTensors (by ``launch.steps``' shardings, ``compat.distribute``;
-``Model.init`` draws the same on every rank, which keeps its block): the
-step's ops carry the placements, and attention's, the WKV-6 and the Mamba
-scan's kernels, forward and backward, run on each rank's block (the heads,
-or d_inner's channels, over ``model``; the batch over ``pod``/``data``),
-writing a placed cache's states in place. The vlm and audio families
-refuse placed trees.
+``prefill``, ``decode`` and ``loss`` of every family also take trees
+placed on a mesh as DTensors (by ``launch.steps``' shardings,
+``compat.distribute``; ``Model.init`` draws the same on every rank, which
+keeps its block): the step's ops carry the placements, and attention's,
+the WKV-6 and the Mamba scan's kernels, forward and backward, run on each
+rank's block (the heads, or d_inner's channels, over ``model``; the batch
+over ``pod``/``data``), writing a placed cache's states in place: the
+encoder-decoder's cross-attention K/V too. The vlm's image embeddings go
+ahead of its text's placed lookup on each rank's block of the batch.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import compat, resolve_device
 from repro_torch.configs.base import ArchConfig, InputShape
@@ -55,18 +57,7 @@ from repro_torch.models.params import (
     param_count,
 )
 
-__all__ = ["Model", "SHARDED_FAMILIES"]
-
-
-# the families whose steps run on placed trees (DTensors); the others'
-# sharded steps are still to port
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _refuse_placed(cfg: ArchConfig, params) -> None:
-    if cfg.family not in SHARDED_FAMILIES and compat.is_placed(params):
-        raise NotImplementedError(f"the {cfg.family} family has no sharded step yet: pass "
-                                  "plain tensors")
+__all__ = ["Model"]
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -120,19 +111,28 @@ class Model:
     # -- serving -------------------------------------------------------------
     def _embeds(self, params, batch):
         """The vlm's input embeddings: the image embeddings, then the text's
-        token embeddings; None for the other families."""
+        token embeddings; None for the other families. Placed, the text's
+        lookup runs on each rank's block (``decoder._placed_lookup``) and
+        the two are joined along the sequence, which no rule splits, on
+        each rank's block of the batch, placed as the image embeddings."""
         if self.cfg.family != "vlm":
             return None
         cd = self.cfg.cdtype()
-        tok = params["embed"][batch["tokens"]].to(cd)
-        return torch.cat([batch["image_embeds"].to(cd), tok], dim=1)
+        image = batch["image_embeds"].to(cd)
+        tok = decoder._lookup(params["embed"], batch["tokens"]).to(cd)
+        if not isinstance(tok, DTensor):
+            return torch.cat([image, tok], dim=1)
+        like = image if isinstance(image, DTensor) else tok
+        spec = compat.spec_of(like)
+        return compat.shard_map(lambda a, b: torch.cat([a, b], dim=1),
+                                mesh=compat.mesh_of(like), in_specs=(spec, spec),
+                                out_specs=spec)(image, tok)
 
     def loss(self, params, batch):
         """The mean next-token cross entropy of ``batch["labels"]`` (float32,
         0-d), plus ``MOE_AUX_WEIGHT`` times the load-balance loss for an
         MoE model; the vlm's image positions carry no loss."""
         cfg = self.cfg
-        _refuse_placed(self.cfg, params)
         with compat.placed_ops(params):
             if cfg.family == "audio":
                 hidden, _ = encdec.forward(params, cfg, tokens=batch["tokens"],
@@ -155,12 +155,11 @@ class Model:
         writes there: placed parameters take a placed cache
         (``launch.steps.build_prefill`` makes one)."""
         cfg = self.cfg
-        _refuse_placed(self.cfg, params)
         with compat.placed_ops(params):
             if cfg.family == "audio":
                 return encdec.forward(params, cfg, tokens=batch["tokens"],
                                       encoder_embeds=batch["encoder_embeds"], mode="prefill",
-                                      max_len=max_len)
+                                      max_len=max_len, cache=cache)
             embeds = self._embeds(params, batch)
             return decoder.forward(params, cfg, tokens=None if embeds is not None
                                    else batch["tokens"], embeds=embeds, mode="prefill",
@@ -168,7 +167,6 @@ class Model:
 
     def decode(self, params, cache, token, cache_len, extras=None):
         """token (B, 1) at position ``cache_len``; returns (logits, cache)."""
-        _refuse_placed(self.cfg, params)
         with compat.placed_ops(params):
             if self.cfg.family == "audio":
                 return encdec.decode_step(params, self.cfg, cache, token, cache_len)

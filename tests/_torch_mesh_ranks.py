@@ -98,8 +98,10 @@ def serve_and_train(mesh, arch: str, params_np, case: dict) -> dict:
     ``arch`` from the numpy weights ``params_np`` on ``mesh`` (a mesh
     without a process group: the plain step), the trees placed by the
     steps' shardings (``compat.distribute``). ``case`` holds the prompt
-    (B, S), the decode tokens (each (B, 1)), ``max_len`` and the training
-    batch. Returns every output gathered whole, as numpy: the prefill's
+    (B, S), the family's other inputs (``inputs``: the encoder's or the
+    image embeddings, or none), the decode tokens (each (B, 1)) and the
+    position of the first (``start``), ``max_len`` and the training batch.
+    Returns every output gathered whole, as numpy: the prefill's
     logits and cache, each decode step's logits and the cache after them,
     the step's loss, gradient norm, raw and clipped gradients and new
     parameters, and whether each returned parameter kept its placements."""
@@ -110,14 +112,15 @@ def serve_and_train(mesh, arch: str, params_np, case: dict) -> dict:
     prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
     decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
     params = compat.distribute(tree_from_jax(params_np, "cpu"), pshard, mesh)
-    batch = {"tokens": torch.as_tensor(case["prompt"])}
+    batch = {k: torch.as_tensor(v) for k, v in {"tokens": case["prompt"],
+                                                 **case["inputs"]}.items()}
     logits, cache, _ = prefill(params, compat.distribute(batch, batch_sh(batch), mesh))
     out["prefill"] = compat.gather(logits).numpy()
     out["prefill_cache"] = tree_to_numpy(compat.gather(cache))
     out["decode"] = []
     for i, tok in enumerate(case["decode"]):
         tok = compat.distribute(torch.as_tensor(tok), tshard, mesh)
-        logits, cache = decode(params, cache, tok, case["prompt"].shape[1] + i)
+        logits, cache = decode(params, cache, tok, case["start"] + i)
         out["decode"].append(compat.gather(logits).numpy())
     out["decode_cache"] = tree_to_numpy(compat.gather(cache))
 

@@ -1562,6 +1562,66 @@ def test_fleet_engine_on_a_one_rank_nccl_mesh_is_bitwise(dev):
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
+def test_placed_encdec_and_vlm_prefill_on_a_one_rank_nccl_mesh_is_bitwise(dev, arch):
+    """Whisper at full width cut to 2 + 2 layers (bf16, as published) and
+    the reduced InternVL2: ``build_prefill`` and two ``build_decode`` steps
+    on trees placed by the steps' shardings on ``host_mesh()`` in a
+    one-rank NCCL group give the plain trees' logits and caches (Whisper's
+    cross-attention K/V among them) bit for bit, with the prefill's
+    attention launches on the rank's block (one an encoder layer, two a
+    decoder layer) and none in decode."""
+    import torch.distributed as dist
+
+    from repro_torch import compat, tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import host_mesh
+
+    if arch == "whisper-small":
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, num_encoder_layers=2)
+        launches = cfg.num_encoder_layers + 2 * cfg.num_layers
+    else:
+        cfg = get_reduced(arch)
+        launches = cfg.num_layers
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    batch = serve.prompt_batch(cfg, 2, 16, 0, dev)
+    start = serve.start_position(cfg, batch)
+    shape = InputShape("p", start + 4, 2, "prefill")
+
+    def run(mesh, params, batch):
+        prefill, (pshard, batch_sh), _ = steps.build_prefill(model, mesh, shape)
+        decode, (_, _, tshard, _), _ = steps.build_decode(model, mesh, shape)
+        params = compat.distribute(params, pshard, mesh)
+        flash_attention.launches = 0
+        logits, cache, _ = prefill(params, compat.distribute(batch, batch_sh(batch), mesh))
+        counted = flash_attention.launches
+        out = [compat.gather(logits)]
+        for i in range(2):
+            tok = torch.argmax(out[-1][:, -1:], dim=-1)
+            logits, cache = decode(params, cache, compat.distribute(tok, tshard, mesh),
+                                   start + i)
+            out.append(compat.gather(logits))
+        return out, compat.gather(cache), (counted, flash_attention.launches)
+
+    want, want_cache, want_n = run(host_mesh(), params, batch)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = host_mesh()
+        assert mesh.device_mesh is not None and mesh.device_type == "cuda"
+        got, got_cache, got_n = run(mesh, params, batch)
+    finally:
+        dist.destroy_process_group()
+    assert got_n == want_n == (launches, launches)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(tree.leaves(got_cache), tree.leaves(want_cache)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
 def test_encdec_and_vlm_serves_on_the_card_match_the_cpu(dev, arch):
     """Whisper at full width cut to 2 + 2 layers (the reduced config's head
     dim, 32, is not one the attention kernel takes) and the reduced

@@ -10,16 +10,17 @@
   pair, its ``model_flops_per_chip`` bitwise the reference's, and the
   reference's four dry-run pairs count what they counted before the
   sharded step came (``CPU_COUNTS``, read from the parent tree's code).
-* ``--mesh test`` checks the partition; for the dense, MoE, ssm (RWKV-6)
-  and hybrid (Jamba) families it counts the sharded step per device in a
-  fake process group (the FLOPs times the ranks at least the one-rank
-  count: replication only adds), each layer's kernel counted once on the
-  rank's block; the vlm and audio families' counts are null. A one-layer
-  prefill on a model-only mesh (attention, RWKV-6, Mamba) has exactly the
-  collectives counted by hand.
+* ``--mesh test`` checks the partition and, for every family, counts the
+  sharded step per device in a fake process group (the FLOPs times the
+  ranks at least the one-rank count: replication only adds), each
+  attention's kernel counted once on the rank's block. A one-layer
+  prefill on a model-only mesh (attention, RWKV-6, Mamba, one Whisper
+  encoder and decoder layer, the vlm's image and text embeddings) has
+  exactly the collectives counted by hand.
 * A DTensor that reaches a kernel's dispatch outside ``compat.shard_map``
   raises (``swiglu_fused``'s, say); ``wkv6`` and ``mamba_scan`` take
-  DTensors only all together.
+  DTensors only all together. The placed reduced-Whisper prefill on one
+  gloo rank equals the plain one, bit for bit.
 """
 
 from __future__ import annotations
@@ -162,37 +163,46 @@ def test_one_rank_records_keep_their_counts(reduced_dryrun, tmp_path, arch, shap
             rec["aten_ops"]) == CPU_COUNTS[arch, shape]
 
 
+def _attentions(cfg) -> int:
+    """Attention launches of a prefill (a forward): one an attention layer;
+    Whisper's encoder layers one each, its decoder layers two (causal self
+    and cross)."""
+    if cfg.family == "audio":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return cfg.layer_kinds().count("attn")
+
+
 @pytest.mark.parametrize("arch,shape", [("llama3-8b", "train_4k"),
                                         ("deepseek-moe-16b", "decode_32k"),
                                         ("rwkv6-7b", "long_500k"),
                                         ("jamba-v0.1-52b", "prefill_32k"),
-                                        ("whisper-small", "prefill_32k")])
+                                        ("whisper-small", "prefill_32k"),
+                                        ("internvl2-76b", "train_4k")])
 def test_dryrun_on_a_sharded_mesh_checks_the_partition(reduced_dryrun, tmp_path, arch, shape):
     rec = dryrun.run_one(arch, shape, "test", out_dir=str(tmp_path), verbose=False)
     assert (tmp_path / f"{arch}__{shape}__test.json").is_file()
     assert rec["n_chips"] == 8
-    if get_reduced(arch).family in dryrun.SHARDED_FAMILIES:
-        one = dryrun.run_one(arch, shape, "cpu", out_dir=str(tmp_path), verbose=False)
-        assert "not_counted" not in rec
-        assert 8 * rec["flops_per_device"] >= one["flops_per_device"] > 0
-        assert rec["bytes_per_device"] > 0 and rec["roofline"]["collective_s"] > 0
-        assert sum(v["count"] for v in rec["collectives"].values()) > 0
-        # each layer's kernel once, on the rank's block, as on one rank
-        kinds = get_reduced(arch).layer_kinds()
-        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
-        assert calls == {k: v["calls"] for k, v in one["kernels"].items()}
-        if rec["kind"] != "decode" and "attn" in kinds:   # decode attends without it
-            assert calls["flash_attention"] == kinds.count("attn")
-        if "rwkv6" in kinds:                               # and in decode
-            assert calls["wkv6"] == kinds.count("rwkv6")
-        if "mamba" in kinds and rec["kind"] != "decode":
-            assert calls["mamba_scan"] == kinds.count("mamba")
-            # the per-device scan is the ranks' share of the one-rank scan
-            assert 8 * rec["kernels"]["mamba_scan"]["flops"] == one["kernels"][
-                "mamba_scan"]["flops"]
-    else:
-        assert rec["not_counted"] == dryrun.NOT_COUNTED
-        assert rec["flops_per_device"] is None and rec["collectives"] is None
+    one = dryrun.run_one(arch, shape, "cpu", out_dir=str(tmp_path), verbose=False)
+    assert "not_counted" not in rec
+    assert 8 * rec["flops_per_device"] >= one["flops_per_device"] > 0
+    assert rec["bytes_per_device"] > 0 and rec["roofline"]["collective_s"] > 0
+    assert sum(v["count"] for v in rec["collectives"].values()) > 0
+    # each layer's kernel once, on the rank's block, as on one rank
+    cfg = get_reduced(arch)
+    kinds = cfg.layer_kinds()
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    assert calls == {k: v["calls"] for k, v in one["kernels"].items()}
+    if rec["kind"] != "decode" and "attn" in kinds:   # decode attends without it
+        assert calls["flash_attention"] == _attentions(cfg)
+    if rec["kind"] == "train" and "attn" in kinds:
+        assert calls["flash_attention_bwd"] == _attentions(cfg)
+    if "rwkv6" in kinds:                               # and in decode
+        assert calls["wkv6"] == kinds.count("rwkv6")
+    if "mamba" in kinds and rec["kind"] != "decode":
+        assert calls["mamba_scan"] == kinds.count("mamba")
+        # the per-device scan is the ranks' share of the one-rank scan
+        assert 8 * rec["kernels"]["mamba_scan"]["flops"] == one["kernels"][
+            "mamba_scan"]["flops"]
     by_tree = rec["memory"]["argument_bytes_by_tree"]
     assert rec["memory"]["argument_size_in_bytes"] == sum(by_tree.values()) > 0
     # the per-device bytes are at most the whole trees' and, where a rule
@@ -200,6 +210,31 @@ def test_dryrun_on_a_sharded_mesh_checks_the_partition(reduced_dryrun, tmp_path,
     model = Model(get_reduced(arch), device="meta")
     whole = sum(x.numel() * x.element_size() for x in tree.leaves(model.abstract_params()))
     assert by_tree["params"] <= whole
+
+
+def _smoke_pins() -> dict:
+    """``chip_smoke.py``'s ``SHARDED_DRYRUN_WANT``: the sharded dry-run
+    counts its phase 17d holds the card's host to."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.SHARDED_DRYRUN_WANT
+
+
+@pytest.mark.parametrize("pair", sorted(_smoke_pins()))
+def test_the_smokes_sharded_pins_are_this_checkouts_count(tmp_path, pair):
+    """Each full-size pair the smoke counts on its mesh (8 ranks, meta, a
+    fake process group) counts here what the smoke expects: FLOPs, bytes,
+    aten ops and every collective, as integers."""
+    arch, shape, mesh = pair
+    rec = dryrun.run_one(arch, shape, mesh, out_dir=str(tmp_path), verbose=False)
+    got = (rec["flops_per_device"], rec["bytes_per_device"], rec["aten_ops"],
+           {k: (v["bytes"], v["count"]) for k, v in rec["collectives"].items()})
+    assert got == _smoke_pins()[pair]
 
 
 def test_per_device_bytes_divides_and_refuses():
@@ -367,6 +402,58 @@ def test_one_layer_mamba_prefill_on_a_model_mesh_has_the_hand_counted_collective
     assert m * cost.kernels["mamba_scan"]["flops"] == plain.kernels["mamba_scan"]["flops"]
 
 
+def test_one_layer_whisper_prefill_on_a_model_mesh_has_the_hand_counted_collectives():
+    """Reduced whisper-small cut to one encoder and one decoder layer,
+    prefill (B 2, 16 tokens over 64 frames, d 128, 4 heads, float32) on a
+    (1, 4) mesh, one head a rank. By hand:
+
+    * the encoder layer: attention's row-parallel ``wo`` and the MLP's
+      row-parallel ``w_out`` (reduced before ``b_out`` is added) each end
+      in one all-reduce of the (B, S_enc, d) activation: 2;
+    * the table's masked lookup (the vocab split 4 ways): one all-reduce
+      of the (B, S, d) activation; the position table is whole on every
+      rank (``(None, "embed")``, serving), its lookup sends nothing;
+    * the decoder layer: self-attention's ``wo``, cross-attention's ``wo``
+      and the MLP's ``w_out``: 3 of (B, S, d);
+    * nothing else: the cross K/V are made split over the heads as the
+      cross cache is and written there in place, the LayerNorms act on
+      each rank's rows, and the logits stay split over the vocab."""
+    cfg = dataclasses.replace(get_reduced("whisper-small"), num_layers=1,
+                              num_encoder_layers=1)
+    b, s = 2, 16
+    cost, plain = _one_layer_prefill(cfg, InputShape("p", s, b, "prefill"))
+    enc = b * cfg.encoder_seq * cfg.d_model * 4
+    dec = b * s * cfg.d_model * 4
+    want = {k: {"bytes": 0, "count": 0} for k in cost.collectives}
+    want["all-reduce"] = {"bytes": 2 * enc + 4 * dec, "count": 6}
+    assert cost.collectives == want
+    # the encoder's, the decoder's self and cross attention, each on one head
+    assert cost.kernels["flash_attention"]["calls"] == 3
+    assert 4 * cost.kernels["flash_attention"]["flops"] == plain.kernels[
+        "flash_attention"]["flops"]
+
+
+def test_one_layer_vlm_prefill_on_a_model_mesh_has_the_hand_counted_collectives():
+    """Reduced internvl2-76b cut to one layer, prefill (B 2, 8 image
+    embeddings ahead of 16 tokens, d 256, 4/2 heads, float32) on a (1, 4)
+    mesh: the text's masked lookup ends in one all-reduce of its (B, S_text,
+    d) embeddings; the image embeddings are whole on every rank and join
+    them on the rank's block, sending nothing; attention's ``wo`` and the
+    FFN's ``w_down`` each end in one all-reduce of the (B, N_img + S_text, d)
+    activation. The 2 k/v heads are cut on each rank (no collective)."""
+    cfg = dataclasses.replace(get_reduced("internvl2-76b"), num_layers=1)
+    b, n = 2, cfg.num_image_tokens
+    s_text = 16
+    cost, plain = _one_layer_prefill(cfg, InputShape("p", n + s_text, b, "prefill"))
+    want = {k: {"bytes": 0, "count": 0} for k in cost.collectives}
+    want["all-reduce"] = {"bytes": (b * s_text + 2 * b * (n + s_text)) * cfg.d_model * 4,
+                          "count": 3}
+    assert cost.collectives == want
+    assert cost.kernels["flash_attention"]["calls"] == 1
+    assert 4 * cost.kernels["flash_attention"]["flops"] == plain.kernels[
+        "flash_attention"]["flops"]
+
+
 def test_a_dtensor_reaching_a_kernel_outside_shard_map_raises():
     from torch.distributed.tensor import Replicate, distribute_tensor
 
@@ -398,12 +485,24 @@ def test_a_dtensor_reaching_a_kernel_outside_shard_map_raises():
                                [Replicate(), Shard(2)], src_data_rank=None)
         with pytest.raises(ValueError, match="written in place"):
             ops.wkv6(r, r, r, r, placed(2, 64), s0, out_state=s0)
-        # a family whose sharded step is not ported refuses placed trees
-        model = Model(get_reduced("whisper-small"), device="meta")
-        shape = InputShape("p", 16, 2, "prefill")
-        step = dryrun.build_step(model, shape, mesh, dryrun.RULE_SETS["serve"])
-        args, params = dryrun.step_inputs(model, shape, "meta")
-        params, args = dryrun.place_inputs(model, shape, mesh, dryrun.RULE_SETS["serve"],
-                                           params, args)
-        with pytest.raises(NotImplementedError, match="audio family has no sharded step"):
-            step(params, *args)
+    # every family takes placed trees: the reduced Whisper's prefill placed on
+    # one gloo rank is the plain prefill, its logits and caches bit for bit
+    import torch.distributed as dist
+
+    model = Model(get_reduced("whisper-small"), device="cpu")
+    shape = InputShape("p", 16, 2, "prefill")
+    rules = dryrun.RULE_SETS["serve"]
+    args, params = dryrun.step_inputs(model, shape, "cpu")
+    plain = dryrun.build_step(model, shape, make_mesh_by_name("cpu"), rules)(params, *args)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh_by_name("cpu")
+        placed_params, placed_args = dryrun.place_inputs(model, shape, mesh, rules, params,
+                                                         args)
+        got = dryrun.build_step(model, shape, mesh, rules)(placed_params, *placed_args)
+        assert compat.is_placed(got[:2])
+        got = compat.gather(got)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(tree.leaves(got), tree.leaves(plain)):
+        assert torch.equal(g, w)
